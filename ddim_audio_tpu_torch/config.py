@@ -37,7 +37,6 @@ def resolve_dtype(name) -> torch.dtype:
 # ROADMAP item that ports it. Asking for one raises instead of silently
 # running another numeric path.
 _NOT_PORTED = {
-    "tap_int8": "int8 MMA taps of conv3x3_flat (ROADMAP.md, queue B, item B5)",
     "strided_int8": "int8 taps of the strided convs (ROADMAP.md, queue B, "
                     "item B6)",
     "act_store": "int8 activation storage and residual_affine_flat "
@@ -60,14 +59,17 @@ def reject_unported(section, where: str) -> None:
 def production_eval_cfg(config, model_cfg):
     """The inference-only overrides of ``config.sampling`` applied to a
     ModelConfig (port of ``ddim_audio_tpu/config.py::production_eval_cfg``):
-    ``sampling.dtype`` sets the denoiser's compute dtype; the sampler's
-    update arithmetic stays fp32. ``tap_int8``, ``strided_int8`` and
-    ``act_store`` raise NotImplementedError (not ported yet)."""
+    ``sampling.dtype`` sets the denoiser's compute dtype (the sampler's
+    update arithmetic stays fp32) and ``sampling.tap_int8`` switches the
+    int8 conv taps on. ``strided_int8`` and ``act_store`` raise
+    NotImplementedError (not ported yet)."""
     reject_unported(config.sampling, "sampling")
     cfg = model_cfg
     sdtype = getattr(config.sampling, "dtype", None)
     if sdtype:
         cfg = dataclasses.replace(cfg, dtype=resolve_dtype(sdtype))
+    if bool(getattr(config.sampling, "tap_int8", False)):
+        cfg = dataclasses.replace(cfg, tap_int8=True)
     return cfg
 
 

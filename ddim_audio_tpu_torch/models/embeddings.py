@@ -16,7 +16,7 @@ POS_CH = 128
 EMB_CH = 512
 
 
-def beta_embedding_init(gen, num_timesteps: int, channel_sz: int, device="cpu"):
+def beta_embedding_init(gen, num_timesteps: int, channel_sz: int, device):
     del num_timesteps  # the table is a constant, not a parameter
     return {
         "mlp": [

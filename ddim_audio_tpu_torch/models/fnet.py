@@ -60,7 +60,7 @@ _FOURIER_IMPLS = {
 }
 
 
-def fnet_layer_init(gen, hidden: int, intermediate: int, device="cpu"):
+def fnet_layer_init(gen, hidden: int, intermediate: int, device):
     return {
         "ln_fourier": layer_norm_init(hidden, device),
         "dense_in": linear_init(gen, hidden, intermediate, device=device),
@@ -75,7 +75,7 @@ def fnet_layer_apply(p, x, *, eps, fourier):
     return layer_norm_apply(p["ln_out"], f + y, eps=eps)
 
 
-def fnet_encoder_init(gen, tcfg, device="cpu"):
+def fnet_encoder_init(gen, tcfg, device):
     kw = tcfg.kwargs
     return {"layers": [fnet_layer_init(gen, kw.hidden_size, kw.intermediate_size,
                                        device=device)
@@ -96,7 +96,7 @@ ENCODER_REGISTRY = {
 }
 
 
-def transformer_module_init(gen, io_channels: int, tcfg, device="cpu"):
+def transformer_module_init(gen, io_channels: int, tcfg, device):
     enc_init, _ = ENCODER_REGISTRY[tcfg.module]
     return {
         "embedding": {

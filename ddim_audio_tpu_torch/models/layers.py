@@ -31,7 +31,7 @@ def _uniform(gen, shape, bound, device):
     return ((2.0 * u - 1.0) * bound).to(device)
 
 
-def conv_init(gen, kh, kw, cin, cout, *, bias=True, device="cpu"):
+def conv_init(gen, kh, kw, cin, cout, *, bias=True, device):
     bound = 1.0 / math.sqrt(cin * kh * kw)
     p = {"w": _uniform(gen, (kh, kw, cin, cout), bound, device)}
     if bias:
@@ -39,7 +39,7 @@ def conv_init(gen, kh, kw, cin, cout, *, bias=True, device="cpu"):
     return p
 
 
-def conv_transpose_init(gen, kh, kw, cin, cout, *, bias=True, device="cpu"):
+def conv_transpose_init(gen, kh, kw, cin, cout, *, bias=True, device):
     # torch ConvTranspose2d fan_in (of its [in,out,kh,kw] weight) = out·kh·kw
     bound = 1.0 / math.sqrt(cout * kh * kw)
     p = {"w": _uniform(gen, (kh, kw, cin, cout), bound, device)}
@@ -48,7 +48,7 @@ def conv_transpose_init(gen, kh, kw, cin, cout, *, bias=True, device="cpu"):
     return p
 
 
-def linear_init(gen, cin, cout, *, bias=True, device="cpu"):
+def linear_init(gen, cin, cout, *, bias=True, device):
     bound = 1.0 / math.sqrt(cin)
     p = {"w": _uniform(gen, (cin, cout), bound, device)}
     if bias:
@@ -56,7 +56,7 @@ def linear_init(gen, cin, cout, *, bias=True, device="cpu"):
     return p
 
 
-def group_norm_init(channels, *, bias=True, zero_weight=False, device="cpu"):
+def group_norm_init(channels, *, bias=True, zero_weight=False, device):
     fill = torch.zeros if zero_weight else torch.ones
     p = {"g": fill(channels, device=device)}
     if bias:
@@ -64,7 +64,7 @@ def group_norm_init(channels, *, bias=True, zero_weight=False, device="cpu"):
     return p
 
 
-def layer_norm_init(channels, device="cpu"):
+def layer_norm_init(channels, device):
     return {"g": torch.ones(channels, device=device),
             "b": torch.zeros(channels, device=device)}
 

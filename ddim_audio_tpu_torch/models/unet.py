@@ -10,10 +10,11 @@ Two forwards, as in the JAX package:
   [B, T, F·channels]. Every resblock runs as two fused ``conv3x3_flat`` calls
   (``ops/flat_resblock.py``), the stage transitions as ``conv_down_flat`` /
   ``conv_up_flat`` with GroupNorm statistics from their epilogues and the
-  up path's skip add fused, and the head/tail as the channel-padded square
-  ``conv3x3_flat`` (the JAX package's own route where its asymmetric
-  head/tail kernels do not apply; those kernels are ROADMAP item B4). On CUDA
-  tensors these are the hand-written kernels, on CPU tensors their twins.
+  up path's skip add fused, and the head and tail as ``conv_head_flat`` /
+  ``conv_tail_flat`` in the state's own unpadded layout. With
+  ``cfg.tap_int8`` the resblock convs of the stages up to 96 channels run
+  int8 taps. On CUDA tensors these are the hand-written kernels, on CPU
+  tensors their twins.
 
 Parameters are nested dicts of torch tensors with the JAX package's
 structure and storage (``init_model``); master weights are fp32 and are cast
@@ -28,9 +29,11 @@ from typing import Any, Sequence
 import torch
 import torch.nn.functional as F
 
-from ..ops.conv_flat import conv3x3_flat
+from ..ops.conv_flat import INT8_WIDTHS, quantize_conv_weights_int8
+from ..ops.conv_head_tail import conv_head_flat, conv_tail_flat
 from ..ops.conv_strided import conv_down_flat, conv_up_flat
 from ..ops.flat_resblock import resblock_flat
+from ..utils.device import resolve_device
 from .embeddings import beta_embedding_apply, beta_embedding_init
 from .fnet import transformer_module_apply, transformer_module_init
 from .layers import (
@@ -53,6 +56,9 @@ class ModelConfig:
     num_timesteps: int = 1000
     dtype: torch.dtype = torch.float32  # compute dtype; params stay fp32
     transformers: Any = None  # namespace: module/kwargs/channels/fourier_impl
+    # int8 × int8 → int32 taps in the resblock convs of the flat sampling
+    # forward, at the stages where ``tap_int8_stage`` holds
+    tap_int8: bool = False
 
     @classmethod
     def from_config(cls, config):
@@ -71,6 +77,7 @@ class ModelConfig:
             num_timesteps=config.diffusion.num_diffusion_timesteps,
             dtype=resolve_dtype(getattr(m, "dtype", None)),
             transformers=m.transformers,
+            tap_int8=bool(getattr(m, "tap_int8", False)),
         )
 
     @property
@@ -102,11 +109,13 @@ def _resblock_init(gen, channels: int, kernel_size: int, device):
     }
 
 
-def init_model(gen: torch.Generator, cfg: ModelConfig, device="cpu"):
-    """The parameter tree (fp32), drawn from ``gen``: same structure, shapes
-    and init bounds as ``ddim_audio_tpu.models.unet.init_model``
-    (47,155,266 params at audio.yml). Note the zero-init GN3 weights make
-    every resblock the identity at init."""
+def init_model(gen: torch.Generator, cfg: ModelConfig, device="cuda"):
+    """The parameter tree (fp32) on device, drawn from ``gen``: same
+    structure, shapes and init bounds as
+    ``ddim_audio_tpu.models.unet.init_model`` (47,155,266 params at
+    audio.yml). Note the zero-init GN3 weights make every resblock the
+    identity at init."""
+    device = resolve_device(device)
     params = {"temb": beta_embedding_init(gen, cfg.num_timesteps,
                                           sum(cfg.embedding_sizes),
                                           device=device)}
@@ -144,16 +153,30 @@ def _cast_conv_weights(params, dtype: torch.dtype):
     return [_cast_conv_weights(v, dtype) for v in params]
 
 
-def prepare_params(params, dtype: torch.dtype):
+def tap_int8_stage(cfg: ModelConfig, c: int) -> bool:
+    """Whether a stage of width c runs int8 taps: the widths of the JAX
+    package's ``tap_int8_profitable`` (C <= 96), where int32 accumulation of
+    the 9·C int8 products is also exact in the fp32-based twin."""
+    return cfg.tap_int8 and c <= max(INT8_WIDTHS)
+
+
+def prepare_params(params, cfg: ModelConfig):
     """The tree a sampler loop passes on every step, made once per run: the
-    conv weights (the 4-D leaves) cast to the compute dtype, and the head and
-    tail also stored as the padded square conv the flat forward runs
-    (``"square"``, see ``_padded_square``). The forwards then cast and pad
-    nothing per call; ``apply_model`` ignores the extra entries."""
-    p = _cast_conv_weights(params, dtype)
-    c0 = p["down_modules"]["head"]["w"].shape[3]
-    for conv in (p["down_modules"]["head"], p["up_modules"]["tail"]):
-        conv["square"] = _padded_square(conv, c0, dtype)
+    conv weights (the 4-D leaves) cast to the compute dtype and, with
+    ``cfg.tap_int8``, the resblock convs of the int8 stages also quantised
+    FROM THE FP32 WEIGHTS (``wq``, ``w_scale`` beside ``w``). The forwards
+    then cast and quantise nothing per call; ``apply_model`` ignores the
+    extra entries."""
+    p = _cast_conv_weights(params, cfg.dtype)
+    for mod in ("down_modules", "up_modules"):
+        for c, src, dst in zip(cfg.ch, params[mod]["stages"],
+                               p[mod]["stages"]):
+            if not tap_int8_stage(cfg, c):
+                continue
+            for bsrc, bdst in zip(src["blocks"], dst["blocks"]):
+                for name in ("conv1", "conv2"):
+                    wq, w_scale = quantize_conv_weights_int8(bsrc[name]["w"])
+                    bdst[name].update(wq=wq, w_scale=w_scale)
     return p
 
 
@@ -258,20 +281,6 @@ def flat_io_adapters(cfg: ModelConfig):
     return to_flat, from_flat
 
 
-def _padded_square(conv, c0: int, dtype: torch.dtype):
-    """(w, b): a 3×3 head (cin → c0) or tail (c0 → cout) conv zero-padded
-    to the square [3, 3, c0, c0] conv, weight in the compute dtype and fp32
-    bias (the JAX package's route where its asymmetric head/tail kernels do
-    not apply, unet.py:577-594, :690-698). Taken from ``prepare_params``'s
-    copy when there is one."""
-    if "square" in conv:
-        w, b = conv["square"]
-        return w.to(dtype), b
-    w, b = conv["w"], conv["b"]
-    return (F.pad(w.to(dtype), (0, c0 - w.shape[3], 0, c0 - w.shape[2])),
-            F.pad(b.float(), (0, c0 - b.shape[0])))
-
-
 def _apply_model_flat_core(params, xf, temb_chunks, cfg: ModelConfig):
     """Flat-layout forward: xf [B, T, F·channels] in the compute dtype."""
     dtype = cfg.dtype
@@ -284,16 +293,16 @@ def _apply_model_flat_core(params, xf, temb_chunks, cfg: ModelConfig):
         for k, block in enumerate(blocks):
             last = k == len(blocks) - 1
             res = resblock_flat(block, hf, next(temb_iter), f=f, c=c,
-                                in_stats=stats, want_out_stats=not last)
+                                in_stats=stats, want_out_stats=not last,
+                                tap_int8=tap_int8_stage(cfg, c))
             hf, stats = res if not last else (res, None)
         return hf
 
-    # Head: channel-pad the state to ch0 and run the square kernel; its
-    # epilogue seeds stage 0's GroupNorm statistics.
-    w_head, b_head = _padded_square(params["down_modules"]["head"], c0, dtype)
-    xp = F.pad(xf.view(bsz, t, f, cin), (0, c0 - cin)).reshape(bsz, t, f * c0)
-    hf, hs1, hs2 = conv3x3_flat(xp, w_head, c=c0, add=b_head,
-                                want_stats=True)
+    # Head conv in the state's own layout; its epilogue seeds stage 0's
+    # GroupNorm statistics.
+    head = params["down_modules"]["head"]
+    hf, hs1, hs2 = conv_head_flat(xf, head["w"].to(dtype), head["b"],
+                                  c_in=cin, c0=c0, want_stats=True)
 
     hidden = [hf]
     stats = (hs1, hs2)
@@ -336,11 +345,9 @@ def _apply_model_flat_core(params, xf, temb_chunks, cfg: ModelConfig):
             t *= 2
             f *= 2
 
-    # Tail: the square kernel with the head skip fused into its input; keep
-    # the real output channels.
+    # Tail conv with the head skip fused into its input; it emits the
+    # unpadded ε-prediction. Float taps always: its output is the model's
+    # result, so requantisation noise would land on it un-normalised.
     tail = params["up_modules"]["tail"]
-    cout = tail["w"].shape[3]
-    w_tail, b_tail = _padded_square(tail, c0, dtype)
-    of = conv3x3_flat(hf, w_tail, c=c0, add=b_tail,
-                      residual=hidden.pop())
-    return of.view(bsz, t, f, c0)[..., :cout].reshape(bsz, t, f * cout)
+    return conv_tail_flat(hf, tail["w"].to(dtype), tail["b"], c0=c0,
+                          c_out=tail["w"].shape[3], residual=hidden.pop())

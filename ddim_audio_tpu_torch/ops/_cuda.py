@@ -11,6 +11,7 @@ import every module of the port on machines with no ``nvcc``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -26,7 +27,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -34,9 +35,19 @@ _SIGNATURES = {
     "ddim_conv3x3_tiles": (_I,) * 4,
     "ddim_conv_down_tiles": (_I,) * 5,
     "ddim_conv_up_tiles": (_I,) * 5,
+    "ddim_conv3x3_int8_tiles": (_I,) * 2,
+    "ddim_conv3x3_int8_geometry": (_I,),
+    "ddim_conv_head_tiles": (_I,) * 2,
     # x, res, pre_scale, pre_shift, w, add, out, stats,
     # B, T, F, C, pre_silu, post_silu, bf16, stream
     "ddim_conv3x3": (_P,) * 8 + (_I,) * 7 + (_P,),
+    # x, res, pre_scale, pre_shift, wq, w_scale, add, out, stats,
+    # B, T, F, C, pre_silu, post_silu, bf16, stream
+    "ddim_conv3x3_int8": (_P,) * 9 + (_I,) * 7 + (_P,),
+    # x, w, bias, out, stats, B, T, F, Cin, C0, bf16, stream
+    "ddim_conv_head": (_P,) * 5 + (_I,) * 6 + (_P,),
+    # h, res, w, bias, out, B, T, F, C0, Cout, bf16, stream
+    "ddim_conv_tail": (_P,) * 5 + (_I,) * 6 + (_P,),
     # x, w, bias, out, stats, B, T, F, Cin, Cout, bf16, stream
     "ddim_conv_down": (_P,) * 5 + (_I,) * 6 + (_P,),
     # x, w, bias, res, out, stats, B, T, F, Cin, Cout, bf16, stream
@@ -71,16 +82,32 @@ def build() -> tuple[Path, float, str]:
     if lib.exists():
         return lib, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    tag = f"{lib.stem}.{os.getpid()}"
+    tmp = lib.with_name(f"{tag}.tmp")
+    units = sorted(CSRC.glob("*.cu"))
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in units]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    # one nvcc per source, all started together, then one link
+    procs = [subprocess.Popen(
+        [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(units, objs)]
+    logs = [proc.communicate()[0] for proc in procs]
+    log = "".join(f"== {src.name}\n{out}" for src, out in zip(units, logs))
+    failed = [src.name for src, proc in zip(units, procs) if proc.returncode]
+    if not failed:
+        link = subprocess.run(
+            [_nvcc(), "-shared", "-o", str(tmp), *[str(o) for o in objs]],
+            capture_output=True, text=True)
+        log += link.stdout + link.stderr
+        if link.returncode:
+            failed = ["link"]
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{log}")
     os.replace(tmp, lib)
     return lib, seconds, log
 
@@ -95,6 +122,52 @@ def kernels() -> ctypes.CDLL:
         fn.argtypes = list(args)
         fn.restype = ctypes.c_int
     return lib
+
+
+_twin_route = {"forced": False, "int8_group": None, "shadow": None}
+
+
+@contextlib.contextmanager
+def twin_route(force: bool = True, int8_group=None, shadow=None):
+    """The reference route, for checks and probes. Within the block every
+    kernel wrapper runs its plain twin whatever the device of its tensors
+    (``force``), and the int8 twin quantises over ``int8_group = (q_tile,
+    q_halo)`` instead of the CUDA kernel's own group (a ``None`` extent means
+    the whole axis; ``((tile_t, None), (2, 0))`` is the TPU kernel's group,
+    which the parity tests use). With ``shadow``, a callable
+    ``shadow(name, kernel_result, twin_result)``, each wrapper also launches
+    its kernel on the same CUDA operands and hands both results over, then
+    goes on with the twin's: every kernel of a whole forward is so held
+    against its twin on the activations the model really gives it. This is
+    the only way a CUDA tensor reaches a twin; the package never enters it."""
+    old = dict(_twin_route)
+    _twin_route.update(forced=force, int8_group=int8_group, shadow=shadow)
+    try:
+        yield
+    finally:
+        _twin_route.update(old)
+
+
+def use_twin(t: torch.Tensor) -> bool:
+    """Whether a wrapper runs its plain twin on t: a CPU tensor, or any
+    tensor inside ``twin_route``."""
+    return t.device.type == "cpu" or _twin_route["forced"]
+
+
+def twin_int8_group():
+    """(q_tile, q_halo) set by ``twin_route``, or None."""
+    return _twin_route["int8_group"]
+
+
+def twin_result(name: str, ref, t: torch.Tensor, launch):
+    """The twin's result ``ref``, after ``twin_route``'s shadow (if any) has
+    seen it beside the kernel's: ``launch()`` calls the wrapper again, which
+    outside the forced route launches the kernel."""
+    shadow = _twin_route["shadow"]
+    if shadow is not None and t.device.type == "cuda":
+        with twin_route(force=False):
+            shadow(name, launch(), ref)
+    return ref
 
 
 def ptr(t: torch.Tensor | None):

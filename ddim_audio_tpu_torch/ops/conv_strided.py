@@ -32,6 +32,8 @@ from ._cuda import (
     ptr,
     require_cuda_dtype,
     stream_ptr,
+    twin_result,
+    use_twin,
 )
 from .conv_flat import _finish, _nchw
 
@@ -88,9 +90,11 @@ def conv_down_flat(x, w, bias, *, c_in: int, c_out: int,
     """x: [B, T, F·C_in] → [B, T/2, (F/2)·C_out]; w: [4, 4, C_in, C_out] HWIO
     in x's dtype; bias: [C_out] fp32. Returns out, or (out, sum [B, C_out],
     sum² [B, C_out]) when want_stats."""
-    if x.device.type == "cpu":
-        return conv_down_flat_plain(x, w, bias, c_in=c_in, c_out=c_out,
-                                    want_stats=want_stats)
+    if use_twin(x):
+        kw = dict(c_in=c_in, c_out=c_out, want_stats=want_stats)
+        return twin_result("conv_down_flat",
+                           conv_down_flat_plain(x, w, bias, **kw), x,
+                           lambda: conv_down_flat(x, w, bias, **kw))
     b, t, f = _geometry(x, c_in, "conv_down_flat")
     if t % 2 or f % 2:
         raise ValueError(f"conv_down_flat: T={t} and F={f} must be even")
@@ -126,9 +130,12 @@ def conv_up_flat(x, w, bias, *, c_in: int, c_out: int, residual=None,
     equivalent-forward HWIO in x's dtype; bias: [C_out] fp32; residual:
     optional [B, 2T, 2F·C_out] skip in x's dtype added in the epilogue.
     Returns out, or (out, sum, sum²) of the summed fp32 output."""
-    if x.device.type == "cpu":
-        return conv_up_flat_plain(x, w, bias, c_in=c_in, c_out=c_out,
-                                  residual=residual, want_stats=want_stats)
+    if use_twin(x):
+        kw = dict(c_in=c_in, c_out=c_out, residual=residual,
+                  want_stats=want_stats)
+        return twin_result("conv_up_flat",
+                           conv_up_flat_plain(x, w, bias, **kw), x,
+                           lambda: conv_up_flat(x, w, bias, **kw))
     b, t, f = _geometry(x, c_in, "conv_up_flat")
     bf16 = require_cuda_dtype(x, "conv_up_flat")
     dev = x.device

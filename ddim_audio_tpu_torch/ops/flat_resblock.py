@@ -1,5 +1,5 @@
 """Fused residual block over the flat state [B, T, F·C] (port of
-``ddim_audio_tpu/ops/flat_resblock.py::resblock_flat``, float taps).
+``ddim_audio_tpu/ops/flat_resblock.py::resblock_flat``, float or int8 taps).
 
     x → GN1 → SiLU → conv1 (+temb) → SiLU → GN2 → conv2 (+b) → SiLU → GN3 → +x
 
@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from .conv_flat import conv3x3_flat
+from .conv_flat import conv3x3_flat, quantize_conv_weights_int8
 
 GROUPS = 8
 EPS = 1e-6
@@ -54,25 +54,46 @@ def gn_affine_from_sums(s1, s2, n: int, norm_params, c: int):
     return scale.view(b, c), shift.view(b, c)
 
 
+def _taps(conv, dtype, tap_int8: bool):
+    """(w, w_scale) of a resblock conv for ``conv3x3_flat``: the float weight
+    in the compute dtype, or the int8 weight and its scales from
+    ``models.unet.prepare_params``'s copy (``wq``, ``w_scale``). A tree that
+    was not prepared is quantised here only while it still holds the fp32
+    weights, which gives the same integers; quantising a weight that was
+    already cast would not, so that raises."""
+    if not tap_int8:
+        return conv["w"].to(dtype), None
+    if "wq" in conv:
+        return conv["wq"], conv["w_scale"]
+    if conv["w"].dtype != torch.float32:
+        raise ValueError(
+            f"tap_int8: the conv weight is {conv['w'].dtype} and has no "
+            "'wq'/'w_scale': int8 weights are quantised from the fp32 "
+            "weights (models.unet.prepare_params), not from a cast copy")
+    return quantize_conv_weights_int8(conv["w"])
+
+
 def resblock_flat(p, x_flat, temb, *, f: int, c: int, in_stats=None,
-                  want_out_stats: bool = False):
+                  want_out_stats: bool = False, tap_int8: bool = False):
     """p: resblock params; x_flat [B, T, F·C] in the compute dtype; temb
     [B, C] fp32. in_stats: optional per-channel (sum, sum²) of x_flat from
     the producer (previous block or a transition kernel); computed here when
-    absent. Returns out, or (out, out_stats) when want_out_stats."""
+    absent. tap_int8: both convs run their taps in int8
+    (``conv3x3_flat_int8``); the tail ``x + GN3(s)`` is unchanged. Returns
+    out, or (out, out_stats) when want_out_stats."""
     dtype = x_flat.dtype
     b, t, fc = x_flat.shape
     n = t * f * (c // GROUPS)
     if in_stats is None:
         in_stats = channel_sums(x_flat, c)
-    w1 = p["conv1"]["w"].to(dtype)
-    w2 = p["conv2"]["w"].to(dtype)
+    w1, ws1 = _taps(p["conv1"], dtype, tap_int8)
+    w2, ws2 = _taps(p["conv2"], dtype, tap_int8)
     h, h1, h2 = conv3x3_flat(
         x_flat, w1, c=c, pre=gn_affine_from_sums(*in_stats, n, p["norm1"], c),
-        pre_silu=True, add=temb, post_silu=True, want_stats=True)
+        pre_silu=True, add=temb, post_silu=True, want_stats=True, w_scale=ws1)
     s, s1, s2 = conv3x3_flat(
         h, w2, c=c, pre=gn_affine_from_sums(h1, h2, n, p["norm2"], c),
-        add=p["conv2"]["b"], post_silu=True, want_stats=True)
+        add=p["conv2"]["b"], post_silu=True, want_stats=True, w_scale=ws2)
     scale3, shift3 = gn_affine_from_sums(s1, s2, n, p["norm3"], c)
     # x + GN3(s) in fp32 in three passes (add promotes x to fp32, addcmul_
     # runs in place), rounded once to the storage dtype

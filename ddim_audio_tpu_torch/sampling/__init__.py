@@ -1,4 +1,6 @@
 from .ddim import ddim_coefficients, ddim_step
+from .ddpm import ddpm_coefficients, ddpm_step
 from .driver import ScanSampler
 
-__all__ = ["ddim_coefficients", "ddim_step", "ScanSampler"]
+__all__ = ["ddim_coefficients", "ddim_step", "ddpm_coefficients", "ddpm_step",
+           "ScanSampler"]

@@ -154,7 +154,7 @@ def test_resblock_flat_matches_jax():
         ref, (r1, r2) = jax_resblock_flat(
             p, jnp.asarray(x), jnp.asarray(temb), f=F, c=C, tile_t=8,
             want_out_stats=True)
-    pt = params_from_jax(jax.tree_util.tree_map(np.asarray, p))
+    pt = params_from_jax(jax.tree_util.tree_map(np.asarray, p), device="cpu")
     out, (s1, s2) = resblock_flat(pt, _t(x), _t(temb), f=F, c=C,
                                   want_out_stats=True)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=5e-5)

@@ -113,7 +113,8 @@ def test_three_step_chain_matches_jax():
                 c = block["norm3"]["g"].shape[0]
                 block["norm3"]["g"] = jnp.asarray(
                     1.0 + 0.2 * rng.standard_normal(c).astype(np.float32))
-    params_t = params_from_jax(jax.tree_util.tree_map(np.asarray, params_j))
+    params_t = params_from_jax(jax.tree_util.tree_map(np.asarray, params_j),
+                               device="cpu")
     sched = schedules.make_schedule("linear", 1e-4, 0.02, 50)
     seq = [0, 16, 32]
     x = rng.standard_normal((2, 2, 16, 16)).astype(np.float32)
@@ -141,7 +142,8 @@ def test_runner_sample_last_only_writes_files(tmp_path, eta):
                            sample_type="generalized",
                            image_folder=str(tmp_path))
     runner = Diffusion(args, config, device="cpu")
-    params = unet.init_model(torch.Generator().manual_seed(0), runner.model_cfg)
+    params = unet.init_model(torch.Generator().manual_seed(0),
+                             runner.model_cfg, device="cpu")
     reset_launch_counts()
     out = runner.sample_last_only(params)
     assert launch_counts() == {k: 0 for k in launch_counts()}  # CPU: twins
@@ -175,18 +177,20 @@ def test_codec_and_denoise_equal_jax():
 def test_config_rules():
     config = tconfig.load_config(os.path.join(REPO, "configs", "audio.yml"))
     cfg = unet.ModelConfig.from_config(config)
-    assert config.sampling.tap_int8 is True
-    with pytest.raises(NotImplementedError, match="tap_int8"):
-        tconfig.production_eval_cfg(config, cfg)
+    assert config.sampling.tap_int8 is True and not cfg.tap_int8
+    eval_cfg = tconfig.production_eval_cfg(config, cfg)  # audio.yml as shipped
+    assert eval_cfg.dtype == torch.bfloat16 and eval_cfg.tap_int8
     config.sampling.tap_int8 = False
-    assert tconfig.production_eval_cfg(config, cfg).dtype == torch.bfloat16
+    assert not tconfig.production_eval_cfg(config, cfg).tap_int8
     for key, value in (("act_store", "int8"), ("strided_int8", True)):
         setattr(config.sampling, key, value)
         with pytest.raises(NotImplementedError, match=key):
             tconfig.production_eval_cfg(config, cfg)
         setattr(config.sampling, key, None)
     config.model.tap_int8 = True
-    with pytest.raises(NotImplementedError, match="tap_int8"):
+    assert unet.ModelConfig.from_config(config).tap_int8
+    config.model.strided_int8 = True
+    with pytest.raises(NotImplementedError, match="strided_int8"):
         unet.ModelConfig.from_config(config)
     for name, want in (("float32", torch.float32), ("bfloat16", torch.bfloat16),
                        ("torch.cuda.FloatTensor", torch.float32),
