@@ -47,11 +47,38 @@ phase on its own lines:
    fp32 plain chain from the same x_T, on init weights and on the
    non-zero-GN3 weights.
 
+7. the three weight-gradient kernels (``conv_dw_flat``,
+   ``conv_down_dw_flat``, ``conv_up_dw_flat``) against their plain versions
+   at every stage shape of the training geometry (microbatch 1 of
+   [2, 1024, 256]), fp32 and bf16: agreement, the same kernel twice bit for
+   bit, the kernel's and the plain version's time, the bound, and the one
+   PyTorch call (``torch.nn.grad.conv2d_weight``; fp32 with TF32 off);
+8. grad: one microbatch forward + backward of the full audio.yml model
+   (fp32, remat) on the non-zero-GN3 weights: the kernel route, the same
+   through the plain twins with every wrapper call shadowed by its kernel,
+   and the plain autograd route (cuDNN, TF32 off, deterministic); every
+   parameter leaf's gradient of the kernel route held against the plain
+   route; launch counts per microbatch required; ms per microbatch;
+9. train, through the command line on a temporary folder of 16 seed-made
+   ``.npy`` waveforms (14 train / 2 held out), audio.yml as shipped (batch
+   14, ``grad_accum: 14``, fp32, remat) but for ``data.path``, ``n_iters``,
+   ``snapshot_freq`` and ``validation_freq``: 3 steps → ``ckpt_1.npz`` and
+   ``ckpt.npz``, finite logged losses, validation ran; ``--resume_training``
+   to step 5; the unbroken 5-step run, whose checkpoint must equal the
+   resumed one bit for bit (parameters, optimizer state, EMA); ``--test``;
+   ``--sample`` from that checkpoint; a 2-step ``model.dtype: bfloat16`` run
+   whose losses track the fp32 run's; ms per optimizer step by CUDA events.
+
 Every failure raises and the script exits non-zero. The last three lines are
 the card, the per-kernel JSON summary and ``{"ok": true, "device": {...}}``.
 In the summary ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` are sums
-over the kernel's production shapes in bf16 at B = 2, each shape once;
-``launches`` counts the launches of the three command-line runs of phase 5. It imports nothing of JAX.
+over the kernel's main-path shapes, each shape once: bf16 at B = 2 at the
+sampling shapes for the six forward kernels, fp32 at B = 1 at the training
+shapes for the three weight-gradient kernels. ``launches`` counts the
+launches of the three command-line sampling runs of phase 5 (forward
+kernels) or of the first command-line training run of phase 9
+(weight-gradient kernels); ``launches_train_path`` is every kernel's count in
+that training run. It imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -120,6 +147,23 @@ SNR_CHAIN_GN3_BF16_DB = 41.0
 SNR_CHAIN_PROD_INIT_DB = 47.6
 SNR_CHAIN_PROD_GN3_DB = 28.8
 PARAMS_AUDIO_YML = 47_155_266
+# Weight-gradient kernels vs their plain versions: the same operand values,
+# fp32 accumulation on both sides, another summation order over up to
+# 262,144 positions (an H100 read 1e-6 relative).
+TOL_DW = 1e-4
+# One fp32 microbatch, kernels against the twins call by call on the model's
+# own activations and cotangents (an H100 read 123.8 dB at the worst call of
+# the forward kernels and 132.3 dB of the weight-gradient kernels).
+SHADOW_GRAD_FP32_DB = 100.0
+# Every parameter leaf's gradient, kernel route against the plain autograd
+# route: max|difference| over the leaf's max|gradient| (or, for a leaf whose
+# own gradient is far below the largest, over 1e-3 of the largest). An H100
+# read 6.6e-6 at the worst of the 388 leaves, 114.1 dB over all gradients.
+TOL_GRAD_LEAF = 1e-4
+# bf16 compute against fp32, the loss of the same optimizer steps (same
+# data, timesteps and noise), relative (an H100 read 7.4e-5 from init
+# weights, where the resblock branches are still multiplied by zero).
+TOL_BF16_LOSS = 2e-2
 
 # Published H100 SXM peaks: HBM bytes/s and dense operations/s by operand type
 # (fp32 outside the tensor cores).
@@ -135,6 +179,18 @@ DOWNS = [(8192, 256, 32, 64), (4096, 128, 64, 96), (2048, 64, 96, 128),
          (1024, 32, 128, 192), (512, 16, 192, 256)]
 HEAD_TAIL = [(8192, 256, True), (40, 24, False)]  # (T, F, production shape)
 
+# Training geometry: stage shapes (T, F, C) of one microbatch [1, 2, 1024, 256]
+TRAIN_STAGES = [(1024, 256, 32), (512, 128, 64), (256, 64, 96), (128, 32, 128),
+                (64, 16, 192), (32, 8, 256)]
+# launches of one training microbatch (forward, remat recompute, backward):
+# 64 resblock convs + padded head + tail forward, 64 recomputed, dx for all
+# but the head (its input is data); dx of a down conv is the up kernel and
+# the reverse
+PER_MICROBATCH = {"conv3x3_flat": 66 + 64 + 65, "conv3x3_flat_int8": 0,
+                  "conv_head_flat": 0, "conv_tail_flat": 0,
+                  "conv_down_flat": 5 + 5, "conv_up_flat": 5 + 5,
+                  "conv_dw_flat": 66, "conv_down_dw_flat": 5,
+                  "conv_up_dw_flat": 5}
 CSRC = "ddim_audio_tpu_torch/csrc/"
 PALLAS = "ddim_audio_tpu/ops/pallas/"
 REPLACES = {
@@ -146,6 +202,11 @@ REPLACES = {
                        PALLAS + "conv_head_tail.py:126"),
     "conv_tail_flat": (CSRC + "conv_head_tail.cu",
                        PALLAS + "conv_head_tail.py:302"),
+    "conv_dw_flat": (CSRC + "conv_dw.cu", "ddim_audio_tpu/ops/flat_grad.py:51"),
+    "conv_down_dw_flat": (CSRC + "conv_dw.cu",
+                          "ddim_audio_tpu/ops/flat_grad.py:334"),
+    "conv_up_dw_flat": (CSRC + "conv_dw.cu",
+                        "ddim_audio_tpu/ops/flat_grad.py:437"),
 }
 # launches of one forward: float-tap route and production route
 PER_FORWARD_FLOAT = {"conv3x3_flat": 64, "conv3x3_flat_int8": 0,
@@ -153,6 +214,18 @@ PER_FORWARD_FLOAT = {"conv3x3_flat": 64, "conv3x3_flat_int8": 0,
                      "conv_down_flat": 5, "conv_up_flat": 5}
 PER_FORWARD_PROD = dict(PER_FORWARD_FLOAT, conv3x3_flat=36,
                         conv3x3_flat_int8=28)
+DW_KERNELS = ("conv_dw_flat", "conv_down_dw_flat", "conv_up_dw_flat")
+
+
+def forward_counts() -> dict:
+    """Launch counts of the six forward kernels (the sampling phases check
+    these; the weight-gradient kernels never run there)."""
+    from ddim_audio_tpu_torch.ops import launch_counts
+
+    counts = launch_counts()
+    for name in DW_KERNELS:
+        require(counts.pop(name) == 0, f"{name} launched on a sampling path")
+    return counts
 
 
 def log(msg: str) -> None:
@@ -236,13 +309,14 @@ class Shadow:
         entry[1] = min(entry[1], snr_db(outs[0], refs[0]))
         entry[2] = max(entry[2], srel)
 
-    def check(self, tag, want_calls):
+    def check(self, tag, want_calls, floor_db=None):
         calls = {name: e[0] for name, e in self.seen.items()}
         want_calls = {k: v for k, v in want_calls.items() if v}
         require(calls == want_calls, f"{tag}: shadowed calls {calls} != "
                 f"{want_calls}")
         for name, (n, snr, srel) in self.seen.items():
-            floor = SHADOW_INT8_DB if name.endswith("int8") else SHADOW_FLOAT_DB
+            floor = floor_db or (SHADOW_INT8_DB if name.endswith("int8")
+                                 else SHADOW_FLOAT_DB)
             log(f"{tag} {name}: {n} calls on the model's own activations, "
                 f"worst SNR vs the twin {snr:.1f} dB (>= {floor}), worst "
                 f"stats rel {srel:.2e} (<= {SHADOW_STATS})")
@@ -545,7 +619,7 @@ def phase_forward(config, cfg, params):
         reset_launch_counts()
         out = from_flat(apply_model_flat_io(p, xf, t, c))
         torch.cuda.synchronize()
-        counts = launch_counts()
+        counts = forward_counts()
         require(bool(torch.isfinite(out).all()), f"{name} forward not finite")
         snr = snr_db(out, ref)
         log(f"[forward] kernel route, {name}, vs fp32 plain: SNR {snr:.2f} dB "
@@ -664,7 +738,7 @@ def _phase_slice(summary, params, runs, clips, seed, exported):
     from ddim_audio_tpu_torch.config import load_config
     from ddim_audio_tpu_torch.diffusion.schedules import \
         make_timestep_subsequence
-    from ddim_audio_tpu_torch.ops import launch_counts, reset_launch_counts
+    from ddim_audio_tpu_torch.ops import reset_launch_counts
     from ddim_audio_tpu_torch.runners.diffusion_runner import Diffusion
     from ddim_audio_tpu_torch.sampling import driver
     from ddim_audio_tpu_torch.weights import save_eval_checkpoint
@@ -700,7 +774,7 @@ def _phase_slice(summary, params, runs, clips, seed, exported):
                 f"[2, 2, 8192, 256]: exit 0, {len(names) * clips * 2} files, "
                 f"every exported array finite, host wall {wall:.2f} s (checkpoint load, denoise, export "
                 "included)")
-        counts = launch_counts()
+        counts = forward_counts()
         want = {k: v * forwards for k, v in PER_FORWARD_PROD.items()}
         log(f"[slice] launches of the three CLI runs ({forwards} forwards): "
             f"{counts}")
@@ -785,7 +859,7 @@ def phase_float_path(summary, config, cfg, params):
                                                   apply_model_flat_io,
                                                   flat_io_adapters, init_model,
                                                   prepare_params)
-    from ddim_audio_tpu_torch.ops import launch_counts, reset_launch_counts
+    from ddim_audio_tpu_torch.ops import reset_launch_counts
     from ddim_audio_tpu_torch.runners.diffusion_runner import Diffusion
     from ddim_audio_tpu_torch.sampling.driver import ScanSampler
 
@@ -817,7 +891,7 @@ def phase_float_path(summary, config, cfg, params):
             walls.append(time.perf_counter() - t0)
             require(out.shape == (1, 2, 8192, 256), f"sample shape {out.shape}")
             require(bool(np.isfinite(out).all()), "sample not finite")
-        counts = launch_counts()
+        counts = forward_counts()
         want = {k: v * steps * clips for k, v in PER_FORWARD_FLOAT.items()}
         log(f"[float] sample_last_only x{clips} (bf16, float taps, {steps} "
             f"DDIM steps): host wall {', '.join(f'{w:.3f}' for w in walls)} s "
@@ -882,6 +956,414 @@ def phase_float_path(summary, config, cfg, params):
                 f"{snr_p:.2f} < {floor_p} dB")
 
 
+def _dw_cases(torch):
+    """The weight-gradient kernels at every stage shape of one training
+    microbatch: (name, label, kernel, plain, make(dtype) -> (x, g, kwargs),
+    lib(x, g) -> the one PyTorch call, base F, taps·C_in·C_out, positions)."""
+    from torch.nn.grad import conv2d_weight
+
+    from ddim_audio_tpu_torch.ops import flat_grad as fg
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    cases = []
+    for i, (t, f, c) in enumerate(TRAIN_STAGES):
+        x, g = rnd(1, t, f * c), rnd(1, t, f * c)
+        cases.append(dict(
+            name="conv_dw_flat", label=f"T{t} F{f} C{c}", kernel=fg.conv_dw_flat,
+            plain=fg.conv_dw_flat_plain,
+            make=lambda dt, x=x, g=g, c=c: (x.to(dt), g.to(dt), dict(c=c)),
+            lib=lambda x, g, c=c: lambda: conv2d_weight(
+                _nchw(x, c), (c, c, 3, 3), _nchw(g, c), padding=1),
+            fb=f, c_in=c, c_out=c, ops=2.0 * 9 * c * c * t * f))
+        if i + 1 == len(TRAIN_STAGES):
+            break
+        t2, f2, c2 = TRAIN_STAGES[i + 1]
+        xd, gd = rnd(1, t, f * c), rnd(1, t2, f2 * c2)
+        cases.append(dict(
+            name="conv_down_dw_flat", label=f"T{t} F{f} {c}->{c2}",
+            kernel=fg.conv_down_dw_flat, plain=fg.conv_down_dw_flat_plain,
+            make=lambda dt, x=xd, g=gd, c=c, c2=c2: (
+                x.to(dt), g.to(dt), dict(c_in=c, c_out=c2)),
+            lib=lambda x, g, c=c, c2=c2: lambda: conv2d_weight(
+                _nchw(x, c), (c2, c, 4, 4), _nchw(g, c2), stride=2, padding=1),
+            fb=f2, c_in=c, c_out=c2, ops=2.0 * 16 * c * c2 * t2 * f2))
+        xu, gu = rnd(1, t2, f2 * c2), rnd(1, t, f * c)
+        # the transposed conv is the adjoint of the strided conv c -> c2, so
+        # its weight gradient is that conv's, with g as the input
+        cases.append(dict(
+            name="conv_up_dw_flat", label=f"T{t2} F{f2} {c2}->{c}",
+            kernel=fg.conv_up_dw_flat, plain=fg.conv_up_dw_flat_plain,
+            make=lambda dt, x=xu, g=gu, c=c, c2=c2: (
+                x.to(dt), g.to(dt), dict(c_in=c2, c_out=c)),
+            lib=lambda x, g, c=c, c2=c2: lambda: conv2d_weight(
+                _nchw(g, c), (c2, c, 4, 4), _nchw(x, c2), stride=2, padding=1),
+            fb=f2, c_in=c2, c_out=c, ops=2.0 * 16 * c * c2 * t2 * f2))
+    return cases
+
+
+def phase_dw_kernels(summary):
+    import torch
+
+    for case in _dw_cases(torch):
+        name, label = case["name"], "B1 " + case["label"]
+        entry = summary.setdefault(name, {
+            "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+            "library_ms": 0.0, "_bytes": 0.0, "_ops": 0.0})
+        for dtype, dt in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+            x, g, kw = case["make"](dtype)
+            out = case["kernel"](x, g, **kw)
+            again = case["kernel"](x, g, **kw)
+            ref = case["plain"](x, g, **kw)
+            torch.cuda.synchronize()
+            err, rel = rel_err(out, ref)
+            require(out.dtype == torch.float32, f"{name}: dW is {out.dtype}")
+            require(bool(torch.equal(out, again)),
+                    f"{name} {label} {dt}: two runs differ")
+            require(rel <= TOL_DW, f"{name} {label} {dt}: rel err {rel:.3e} > "
+                    f"{TOL_DW}")
+            ms = cuda_time(lambda: case["kernel"](x, g, **kw))
+            plain_ms = cuda_time(lambda: case["plain"](x, g, **kw), n=5,
+                                 warmup=1)
+            lib_ms = cuda_time(case["lib"](x, g))
+            # the unit the kernel uses: tensor cores for bf16 where the
+            # variant with them applies, CUDA cores otherwise
+            mma = (dtype == torch.bfloat16 and case["fb"] >= 16
+                   and case["c_in"] % 32 == 0 and case["c_out"] % 32 == 0)
+            bnd, by = bound_ms([x, g, out], case["ops"],
+                               "bf16" if mma else "fp32")
+            tf32 = "" if dtype == torch.bfloat16 else ", TF32 off"
+            log(f"[kernels] {name:17s} {label:23s} {dt} max_abs {err:.3e} rel "
+                f"{rel:.3e} (<= {TOL_DW}), twice bit-equal | kernel {ms:.3f} ms, "
+                f"plain {plain_ms:.3f} ms, bound {bnd:.3f} ms ({by}), "
+                f"conv2d_weight ({dt}{tf32}) {lib_ms:.3f} ms")
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+            if dtype == torch.float32:  # the main path trains in fp32
+                entry["ms"] += ms
+                entry["plain_ms"] += plain_ms
+                entry["bound_ms"] += bnd
+                entry["library_ms"] += lib_ms
+                entry["_bytes" if by == "bytes" else "_ops"] += bnd
+    for name in DW_KERNELS:
+        entry = summary[name]
+        entry["bound_by"] = ("bytes" if entry.pop("_bytes") >= entry.pop("_ops")
+                             else "operations")
+
+
+def phase_grad(cfg, params):
+    """One training microbatch of the full model: kernel route, twin route
+    with the shadow, plain autograd route."""
+    import dataclasses
+
+    import torch
+
+    from ddim_audio_tpu_torch.diffusion.schedules import make_schedule
+    from ddim_audio_tpu_torch.models.unet import apply_model
+    from ddim_audio_tpu_torch.ops import launch_counts, reset_launch_counts
+    from ddim_audio_tpu_torch.training.losses import noise_estimation_loss
+    from ddim_audio_tpu_torch.utils.tree import tree_leaves, tree_paths
+
+    gen = torch.Generator().manual_seed(11)
+    x0 = (0.5 * torch.randn((1, cfg.channels, 1024, cfg.f_size),
+                            generator=gen)).cuda()
+    e = torch.randn(x0.shape, generator=gen).cuda()
+    t = torch.tensor([500], device="cuda")
+    alphas = torch.as_tensor(
+        make_schedule("linear", 1e-4, 0.02, 1000).alphas_cumprod,
+        dtype=torch.float32, device="cuda")
+    leaves = tree_leaves(params)
+    names = list(tree_paths(params))
+    log(f"[grad] audio.yml, {PARAMS_AUDIO_YML} params in {len(leaves)} leaves, "
+        "one microbatch x0 [1, 2, 1024, 256], t [500], fp32, remat, non-zero "
+        "GN3 weights, no dropout")
+
+    def grads_of(c):
+        def apply_fn(p, x, tt):
+            return apply_model(p, x, tt, c, train=True)
+
+        for p in leaves:
+            p.requires_grad_(True)
+        try:
+            loss = noise_estimation_loss(apply_fn, params, x0, t, e, alphas)
+            grads = torch.autograd.grad(loss, leaves)
+        finally:
+            for p in leaves:
+                p.requires_grad_(False)
+        return loss.detach(), grads
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    loss_k, g_k = grads_of(cfg)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    log(f"[grad] kernel route: loss {loss_k.item():.4f} | launches per "
+        f"microbatch {counts}")
+    require(counts == PER_MICROBATCH, f"launches per microbatch {counts} != "
+            f"{PER_MICROBATCH}")
+    _, g_again = grads_of(cfg)
+    require(all(torch.equal(a, b) for a, b in zip(g_k, g_again)),
+            "two kernel-route backward passes differ")
+    log("[grad] kernel route: a second forward + backward gives the same bits "
+        "for every leaf")
+
+    shadow = Shadow()
+    with reference_route(shadow=shadow):
+        loss_t, g_t = grads_of(cfg)
+    shadow.check("[grad] B1 fp32,",
+                 PER_MICROBATCH,
+                 floor_db=SHADOW_GRAD_FP32_DB)
+
+    old, torch.backends.cudnn.deterministic = \
+        torch.backends.cudnn.deterministic, True
+    try:
+        loss_p, g_p = grads_of(dataclasses.replace(cfg, conv_impl="xla"))
+    finally:
+        torch.backends.cudnn.deterministic = old
+    gmax = max(g.abs().max().item() for g in g_p)
+    for label, g_x, loss_x in (("kernel route", g_k, loss_k),
+                               ("twin route", g_t, loss_t)):
+        worst, worst_name, num, den = 0.0, "", 0.0, 0.0
+        for name, a, b in zip(names, g_x, g_p):
+            require(bool(torch.isfinite(a).all()), f"{label}: grad of {name} "
+                    "not finite")
+            scale = max(b.abs().max().item(), 1e-3 * gmax)
+            rel = (a - b).abs().max().item() / scale
+            if rel > worst:
+                worst, worst_name = rel, name
+            num += ((a.double() - b.double()) ** 2).sum().item()
+            den += (b.double() ** 2).sum().item()
+        snr = 10 * math.log10(den / max(num, 1e-300))
+        log(f"[grad] {label} vs plain autograd (cuDNN fp32, TF32 off, "
+            f"deterministic): loss {loss_x.item():.4f} vs {loss_p.item():.4f}; "
+            f"{len(names)} leaves, worst leaf rel {worst:.3e} (<= "
+            f"{TOL_GRAD_LEAF}) at {worst_name}; all gradients SNR {snr:.1f} dB")
+        require(abs(loss_x.item() - loss_p.item())
+                <= 1e-4 * abs(loss_p.item()), f"{label}: loss differs")
+        require(worst <= TOL_GRAD_LEAF, f"{label}: gradient of {worst_name} "
+                f"off by {worst:.3e} of its scale")
+    del g_t, g_p, g_again
+    for rnd in (1, 2):
+        ms_k = cuda_time(lambda: grads_of(cfg), n=3, warmup=1)
+        ms_p = cuda_time(lambda: grads_of(
+            dataclasses.replace(cfg, conv_impl="xla")), n=3, warmup=1)
+        log(f"[grad] round {rnd}, forward + backward of one microbatch: kernel "
+            f"route {ms_k:.1f} ms, plain autograd route {ms_p:.1f} ms")
+
+
+def _train_config(path, data, *, n_iters, dtype=None):
+    """audio.yml as shipped but for the run's data folder and length."""
+    import yaml
+
+    with open("configs/audio.yml") as f:
+        raw = yaml.safe_load(f)
+    raw["data"]["path"] = data
+    raw["training"].update(n_iters=n_iters, snapshot_freq=1000,
+                           validation_freq=2)
+    if dtype:
+        raw["model"]["dtype"] = dtype
+    require(raw["training"]["batch_size"] == 14
+            and raw["training"]["grad_accum"] == 14
+            and raw["model"]["dtype"] == (dtype or "float32"),
+            "audio.yml is not batch 14, grad_accum 14, fp32")
+    with open(path, "w") as f:
+        yaml.safe_dump(raw, f)
+    return path
+
+
+def _logged(log_path):
+    """(train losses by step, validation losses by step) from stdout.txt."""
+    import re
+
+    losses, vals = {}, {}
+    with open(os.path.join(log_path, "stdout.txt")) as f:
+        for line in f:
+            m = re.search(r"step: (\d+), loss: ([-\w.]+)", line)
+            if m:
+                losses[int(m.group(1))] = float(m.group(2))
+            m = re.search(r"step: (\d+), val-loss: ([-\w.]+)", line)
+            if m:
+                vals[int(m.group(1))] = float(m.group(2))
+    return losses, vals
+
+
+def phase_train(summary):
+    """This slice's main path: the command line → Diffusion.train → the
+    train step at audio.yml's full width and depth."""
+    import logging
+
+    import torch
+
+    from ddim_audio_tpu_torch import cli
+    from ddim_audio_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    def run(exp, config, doc, *flags):
+        t0 = time.perf_counter()
+        try:
+            code = cli.main(["--config", config, "--doc", doc, "--exp", exp,
+                             "--ni", "--verbose", "info", *flags])
+        finally:
+            logging.getLogger().handlers.clear()
+        torch.cuda.synchronize()
+        require(code == 0, f"CLI {doc} {' '.join(flags)} exited {code}")
+        return time.perf_counter() - t0
+
+    def arrays(path):
+        with np.load(path) as data:
+            return {k: data[k] for k in data.files if k != "__meta__"}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data, exp = os.path.join(tmp, "data"), os.path.join(tmp, "exp")
+        os.makedirs(data)
+        rng = np.random.default_rng(5)
+        window = 1024 * 255  # t_size · hop samples per item
+        for i in range(16):  # the 90/10 split leaves 14 to train, 2 held out
+            wave = 0.1 * rng.standard_normal(window).astype(np.float32)
+            np.save(os.path.join(data, f"clip{i:02d}.npy"), wave)
+        cfg3 = _train_config(os.path.join(tmp, "three.yml"), data, n_iters=3)
+        cfg5 = _train_config(os.path.join(tmp, "five.yml"), data, n_iters=5)
+        log("[train] audio.yml (batch 14, grad_accum 14, fp32, remat) with "
+            "data.path -> 16 seed-made .npy waveforms of 261,120 samples, "
+            "snapshot_freq 1000, validation_freq 2")
+
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        wall = run(exp, cfg3, "a")
+        counts = launch_counts()
+        steps = 3
+        # 14 microbatches a step, and the validation forward at step 2 (the
+        # eval route in fp32: float taps, head and tail kernels)
+        want = {k: v * 14 * steps for k, v in PER_MICROBATCH.items()}
+        for k, v in PER_FORWARD_FLOAT.items():
+            want[k] += v
+        log(f"[train] CLI train, 3 steps + validation: exit 0, host wall "
+            f"{wall:.1f} s (dataset, init, 2 checkpoints of the whole "
+            f"TrainState included) | launches {counts}")
+        require(counts == want, f"training launches {counts} != {want}")
+        for name, n in counts.items():
+            summary[name]["launches_train_path"] = n
+        for name in DW_KERNELS:
+            require(counts[name] > 0, f"{name} never launched in training")
+            summary[name]["launches"] = counts[name]
+        log_a = os.path.join(exp, "logs", "a")
+        for name in ("ckpt.npz", "ckpt_1.npz", "ckpt_3.npz", "config.yml"):
+            require(os.path.exists(os.path.join(log_a, name)),
+                    f"{name} missing after training")
+        losses, vals = _logged(log_a)
+        require(sorted(losses) == [1, 2, 3] and sorted(vals) == [2],
+                f"logged steps {sorted(losses)}, validation {sorted(vals)}")
+        require(all(math.isfinite(v) for v in [*losses.values(),
+                                               *vals.values()]),
+                f"non-finite loss logged: {losses} {vals}")
+        log(f"[train] logged losses {losses}, validation {vals}: all finite")
+        os.remove(os.path.join(log_a, "ckpt_1.npz"))
+        os.remove(os.path.join(log_a, "ckpt_3.npz"))
+
+        wall = run(exp, cfg5, "a", "--resume_training")
+        losses_a, _ = _logged(log_a)
+        require(sorted(losses_a) == [1, 2, 3, 4, 5], f"resumed run logged steps "
+                f"{sorted(losses_a)}")
+        log(f"[train] CLI --resume_training to step 5: exit 0, host wall "
+            f"{wall:.1f} s, losses {losses_a}")
+        os.remove(os.path.join(log_a, "ckpt_5.npz"))
+        wall = run(exp, cfg5, "b")
+        log_b = os.path.join(exp, "logs", "b")
+        losses_b, _ = _logged(log_b)
+        resumed, whole = (arrays(os.path.join(d, "ckpt.npz"))
+                          for d in (log_a, log_b))
+        require(resumed.keys() == whole.keys(), "checkpoint keys differ")
+        differ = [k for k in whole if not np.array_equal(resumed[k], whole[k])]
+        kinds = {k.split("[")[0].split(".")[1] for k in whole}
+        log(f"[train] unbroken 5-step run: host wall {wall:.1f} s, losses "
+            f"{losses_b}; its checkpoint vs the resumed run's: {len(whole)} "
+            f"arrays ({', '.join(sorted(kinds))}), {len(differ)} differ")
+        require(not differ, f"resume is not bit-identical: {differ[:5]}")
+        require(losses_a == losses_b, "resumed and unbroken losses differ")
+        require(int(whole[".step"]) == 5, f"step {whole['.step']}")
+        del resumed, whole
+        for name in os.listdir(log_b):
+            if name.endswith(".npz"):
+                os.remove(os.path.join(log_b, name))
+
+        wall = run(exp, cfg5, "a", "--test")
+        log(f"[train] CLI --test on that checkpoint: exit 0, host wall "
+            f"{wall:.1f} s")
+        wall = run(exp, cfg5, "a", "--sample", "--timesteps", "3", "-i", "own")
+        folder = os.path.join(exp, "image_samples", "own")
+        _count_files(folder, [f"{j}_final{ext}" for j in range(2)
+                              for ext in (".png", ".wav")])
+        for j in range(2):
+            wav = _read_wav(os.path.join(folder, f"{j}_final.wav"))
+            require(bool(np.isfinite(wav).all()) and np.abs(wav).max() > 0,
+                    f"clip {j} of the trained checkpoint is silent or not "
+                    "finite")
+        log(f"[train] CLI --sample (last-only, 3 steps, 2 clips "
+            f"[2, 2, 8192, 256]) from the checkpoint the port trained: 4 "
+            f"files, finite, host wall {wall:.1f} s")
+
+        cfg16 = _train_config(os.path.join(tmp, "bf16.yml"), data, n_iters=2,
+                              dtype="bfloat16")
+        wall = run(exp, cfg16, "h")
+        losses_h, _ = _logged(os.path.join(exp, "logs", "h"))
+        rels = {s: abs(losses_h[s] - losses_b[s]) / abs(losses_b[s])
+                for s in (1, 2)}
+        log(f"[train] model.dtype bfloat16, 2 steps: host wall {wall:.1f} s, "
+            f"losses {losses_h} vs fp32 {[losses_b[s] for s in (1, 2)]}: rel "
+            f"{rels} (<= {TOL_BF16_LOSS})")
+        require(max(rels.values()) <= TOL_BF16_LOSS,
+                f"bf16 loss off by {rels}")
+
+    _time_train_step()
+
+
+def _time_train_step():
+    """ms per optimizer step (14 microbatches, clip, optimizers, EMA) by CUDA
+    events, fp32 and bf16 compute, on seed-made data."""
+    import dataclasses
+
+    import torch
+
+    from ddim_audio_tpu_torch.config import load_config
+    from ddim_audio_tpu_torch.diffusion.schedules import make_schedule
+    from ddim_audio_tpu_torch.models.unet import ModelConfig, init_model
+    from ddim_audio_tpu_torch.ops import launch_counts, reset_launch_counts
+    from ddim_audio_tpu_torch.training.train_step import (init_train_state,
+                                                          make_train_step)
+
+    config = load_config("configs/audio.yml")
+    cfg = ModelConfig.from_config(config)
+    alphas = make_schedule("linear", 1e-4, 0.02, 1000).alphas_cumprod
+    gen = torch.Generator("cuda").manual_seed(3)
+    x0 = 0.5 * torch.randn((14, 2, 1024, 256), generator=gen, device="cuda")
+    for label, c in (("fp32", cfg), ("bf16 compute", dataclasses.replace(
+            cfg, dtype=torch.bfloat16))):
+        params = init_model(torch.Generator().manual_seed(0), cfg)
+        state, tx = init_train_state(params, config.optimization, use_ema=True)
+        step = make_train_step(c, config, alphas, tx)
+        state, _ = step(state, x0, gen)  # warm-up
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.reset_peak_memory_stats()
+        start.record()
+        for _ in range(2):
+            state, metrics = step(state, x0, gen)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / 2
+        require(all(bool(torch.isfinite(v)) for v in metrics.values()),
+                f"metrics not finite: {metrics}")
+        log(f"[train] train_step, {label}, batch 14 x [2, 1024, 256], "
+            f"grad_accum 14, remat: {ms:.1f} ms per optimizer step, "
+            f"{ms / 14:.1f} ms per microbatch (CUDA events, mean of 2 steps); "
+            f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+            f" GiB; launches of the 2 steps {launch_counts()}")
+        del state, params
+
+
 def main() -> int:
     import torch
 
@@ -890,10 +1372,15 @@ def main() -> int:
         card = phase_device()
         phase_build()
         phase_kernels(summary)
+        phase_dw_kernels(summary)
         config, cfg, params = _audio_params()
         phase_forward(config, cfg, params)
         phase_slice(summary, params)
         phase_float_path(summary, config, cfg, params)
+        phase_grad(cfg, params)
+        del params
+        torch.cuda.empty_cache()
+        phase_train(summary)
     except Exception as e:  # every phase failure ends the run non-zero
         import traceback
 
@@ -904,6 +1391,7 @@ def main() -> int:
     for name, (source, replaces) in REPLACES.items():
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, **summary[name]})
+    log(f"[card] {card} (every number above was measured on it)")
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

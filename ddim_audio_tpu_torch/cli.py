@@ -1,16 +1,19 @@
-"""Command line of the port, sampling side (the counterpart of the JAX
-package's ``main.py``).
+"""Command line of the port (the counterpart of the JAX package's
+``main.py``): train, resume, test, sample.
 
     python -m ddim_audio_tpu_torch --config audio.yml --doc <run> --ni \\
+        [--resume_training]                       # train
+    python -m ddim_audio_tpu_torch --config audio.yml --doc <run> --test
+    python -m ddim_audio_tpu_torch --config audio.yml --doc <run> --ni \\
         --sample --timesteps 100 [--sequence K | --interpolation] \\
-        [--sample_type ddpm_noisy] [--eta e] [--device cuda]
+        [--sample_type ddpm_noisy] [--eta e]
 
-Same flags, same run-dir layout (the checkpoint is read from
-``<exp>/logs/<doc>``, samples go to ``<exp>/image_samples/<image_folder>``),
-same overwrite rule (``--ni`` overwrites without asking) and exit code 1 on a
-failed run. ``--device`` (default ``cuda``) is the port's own flag. Training
-and ``--test`` are not ported yet (ROADMAP.md, queue A, item A8): asking for
-them exits with a message.
+Same flags, same run-dir layout (checkpoints, ``config.yml`` and
+``stdout.txt`` in ``<exp>/logs/<doc>``, samples in
+``<exp>/image_samples/<image_folder>``), same overwrite rule (``--ni``
+overwrites without asking; ``--resume_training`` keeps the folder) and exit
+code 1 on a failed run. ``--device`` (default ``cuda``) is the port's own
+flag.
 """
 
 from __future__ import annotations
@@ -70,22 +73,46 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def parse_args_and_config(argv=None):
-    from .config import load_config
+    from .config import dump_config, load_config
 
     args = build_parser().parse_args(argv)
     args.log_path = os.path.join(args.exp, "logs", args.doc)
-    if not args.sample:
-        what = "--test" if args.test else "training"
-        print(f"{what} is not ported to ddim_audio_tpu_torch yet (ROADMAP.md, "
-              "queue A, item A8); only --sample runs here.", file=sys.stderr)
-        sys.exit(2)
 
     cfg_path = args.config
     if not os.path.exists(cfg_path):
         cfg_path = os.path.join("configs", args.config)
     config = load_config(cfg_path)
+    tb_path = os.path.join(args.exp, "tensorboard", args.doc)
 
-    _setup_logging(args)
+    if not args.test and not args.sample:
+        if not args.resume_training:
+            if os.path.exists(args.log_path):
+                overwrite = args.ni or _ask(
+                    "Folder already exists. Overwrite? (Y/N)")
+                if not overwrite:
+                    print("Folder exists. Program halted.")
+                    sys.exit(0)
+                shutil.rmtree(args.log_path)
+                if os.path.exists(tb_path):
+                    shutil.rmtree(tb_path)
+            os.makedirs(args.log_path)
+            dump_config(config, os.path.join(args.log_path, "config.yml"))
+        try:
+            import torch.utils.tensorboard as tb
+
+            config.tb_logger = tb.SummaryWriter(log_dir=tb_path)
+        except Exception:  # tensorboard is optional; metrics still hit the log
+            config.tb_logger = None
+        _setup_logging(args, file_log=True)
+    else:
+        _setup_logging(args, file_log=False)
+        if args.sample:
+            _prepare_image_folder(args)
+    np.random.seed(args.seed)
+    return args, config
+
+
+def _prepare_image_folder(args):
     os.makedirs(os.path.join(args.exp, "image_samples"), exist_ok=True)
     args.image_folder = os.path.join(args.exp, "image_samples",
                                      args.image_folder)
@@ -101,28 +128,32 @@ def parse_args_and_config(argv=None):
         else:
             print("Output image folder exists. Program halted.")
             sys.exit(0)
-    np.random.seed(args.seed)
-    return args, config
 
 
 def _ask(prompt):
     return input(prompt).upper() == "Y"
 
 
-def _setup_logging(args):
+def _setup_logging(args, *, file_log):
     level = getattr(logging, args.verbose.upper(), None)
     if not isinstance(level, int):
         raise ValueError("level {} not supported".format(args.verbose))
-    handler = logging.StreamHandler()
-    handler.setFormatter(logging.Formatter(
-        "%(levelname)s - %(filename)s - %(asctime)s - %(message)s"))
+    formatter = logging.Formatter(
+        "%(levelname)s - %(filename)s - %(asctime)s - %(message)s")
+    handlers = [logging.StreamHandler()]
+    if file_log:
+        handlers.append(logging.FileHandler(
+            os.path.join(args.log_path, "stdout.txt")))
     logger = logging.getLogger()
-    logger.addHandler(handler)
+    for handler in handlers:
+        handler.setFormatter(formatter)
+        logger.addHandler(handler)
     logger.setLevel(level)
 
 
 def main(argv=None) -> int:
     args, config = parse_args_and_config(argv)
+    logging.info("Writing log file to {}".format(args.log_path))
     logging.info("Exp instance id = {}".format(os.getpid()))
     logging.info("Exp comment = {}".format(args.comment))
 
@@ -131,7 +162,12 @@ def main(argv=None) -> int:
     try:
         runner = Diffusion(args, config, device=args.device)
         logging.info("Using device: {}".format(runner.device))
-        runner.sample()
+        if args.sample:
+            runner.sample()
+        elif args.test:
+            runner.test()
+        else:
+            runner.train()
     except Exception:
         logging.error(traceback.format_exc())
         return 1

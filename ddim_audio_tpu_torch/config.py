@@ -8,11 +8,12 @@ names resolve to torch dtypes; the reference's torch tensor-type spellings
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import torch
 import yaml
 
-from .utils.namespace import dict2namespace
+from .utils.namespace import dict2namespace, namespace2dict
 
 _DTYPES = {
     "float32": torch.float32,
@@ -77,3 +78,9 @@ def load_config(path: str):
     with open(path, "r") as f:
         raw = yaml.safe_load(f)
     return dict2namespace(raw)
+
+
+def dump_config(config, path: str):
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        yaml.dump(namespace2dict(config), f, default_flow_style=False)

@@ -1,0 +1,371 @@
+// Weight gradients of the three flat convs, over channels-last activations.
+//
+// Replaces the TPU kernels of ddim_audio_tpu/ops/flat_grad.py:
+//   MODE 0  `_dw_kernel`      (wrapper `conv_dw_flat`):      3×3 SAME conv
+//   MODE 1  `_down_dw_kernel` (wrapper `conv_down_dw_flat`): k4 s2 p1 conv
+//   MODE 2  `_up_dw_kernel`   (wrapper `conv_up_dw_flat`):   transposed k4 s2
+//                                                            p1 conv
+// Each computes, per tap (kh, kw), the contraction over every position of
+// every sample
+//
+//   dW[kh, kw, ci, co] = Σ_{b, i, j} x[b, XS·i + xo(kh), XS·j + xo(kw), ci]
+//                                  · g[b, GS·i + go(kh), GS·j + go(kw), co]
+//
+// with x zero outside its array, (i, j) running over a "base grid":
+//   MODE 0: base = the shared (T, F) grid, XS = GS = 1, xo(k) = k − 1, go = 0
+//   MODE 1: base = g's (T/2, F/2) grid, XS = 2, xo(k) = k − 1, GS = 1, go = 0
+//   MODE 2: base = x's (T, F) grid, XS = 1, xo(k) = (k + 1)/2 − 1, GS = 2,
+//           go(k) = k & 1  (the stored weight of the transposed conv is the
+//           equivalent forward kernel on the zero-dilated input, so tap k
+//           meets only the output rows of its own parity)
+// and writes HWIO [KH, KW, C_in, C_out] fp32 directly; the TPU kernels'
+// packed [9P, P] / [12S, P] / [12Q, P_s] outputs, their even/odd scratch
+// streams and the unpacking VJP exist only for the TPU's lanes.
+//
+// What bounds it on an H100: the contraction is long (T·F positions, 262,144
+// at the first stage of the training geometry) and the result small
+// (taps·C_in·C_out), so at the wide-and-shallow first stages the operations
+// bound it (fp32 on CUDA cores, 67 TFLOP/s) and at the narrow-and-deep last
+// stages the launch and the partials' write. The TPU kernel carries its sum
+// in one output block over a sequential grid; here the positions are split
+// over blocks instead. Block (x, y) owns one 32 × 32 (ci, co) tile of all
+// taps and the y-th share of the position tiles; it stages each tile's x
+// halo and g tile in shared memory once and accumulates every tap from
+// them, then writes its partial sums to part[y]. The wrapper finishes with
+// torch.sum over y. No atomics: the result is the same bits run to run.
+//
+// Two variants, chosen per call by dw_use_mma:
+// - conv_dw_mma_kernel (bf16 operands, base F >= 16, C_in % 32 == C_out % 32
+//   == 0): WMMA 16×16×16 bf16 products, fp32 accumulation. For a tap, the
+//   A operand is xᵀ: 16 channels × 16 consecutive base positions of a row,
+//   read column-major from the staged halo (leading dimension XS·32), and B
+//   is g: 16 positions × 16 channels, row-major (leading dimension GS·32).
+//   The taps·4 (tap, ci half, co half) fragment jobs are dealt to the 8
+//   warps round-robin.
+// - conv_dw_kernel (fp32, and bf16 at narrow F): CUDA cores. Lane l owns
+//   output channel co0 + l, warp w input channels ci0 + 4w … 4w + 3; per
+//   position and tap one float4 broadcast read of x and one conflict-free
+//   read of g feed 4 FMAs, with taps·4 fp32 accumulators per thread.
+#include <mma.h>
+
+#include "conv_common.cuh"
+
+namespace ddim {
+
+constexpr int kDwCi = 32;           // input channels per block
+constexpr int kDwTargetBlocks = 528;  // 4 per SM of an H100
+
+template <int MODE>
+struct DwGeom {
+  static constexpr int KH = MODE == 0 ? 3 : 4;
+  static constexpr int TAPS = KH * KH;
+  static constexpr int XS = MODE == 1 ? 2 : 1;
+  static constexpr int GS = MODE == 2 ? 2 : 1;
+  static constexpr int XOMAX = MODE == 1 ? 2 : 1;  // max xo; min xo is −1
+  // base positions per tile of the CUDA-core variant
+  static constexpr int NP = MODE == 0 ? 64 : 32;
+  // rows of 16 base positions per tile of the tensor-core variant
+  static constexpr int TTM = MODE == 0 ? 8 : 4;
+  __host__ __device__ static constexpr int halo(int n) {
+    return XS * (n - 1) + XOMAX + 2;
+  }
+};
+
+template <int MODE>
+__host__ __device__ __forceinline__ int dw_xo(int k) {
+  return MODE == 2 ? (k + 1) / 2 - 1 : k - 1;
+}
+template <int MODE>
+__host__ __device__ __forceinline__ int dw_go(int k) {
+  return MODE == 2 ? (k & 1) : 0;
+}
+
+__host__ __device__ __forceinline__ bool dw_use_mma(int fb, int c_in,
+                                                    int c_out, int bf16) {
+  return bf16 && fb >= 16 && c_in % 32 == 0 && c_out % 32 == 0;
+}
+
+// Position tiles of the whole batch, for the variant dw_use_mma picks.
+template <int MODE>
+__host__ __device__ __forceinline__ int dw_total_tiles(int batch, int tb,
+                                                       int fb, bool mma) {
+  using G = DwGeom<MODE>;
+  const int ft = mma ? 16 : tile_f(fb);
+  const int tt = mma ? G::TTM : G::NP / ft;
+  return batch * ((tb + tt - 1) / tt) * ((fb + ft - 1) / ft);
+}
+
+// Position tiles per block: enough blocks to fill the card a few times
+// over, while the partials stay a few MB at the widest stages.
+__host__ __forceinline__ int dw_tiles_per_block(int total, int c_in,
+                                                int c_out) {
+  const int out_tiles =
+      ((c_in + kDwCi - 1) / kDwCi) * ((c_out + kCoTile - 1) / kCoTile);
+  const int want = (kDwTargetBlocks + out_tiles - 1) / out_tiles;
+  const int per = (total + want - 1) / want;
+  return per < 1 ? 1 : per;
+}
+
+template <typename T, int MODE>
+__global__ void __launch_bounds__(kThreads)
+    conv_dw_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                   float* __restrict__ part, int batch, int t_len, int f_len,
+                   int c_in, int c_out, int per_block) {
+  using G = DwGeom<MODE>;
+  constexpr int KH = G::KH, XS = G::XS, GS = G::GS;
+  // the two tile shapes (FT = 16 or 8) bound the staged regions
+  constexpr int kHaloMax =
+      G::halo(G::NP / 16) * G::halo(16) > G::halo(G::NP / 8) * G::halo(8)
+          ? G::halo(G::NP / 16) * G::halo(16)
+          : G::halo(G::NP / 8) * G::halo(8);
+  __shared__ __align__(16) float xs[kHaloMax * kDwCi];
+  __shared__ __align__(16) float gs[GS * GS * G::NP * kCoTile];
+
+  const int tb = MODE == 1 ? t_len / 2 : t_len;
+  const int fb = MODE == 1 ? f_len / 2 : f_len;
+  const int tg_len = GS * tb, fg_len = GS * fb;
+  const int ft = tile_f(fb), tt = G::NP / ft;
+  const int tiles_f = (fb + ft - 1) / ft;
+  const int tiles = ((tb + tt - 1) / tt) * tiles_f;
+  const int total = batch * tiles;
+  const int co_tiles = (c_out + kCoTile - 1) / kCoTile;
+  const int ci0 = (blockIdx.x / co_tiles) * kDwCi;
+  const int co0 = (blockIdx.x % co_tiles) * kCoTile;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int hw = G::halo(ft), hr = G::halo(tt);
+  const int gw = GS * ft, gr = GS * tt;
+
+  float acc[G::TAPS][4];
+#pragma unroll
+  for (int k = 0; k < G::TAPS; ++k)
+    acc[k][0] = acc[k][1] = acc[k][2] = acc[k][3] = 0.f;
+
+  const int first = blockIdx.y * per_block;
+  const int last = first + per_block < total ? first + per_block : total;
+  for (int tile = first; tile < last; ++tile) {
+    const int b = tile / tiles, r = tile % tiles;
+    const int t0 = (r / tiles_f) * tt, f0 = (r % tiles_f) * ft;
+    __syncthreads();  // the previous tile's reads are done
+    for (int idx = threadIdx.x; idx < hr * hw * kDwCi; idx += kThreads) {
+      const int ci = idx % kDwCi, hp = idx / kDwCi;
+      const int t = XS * t0 - 1 + hp / hw, f = XS * f0 - 1 + hp % hw;
+      const int ch = ci0 + ci;
+      float v = 0.f;
+      if (t >= 0 && t < t_len && f >= 0 && f < f_len && ch < c_in)
+        v = to_f(x[(((size_t)b * t_len + t) * f_len + f) * c_in + ch]);
+      xs[idx] = v;
+    }
+    for (int idx = threadIdx.x; idx < gr * gw * kCoTile; idx += kThreads) {
+      const int l = idx % kCoTile, gp = idx / kCoTile;
+      const int t = GS * t0 + gp / gw, f = GS * f0 + gp % gw;
+      const int oc = co0 + l;
+      float v = 0.f;
+      if (t < tg_len && f < fg_len && oc < c_out)
+        v = to_f(g[(((size_t)b * tg_len + t) * fg_len + f) * c_out + oc]);
+      gs[idx] = v;
+    }
+    __syncthreads();
+
+    for (int p = 0; p < G::NP; ++p) {
+      const int i = p / ft, j = p % ft;
+      const float* xp = &xs[((XS * i) * hw + XS * j) * kDwCi + 4 * warp];
+      const float* gp = &gs[((GS * i) * gw + GS * j) * kCoTile + lane];
+#pragma unroll
+      for (int kh = 0; kh < KH; ++kh) {
+#pragma unroll
+        for (int kw = 0; kw < KH; ++kw) {
+          const float gv =
+              gp[(dw_go<MODE>(kh) * gw + dw_go<MODE>(kw)) * kCoTile];
+          const float4 xv = *reinterpret_cast<const float4*>(
+              xp + ((dw_xo<MODE>(kh) + 1) * hw + dw_xo<MODE>(kw) + 1) * kDwCi);
+          acc[kh * KH + kw][0] = fmaf(xv.x, gv, acc[kh * KH + kw][0]);
+          acc[kh * KH + kw][1] = fmaf(xv.y, gv, acc[kh * KH + kw][1]);
+          acc[kh * KH + kw][2] = fmaf(xv.z, gv, acc[kh * KH + kw][2]);
+          acc[kh * KH + kw][3] = fmaf(xv.w, gv, acc[kh * KH + kw][3]);
+        }
+      }
+    }
+  }
+
+  const int co = co0 + lane;
+#pragma unroll
+  for (int tap = 0; tap < G::TAPS; ++tap) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int ci = ci0 + 4 * warp + k;
+      if (ci < c_in && co < c_out)
+        part[(((size_t)blockIdx.y * G::TAPS + tap) * c_in + ci) * c_out + co] =
+            acc[tap][k];
+    }
+  }
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(kThreads) conv_dw_mma_kernel(
+    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ g,
+    float* __restrict__ part, int batch, int t_len, int f_len, int c_in,
+    int c_out, int per_block) {
+  using namespace nvcuda;
+  using T = __nv_bfloat16;
+  using G = DwGeom<MODE>;
+  constexpr int KH = G::KH, XS = G::XS, GS = G::GS;
+  constexpr int TT = G::TTM, FT = 16;
+  constexpr int HW = G::halo(FT), HR = G::halo(TT);
+  constexpr int GW = GS * FT, GR = GS * TT;
+  constexpr int JOBS = G::TAPS * 4, JPW = (JOBS + kWarps - 1) / kWarps;
+  __shared__ __align__(32) T xs[HR * HW * kDwCi];
+  __shared__ __align__(32) T gs[GR * GW * kCoTile];
+
+  const int tb = MODE == 1 ? t_len / 2 : t_len;
+  const int fb = MODE == 1 ? f_len / 2 : f_len;
+  const int tg_len = GS * tb, fg_len = GS * fb;
+  const int tiles_f = (fb + FT - 1) / FT;
+  const int tiles = ((tb + TT - 1) / TT) * tiles_f;
+  const int total = batch * tiles;
+  const int co_tiles = c_out / kCoTile;
+  const int ci0 = (blockIdx.x / co_tiles) * kDwCi;
+  const int co0 = (blockIdx.x % co_tiles) * kCoTile;
+  const int warp = threadIdx.x >> 5;
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[JPW];
+#pragma unroll
+  for (int jj = 0; jj < JPW; ++jj) wmma::fill_fragment(acc[jj], 0.f);
+
+  const int first = blockIdx.y * per_block;
+  const int last = first + per_block < total ? first + per_block : total;
+  for (int tile = first; tile < last; ++tile) {
+    const int b = tile / tiles, r = tile % tiles;
+    const int t0 = (r / tiles_f) * TT, f0 = (r % tiles_f) * FT;
+    __syncthreads();  // the previous tile's reads are done
+    // 8 channels (16 bytes) per item; out-of-range positions are zero
+    for (int idx = threadIdx.x; idx < HR * HW * (kDwCi / 8); idx += kThreads) {
+      const int q = idx % (kDwCi / 8), hp = idx / (kDwCi / 8);
+      const int t = XS * t0 - 1 + hp / HW, f = XS * f0 - 1 + hp % HW;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (t >= 0 && t < t_len && f >= 0 && f < f_len)
+        v = *reinterpret_cast<const uint4*>(
+            x + (((size_t)b * t_len + t) * f_len + f) * c_in + ci0 + 8 * q);
+      *reinterpret_cast<uint4*>(xs + hp * kDwCi + 8 * q) = v;
+    }
+    for (int idx = threadIdx.x; idx < GR * GW * (kCoTile / 8);
+         idx += kThreads) {
+      const int q = idx % (kCoTile / 8), gp = idx / (kCoTile / 8);
+      const int t = GS * t0 + gp / GW, f = GS * f0 + gp % GW;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (t < tg_len && f < fg_len)
+        v = *reinterpret_cast<const uint4*>(
+            g + (((size_t)b * tg_len + t) * fg_len + f) * c_out + co0 + 8 * q);
+      *reinterpret_cast<uint4*>(gs + gp * kCoTile + 8 * q) = v;
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int jj = 0; jj < JPW; ++jj) {
+      const int job = warp + kWarps * jj;
+      if (job < JOBS) {
+        const int tap = job >> 2, mi = (job >> 1) & 1, ni = job & 1;
+        const int kh = tap / KH, kw = tap % KH;
+        const T* xa = xs +
+                      ((dw_xo<MODE>(kh) + 1) * HW + dw_xo<MODE>(kw) + 1) * kDwCi +
+                      16 * mi;
+        const T* gb = gs +
+                      (dw_go<MODE>(kh) * GW + dw_go<MODE>(kw)) * kCoTile +
+                      16 * ni;
+#pragma unroll
+        for (int i = 0; i < TT; ++i) {
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::col_major> a;
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> bm;
+          wmma::load_matrix_sync(a, xa + XS * i * HW * kDwCi, XS * kDwCi);
+          wmma::load_matrix_sync(bm, gb + GS * i * GW * kCoTile, GS * kCoTile);
+          wmma::mma_sync(acc[jj], a, bm, acc[jj]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int jj = 0; jj < JPW; ++jj) {
+    const int job = warp + kWarps * jj;
+    if (job < JOBS) {
+      const int tap = job >> 2, mi = (job >> 1) & 1, ni = job & 1;
+      float* dst = part +
+                   (((size_t)blockIdx.y * G::TAPS + tap) * c_in + ci0 + 16 * mi) *
+                       c_out +
+                   co0 + 16 * ni;
+      wmma::store_matrix_sync(dst, acc[jj], c_out, wmma::mem_row_major);
+    }
+  }
+}
+
+template <int MODE>
+int dw_splits(int batch, int t_len, int f_len, int c_in, int c_out, int bf16) {
+  const int tb = MODE == 1 ? t_len / 2 : t_len;
+  const int fb = MODE == 1 ? f_len / 2 : f_len;
+  const int total =
+      dw_total_tiles<MODE>(batch, tb, fb, dw_use_mma(fb, c_in, c_out, bf16));
+  const int per = dw_tiles_per_block(total, c_in, c_out);
+  return (total + per - 1) / per;
+}
+
+template <int MODE>
+int dw_launch(const void* x, const void* g, float* part, int batch, int t_len,
+              int f_len, int c_in, int c_out, int bf16, cudaStream_t s) {
+  const int tb = MODE == 1 ? t_len / 2 : t_len;
+  const int fb = MODE == 1 ? f_len / 2 : f_len;
+  const bool mma = dw_use_mma(fb, c_in, c_out, bf16);
+  const int total = dw_total_tiles<MODE>(batch, tb, fb, mma);
+  const int per = dw_tiles_per_block(total, c_in, c_out);
+  const dim3 grid(((c_in + kDwCi - 1) / kDwCi) *
+                      ((c_out + kCoTile - 1) / kCoTile),
+                  (total + per - 1) / per);
+  if (mma) {
+    using T = __nv_bfloat16;
+    conv_dw_mma_kernel<MODE><<<grid, kThreads, 0, s>>>(
+        static_cast<const T*>(x), static_cast<const T*>(g), part, batch,
+        t_len, f_len, c_in, c_out, per);
+  } else if (bf16) {
+    using T = __nv_bfloat16;
+    conv_dw_kernel<T, MODE><<<grid, kThreads, 0, s>>>(
+        static_cast<const T*>(x), static_cast<const T*>(g), part, batch,
+        t_len, f_len, c_in, c_out, per);
+  } else {
+    conv_dw_kernel<float, MODE><<<grid, kThreads, 0, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(g), part,
+        batch, t_len, f_len, c_in, c_out, per);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace ddim
+
+extern "C" {
+
+// Partial sums that ddim_conv_dw writes for these arguments (the first
+// dimension of `part`). mode: 0 = 3×3, 1 = down, 2 = up; t_len, f_len are
+// x's.
+int ddim_conv_dw_splits(int mode, int batch, int t_len, int f_len, int c_in,
+                        int c_out, int bf16) {
+  using namespace ddim;
+  if (mode == 0) return dw_splits<0>(batch, t_len, f_len, c_in, c_out, bf16);
+  if (mode == 1) return dw_splits<1>(batch, t_len, f_len, c_in, c_out, bf16);
+  return dw_splits<2>(batch, t_len, f_len, c_in, c_out, bf16);
+}
+
+// x: [B, T, F, C_in]; g: [B, T, F, C_out] (mode 0), [B, T/2, F/2, C_out]
+// (mode 1) or [B, 2T, 2F, C_out] (mode 2), both fp32 or both bf16; part:
+// [ddim_conv_dw_splits(...), KH, KW, C_in, C_out] fp32, every element
+// written. Every pointer is 16-byte aligned (32-byte for `part`). Returns
+// cudaGetLastError() after the launch.
+int ddim_conv_dw(const void* x, const void* g, float* part, int mode,
+                 int batch, int t_len, int f_len, int c_in, int c_out,
+                 int bf16, void* stream) {
+  using namespace ddim;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (mode == 0)
+    return dw_launch<0>(x, g, part, batch, t_len, f_len, c_in, c_out, bf16, s);
+  if (mode == 1)
+    return dw_launch<1>(x, g, part, batch, t_len, f_len, c_in, c_out, bf16, s);
+  return dw_launch<2>(x, g, part, batch, t_len, f_len, c_in, c_out, bf16, s);
+}
+
+}  // extern "C"

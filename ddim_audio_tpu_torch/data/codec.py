@@ -1,7 +1,10 @@
-"""Host-side pfft codec for the final export (numpy; port of
-``ddim_audio_tpu/data/codec.py`` with ``STFTConfig``/``_hann`` from
-``ddim_audio_tpu/ops/stft.py``).
+"""Host-side pfft codec for dataset loading and the final export (numpy;
+port of ``ddim_audio_tpu/data/codec.py`` with ``STFTConfig``/``_hann``/
+``num_samples`` from ``ddim_audio_tpu/ops/stft.py``).
 
+- ``wav2pfft(wave [N], cfg, t_size) → pfft [2, T, f_size]`` — the encoder
+- ``read_audio(path, samplerate)`` — ``.npy`` waveforms, ``.wav`` through
+  scipy, linearly resampled
 - ``pfft2img(img [F, T, C]) → uint8 [F, T]`` — PNG-able spectrogram render
 - ``limit_length_img(img)`` — caps the rendered width
 - ``pfft2wav(img [F, T, C], samplerate, dtype=np.int32, HPI=False) → int PCM``
@@ -23,6 +26,7 @@ import numpy as np
 @dataclasses.dataclass(frozen=True)
 class STFTConfig:
     f_size: int = 256
+    virtual_samplerate: int = 48000
     # HPI flag kept for config-surface parity (configs/audio.yml:7,73); this
     # codec stores the full complex STFT so inversion never needs phase
     # reconstruction — both HPI settings decode identically.
@@ -47,6 +51,30 @@ def _hann(n_fft: int) -> np.ndarray:
     return (0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(n_fft) / n_fft)).astype(
         np.float32
     )
+
+
+def num_samples(cfg: STFTConfig, t_size: int) -> int:
+    """Audio samples consumed/produced for t_size frames."""
+    return t_size * cfg.hop
+
+
+def wav2pfft(wave: np.ndarray, cfg: STFTConfig,
+             t_size: int | None = None) -> np.ndarray:
+    """wave [N] float in [-1, 1] → pfft [2, T, f_size] float32 ("CTF")."""
+    w = np.asarray(wave, np.float32)
+    n_fft, hop = cfg.n_fft, cfg.hop
+    n = w.shape[-1]
+    if n % hop != 0:
+        raise ValueError(f"audio length {n} must be a multiple of hop {hop}")
+    t = n // hop
+    if t_size is not None and t != t_size:
+        raise ValueError(f"expected {t_size} frames, audio gives {t}")
+    wp = np.concatenate([w[..., -hop:], w], axis=-1)
+    segs = wp.reshape(wp.shape[:-1] + (t + 1, hop))
+    frames = np.concatenate([segs[..., :t, :], segs[..., 1:, :]], axis=-1)
+    frames = frames * _hann(n_fft)
+    spec = np.fft.rfft(frames, axis=-1) / cfg.scale  # exactly f_size bins
+    return np.stack([spec.real, spec.imag], axis=-3).astype(np.float32)
 
 
 def pfft_to_wave(pfft: np.ndarray, cfg: STFTConfig) -> np.ndarray:
@@ -111,3 +139,30 @@ def limit_length_img(img: np.ndarray, max_len: int = 4096) -> np.ndarray:
     if img.shape[1] > max_len:
         return img[:, :max_len]
     return img
+
+
+def read_audio(path: str, target_samplerate: int) -> np.ndarray:
+    """Load .wav or .npy (raw float waveform) → float32 [-1, 1] mono,
+    linearly resampled to target_samplerate. WAVs decode through scipy."""
+    if path.endswith(".npy"):
+        wave = np.asarray(np.load(path), np.float32)
+        sr = target_samplerate
+    else:
+        from scipy.io import wavfile
+
+        sr, wave = wavfile.read(path)
+        if wave.dtype.kind == "i":
+            wave = wave.astype(np.float32) / np.iinfo(wave.dtype).max
+        elif wave.dtype.kind == "u":
+            info = np.iinfo(wave.dtype)
+            wave = (wave.astype(np.float32) - info.max / 2) / (info.max / 2)
+        else:
+            wave = wave.astype(np.float32)
+    if wave.ndim == 2:
+        wave = wave.mean(axis=1)
+    if sr != target_samplerate:
+        n_out = int(round(len(wave) * target_samplerate / sr))
+        x_old = np.linspace(0.0, 1.0, len(wave), endpoint=False)
+        x_new = np.linspace(0.0, 1.0, n_out, endpoint=False)
+        wave = np.interp(x_new, x_old, wave).astype(np.float32)
+    return wave

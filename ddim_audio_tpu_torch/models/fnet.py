@@ -1,7 +1,9 @@
 """FNet transformer bottleneck (port of ``ddim_audio_tpu/models/fnet.py``).
 
 Each layer: ``f = LN(x + Re(FFT2(x)))``, ``y = LN(f + W_out(gelu_new(W_in f)))``
-(HF FNetEncoder, eval mode: dropout is the identity). ``Re(FFT2)`` has both of
+(HF FNetEncoder; with ``train=True`` and a generator, dropout acts on each
+layer's feed-forward output and after the embedding projection, the two
+sites of the JAX package). ``Re(FFT2)`` has both of
 the JAX package's implementations: ``dft_matmul`` (real matmuls against
 float64-built cos/sin matrices, run in full fp32 — TF32 would lose the
 Fourier mixing's precision) and ``fft`` (``torch.fft.fft2``).
@@ -15,6 +17,7 @@ import numpy as np
 import torch
 
 from .layers import (
+    dropout,
     gelu_new,
     layer_norm_apply,
     layer_norm_init,
@@ -69,9 +72,11 @@ def fnet_layer_init(gen, hidden: int, intermediate: int, device):
     }
 
 
-def fnet_layer_apply(p, x, *, eps, fourier):
+def fnet_layer_apply(p, x, *, eps, fourier, drop_rate=0.0, train=False,
+                     generator=None):
     f = layer_norm_apply(p["ln_fourier"], x + fourier(x), eps=eps)
     y = linear_apply(p["dense_out"], gelu_new(linear_apply(p["dense_in"], f)))
+    y = dropout(generator, y, drop_rate, train=train)
     return layer_norm_apply(p["ln_out"], f + y, eps=eps)
 
 
@@ -82,11 +87,13 @@ def fnet_encoder_init(gen, tcfg, device):
                        for _ in range(kw.num_hidden_layers)]}
 
 
-def fnet_encoder_apply(p, x, *, tcfg):
+def fnet_encoder_apply(p, x, *, tcfg, train=False, generator=None):
     fourier = _FOURIER_IMPLS[getattr(tcfg, "fourier_impl", "dft_matmul")]
     for layer in p["layers"]:
         x = fnet_layer_apply(layer, x, eps=tcfg.kwargs.layer_norm_eps,
-                             fourier=fourier)
+                             fourier=fourier,
+                             drop_rate=tcfg.kwargs.hidden_dropout_prob,
+                             train=train, generator=generator)
     return x
 
 
@@ -110,15 +117,19 @@ def transformer_module_init(gen, io_channels: int, tcfg, device):
     }
 
 
-def transformer_module_apply(p, x, *, tcfg):
+def transformer_module_apply(p, x, *, tcfg, train=False, generator=None):
     """x: [B, S, io_channels] → same shape. Positional table sized to the
-    next power of two of S (as the JAX package)."""
+    next power of two of S (as the JAX package). Dropout (``train`` with a
+    generator) follows the embedding projection and each layer's
+    feed-forward."""
     _, s, c = x.shape
     pow2 = 1 << max(0, (s - 1).bit_length())
     te = sinusoid_on(pow2, c, x.device, x.dtype)[:s]
     x = layer_norm_apply(p["embedding"]["ln"], x + te,
                          eps=tcfg.kwargs.layer_norm_eps)
     x = linear_apply(p["embedding"]["projection"], x)
+    x = dropout(generator, x, tcfg.kwargs.hidden_dropout_prob, train=train)
     _, enc_apply = ENCODER_REGISTRY[tcfg.module]
-    x = enc_apply(p["encoder"], x, tcfg=tcfg)
+    x = enc_apply(p["encoder"], x, tcfg=tcfg, train=train,
+                  generator=generator)
     return linear_apply(p["compute_out"], x)

@@ -132,6 +132,18 @@ def gelu_new(x):
     return F.gelu(x, approximate="tanh")
 
 
+def dropout(generator, x, rate: float, *, train: bool):
+    """Inverted dropout: keep with probability 1 − rate, scale by 1 / keep.
+    The identity unless ``train`` with a generator and a non-zero rate. The
+    mask is drawn on the generator's device."""
+    if not train or rate == 0.0 or generator is None:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator,
+                      device=generator.device) < keep
+    return torch.where(mask.to(x.device), x / keep, torch.zeros_like(x))
+
+
 def sinusoid_table(length: int, channels: int, dtype=np.float32) -> np.ndarray:
     """Interleaved sin/cos table: table[p, 2k] = sin(p·exp(−2k·ln(1e4)/C)),
     table[p, 2k+1] = cos(same). Host numpy, computed in the target dtype as

@@ -1,11 +1,17 @@
 """The denoiser: conv U-Net with an FNet bottleneck (port of
 ``ddim_audio_tpu/models/unet.py``).
 
-Two forwards, as in the JAX package:
+Three forwards, as in the JAX package:
 
 - ``apply_model``: the plain forward (the JAX package's XLA branch), [B, C, T, F]
-  in and out, layer by layer in PyTorch. It is the reference the kernel route
-  is held against on the card.
+  in and out, layer by layer in PyTorch. It is the reference the kernel routes
+  are held against on the card.
+- ``apply_model(..., train=True)``: the training forward. Unless
+  ``cfg.conv_impl`` is ``"xla"`` every conv runs through the differentiable
+  flat ops of ``ops/flat_grad.py`` (forward, dx and dW on the flat kernels),
+  the head and tail as channel-padded square convs at ``ch[0]``, each
+  resblock rematerialised in the backward pass (``cfg.remat``); dropout acts
+  in the FNet bottleneck only, drawn from the caller's generator.
 - ``apply_model_flat_io``: the sampling forward over the unpadded flat state
   [B, T, F·channels]. Every resblock runs as two fused ``conv3x3_flat`` calls
   (``ops/flat_resblock.py``), the stage transitions as ``conv_down_flat`` /
@@ -24,14 +30,22 @@ to the compute dtype at apply time.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Sequence
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.conv_flat import INT8_WIDTHS, quantize_conv_weights_int8
 from ..ops.conv_head_tail import conv_head_flat, conv_tail_flat
 from ..ops.conv_strided import conv_down_flat, conv_up_flat
+from ..ops.flat_grad import (
+    conv3x3_flat_t,
+    conv_down_flat_t,
+    conv_up_flat_t,
+    resblock_flat_train,
+)
 from ..ops.flat_resblock import resblock_flat
 from ..utils.device import resolve_device
 from .embeddings import beta_embedding_apply, beta_embedding_init
@@ -59,6 +73,13 @@ class ModelConfig:
     # int8 × int8 → int32 taps in the resblock convs of the flat sampling
     # forward, at the stages where ``tap_int8_stage`` holds
     tap_int8: bool = False
+    # Rematerialise each resblock in the backward pass of the training
+    # forward (activation memory for one more forward of the convs).
+    remat: bool = True
+    # Conv implementation of the training forward: "auto" runs the flat
+    # kernels through their autograd Functions, "xla" the plain layers under
+    # torch autograd (the reference route).
+    conv_impl: str = "auto"
 
     @classmethod
     def from_config(cls, config):
@@ -78,6 +99,7 @@ class ModelConfig:
             dtype=resolve_dtype(getattr(m, "dtype", None)),
             transformers=m.transformers,
             tap_int8=bool(getattr(m, "tap_int8", False)),
+            conv_impl=getattr(m, "conv_impl", "auto"),
         )
 
     @property
@@ -211,25 +233,44 @@ def _resblock_apply(p, x, temb, *, kernel_size: int):
     return x + group_norm_apply(p["norm3"], h)
 
 
-def _bottleneck(params, h, cfg: ModelConfig):
+def _bottleneck(params, h, cfg: ModelConfig, *, train=False, generator=None):
     """[B, T', F', C] → tokens [B, T', C·F'] ((C, F) flatten order) → FNet →
     back, in the transformer's dtype."""
     b, tt, ff, cc = h.shape
     z = h.permute(0, 1, 3, 2).reshape(b, tt, cc * ff).to(cfg.transformer_dtype)
     z = transformer_module_apply(params["transformer"], z,
-                                 tcfg=cfg.transformers)
+                                 tcfg=cfg.transformers, train=train,
+                                 generator=generator)
     return z.reshape(b, tt, cc, ff).permute(0, 1, 3, 2).to(h.dtype)
 
 
-def apply_model(params, x, t, cfg: ModelConfig):
-    """Plain denoiser forward (eval): x [B, C, T, F], t int [B] →
-    ε-prediction [B, C, T, F] fp32."""
+def _remat(fn, cfg: ModelConfig):
+    """fn, rematerialised in the backward pass when ``cfg.remat`` (and a
+    gradient is being recorded at all)."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return fn
+    return functools.partial(checkpoint, fn, use_reentrant=False)
+
+
+def apply_model(params, x, t, cfg: ModelConfig, *, train: bool = False,
+                generator=None):
+    """Denoiser forward: x [B, C, T, F], t int [B] → ε-prediction
+    [B, C, T, F] fp32. ``train=False`` is the plain forward; ``train=True``
+    the training forward (module docstring), with the FNet dropout drawn
+    from ``generator`` (None: no dropout, as the JAX package without a
+    key)."""
     if x.ndim != 4 or x.shape[1] != cfg.channels or x.shape[3] != cfg.f_size:
         raise ValueError(f"expected x of shape [B, {cfg.channels}, T, "
                          f"{cfg.f_size}], got {tuple(x.shape)}")
     _check_time(x.shape[2], cfg)
     h = x.permute(0, 2, 3, 1).to(cfg.dtype)
+    if train and cfg.conv_impl != "xla":
+        return _apply_model_flat_train(params, h, _temb_chunks(params, t, cfg),
+                                       cfg, generator)
     temb_iter = iter(_temb_chunks(params, t, cfg))
+    block_apply = _resblock_apply
+    if train:
+        block_apply = _remat(_resblock_apply, cfg)
 
     hidden = [conv_apply(params["down_modules"]["head"], h, padding=1)]
     h = hidden[0]
@@ -237,19 +278,83 @@ def apply_model(params, x, t, cfg: ModelConfig):
         if "down" in stage:
             h = conv_apply(stage["down"], h, stride=2, padding=1)
         for block in stage["blocks"]:
-            h = _resblock_apply(block, h, next(temb_iter), kernel_size=krn)
+            h = block_apply(block, h, next(temb_iter), kernel_size=krn)
         hidden.append(h)
-    h = _bottleneck(params, h, cfg)
+    h = _bottleneck(params, h, cfg, train=train, generator=generator)
     for stage, krn in zip(reversed(params["up_modules"]["stages"]),
                           reversed(cfg.krn)):
         h = h + hidden.pop()
         for block in stage["blocks"]:
-            h = _resblock_apply(block, h, next(temb_iter), kernel_size=krn)
+            h = block_apply(block, h, next(temb_iter), kernel_size=krn)
         if "up" in stage:
             h = conv_transpose_apply(stage["up"], h, stride=2, padding=1)
     h = h + hidden.pop()
     h = conv_apply(params["up_modules"]["tail"], h, padding=1)
     return h.permute(0, 3, 1, 2).float()
+
+
+def _apply_model_flat_train(params, x, temb_chunks, cfg: ModelConfig,
+                            generator):
+    """The training forward on the flat kernels: x [B, T, F, channels] in the
+    compute dtype → ε-prediction [B, channels, T, F] fp32. Master weights
+    go to the ops as they are (fp32); the ops cast them and hand back fp32
+    gradients."""
+    if any(k != 3 for k in cfg.krn):
+        raise NotImplementedError("the flat training route has 3×3 "
+                                  "resblocks only (set conv_impl: xla)")
+    temb_iter = iter(temb_chunks)
+    b, t, f, cin = x.shape
+    c0 = cfg.ch[0]
+
+    def run_blocks(stage, hf, f, c):
+        block_fn = _remat(functools.partial(resblock_flat_train, f=f, c=c),
+                          cfg)
+        for block in stage["blocks"]:
+            hf = block_fn(block, hf, next(temb_iter))
+        return hf
+
+    # Head as a square conv at c0: weight zero-padded over its input
+    # channels, the input padded with zero channels.
+    head = params["down_modules"]["head"]
+    hf = conv3x3_flat_t(
+        F.pad(x, (0, c0 - cin)).reshape(b, t, f * c0),
+        F.pad(head["w"], (0, 0, 0, c0 - cin)), head["b"], c=c0)
+
+    hidden = [hf]
+    prev = None
+    for stage, c in zip(params["down_modules"]["stages"], cfg.ch):
+        if "down" in stage:
+            hf = conv_down_flat_t(hf, stage["down"]["w"], stage["down"]["b"],
+                                  c_in=prev, c_out=c)
+            t //= 2
+            f //= 2
+        hf = run_blocks(stage, hf, f, c)
+        hidden.append(hf)
+        prev = c
+
+    cc = cfg.ch[-1]
+    hf = _bottleneck(params, hf.view(b, t, f, cc), cfg, train=True,
+                     generator=generator).reshape(b, t, f * cc)
+
+    chs = list(cfg.ch)
+    up_stages = params["up_modules"]["stages"]
+    for idx in range(len(up_stages) - 1, -1, -1):
+        stage, c = up_stages[idx], chs[idx]
+        hf = run_blocks(stage, hf + hidden.pop(), f, c)
+        if "up" in stage:
+            hf = conv_up_flat_t(hf, stage["up"]["w"], stage["up"]["b"],
+                                c_in=c, c_out=chs[idx - 1])
+            t *= 2
+            f *= 2
+
+    # Tail as a square conv at c0: weight and bias zero-padded over the
+    # output channels, the result sliced.
+    tail = params["up_modules"]["tail"]
+    cout = tail["w"].shape[3]
+    of = conv3x3_flat_t(hf + hidden.pop(),
+                        F.pad(tail["w"], (0, c0 - cout)),
+                        F.pad(tail["b"], (0, c0 - cout)), c=c0)
+    return of.view(b, t, f, c0)[..., :cout].permute(0, 3, 1, 2).float()
 
 
 def apply_model_flat_io(params, xf, t, cfg: ModelConfig):

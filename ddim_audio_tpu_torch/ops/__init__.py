@@ -11,6 +11,7 @@ from ._cuda import twin_route
 from .conv_flat import conv3x3_flat, conv3x3_flat_int8
 from .conv_head_tail import conv_head_flat, conv_tail_flat
 from .conv_strided import conv_down_flat, conv_up_flat
+from .flat_grad import conv_down_dw_flat, conv_dw_flat, conv_up_dw_flat
 
 KERNEL_WRAPPERS = {
     "conv3x3_flat": conv3x3_flat,
@@ -19,6 +20,9 @@ KERNEL_WRAPPERS = {
     "conv_tail_flat": conv_tail_flat,
     "conv_down_flat": conv_down_flat,
     "conv_up_flat": conv_up_flat,
+    "conv_dw_flat": conv_dw_flat,
+    "conv_down_dw_flat": conv_down_dw_flat,
+    "conv_up_dw_flat": conv_up_dw_flat,
 }
 
 

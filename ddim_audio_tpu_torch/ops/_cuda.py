@@ -38,6 +38,10 @@ _SIGNATURES = {
     "ddim_conv3x3_int8_tiles": (_I,) * 2,
     "ddim_conv3x3_int8_geometry": (_I,),
     "ddim_conv_head_tiles": (_I,) * 2,
+    # mode, B, T, F, Cin, Cout, bf16
+    "ddim_conv_dw_splits": (_I,) * 7,
+    # x, g, part, mode, B, T, F, Cin, Cout, bf16, stream
+    "ddim_conv_dw": (_P,) * 3 + (_I,) * 7 + (_P,),
     # x, res, pre_scale, pre_shift, w, add, out, stats,
     # B, T, F, C, pre_silu, post_silu, bf16, stream
     "ddim_conv3x3": (_P,) * 8 + (_I,) * 7 + (_P,),

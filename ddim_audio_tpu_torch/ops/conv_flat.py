@@ -49,11 +49,18 @@ from ._cuda import (
 )
 
 
-def per_sample(v, b: int, c: int, device) -> torch.Tensor | None:
+def wide_dtype(x: torch.Tensor) -> torch.dtype:
+    """The dtype a twin accumulates in: fp32, or fp64 for fp64 operands (so
+    ``torch.autograd.gradcheck`` can difference the twins)."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
+def per_sample(v, b: int, c: int, device,
+               dtype=torch.float32) -> torch.Tensor | None:
     """[C] or [B, C] → contiguous fp32 [B, C] on device (None stays None)."""
     if v is None:
         return None
-    v = torch.as_tensor(v, dtype=torch.float32, device=device)
+    v = torch.as_tensor(v, dtype=dtype, device=device)
     if v.ndim == 1:
         v = v.expand(b, v.shape[0])
     if tuple(v.shape) != (b, c):
@@ -67,7 +74,8 @@ def _nchw(x: torch.Tensor, c: int) -> torch.Tensor:
     CPU (oneDNN) fp32 conv on a channels-last view sums ~5× less accurately
     than on NCHW (2.8e-5 vs 5.8e-6 absolute at outputs of magnitude ~17)."""
     b, t, fc = x.shape
-    return x.view(b, t, fc // c, c).permute(0, 3, 1, 2).float().contiguous()
+    return (x.view(b, t, fc // c, c).permute(0, 3, 1, 2).to(wide_dtype(x))
+            .contiguous())
 
 
 def _finish(out32: torch.Tensor, dtype, want_stats: bool):
@@ -100,7 +108,8 @@ def _epilogue(out32, add, post_silu: bool, dtype, want_stats: bool):
     """out32 [B, T, F, C] fp32 → + add → SiLU → ``_finish``."""
     b, _, _, c = out32.shape
     if add is not None:
-        out32 = out32 + per_sample(add, b, c, out32.device)[:, None, None, :]
+        out32 = out32 + per_sample(add, b, c, out32.device,
+                                   out32.dtype)[:, None, None, :]
     if post_silu:
         out32 = F.silu(out32)
     return _finish(out32, dtype, want_stats)
@@ -113,7 +122,8 @@ def conv3x3_flat_plain(x, w, *, c: int, add=None, residual=None, pre=None,
     the prologue in torch, ``F.conv2d`` in fp32 on the dtype-rounded
     operands, the epilogue in torch."""
     v = _prologue(x, c, residual, pre, pre_silu, x.dtype)
-    out = F.conv2d(_nchw(v, c), w.float().permute(3, 2, 0, 1).contiguous(),
+    out = F.conv2d(_nchw(v, c),
+                   w.to(wide_dtype(v)).permute(3, 2, 0, 1).contiguous(),
                    padding=1).permute(0, 2, 3, 1)
     return _epilogue(out, add, post_silu, x.dtype, want_stats)
 

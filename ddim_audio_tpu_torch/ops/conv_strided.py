@@ -35,11 +35,11 @@ from ._cuda import (
     twin_result,
     use_twin,
 )
-from .conv_flat import _finish, _nchw
+from .conv_flat import _finish, _nchw, wide_dtype
 
 
-def _bias(bias, c_out: int, device) -> torch.Tensor:
-    bias = torch.as_tensor(bias, dtype=torch.float32, device=device)
+def _bias(bias, c_out: int, device, dtype=torch.float32) -> torch.Tensor:
+    bias = torch.as_tensor(bias, dtype=dtype, device=device)
     if tuple(bias.shape) != (c_out,):
         raise ValueError(f"bias must be [{c_out}], got {tuple(bias.shape)}")
     return bias.contiguous()
@@ -55,9 +55,10 @@ def conv_down_flat_plain(x, w, bias, *, c_in: int, c_out: int,
                          want_stats: bool = False):
     """Plain twin of ``conv_down_flat``: ``F.conv2d`` (stride 2, pad 1) in
     fp32 on the stored operands."""
-    out = F.conv2d(_nchw(x, c_in), w.float().permute(3, 2, 0, 1).contiguous(),
+    out = F.conv2d(_nchw(x, c_in),
+                   w.to(wide_dtype(x)).permute(3, 2, 0, 1).contiguous(),
                    stride=2, padding=1).permute(0, 2, 3, 1)
-    out = out + _bias(bias, c_out, x.device)
+    out = out + _bias(bias, c_out, x.device, out.dtype)
     return _finish(out, x.dtype, want_stats)
 
 
@@ -66,9 +67,10 @@ def conv_up_flat_plain(x, w, bias, *, c_in: int, c_out: int, residual=None,
     """Plain twin of ``conv_up_flat``: ``F.conv_transpose2d`` (stride 2,
     pad 1) in fp32, + bias, + residual, statistics of the sum."""
     out = F.conv_transpose2d(_nchw(x, c_in),
-                             up_weight_to_torch(w.float()).contiguous(),
+                             up_weight_to_torch(
+                                 w.to(wide_dtype(x))).contiguous(),
                              stride=2, padding=1).permute(0, 2, 3, 1)
-    out = out + _bias(bias, c_out, x.device)
+    out = out + _bias(bias, c_out, x.device, out.dtype)
     if residual is not None:
         b, t2, f2, _ = out.shape
         out = out + residual.float().view(b, t2, f2, c_out)

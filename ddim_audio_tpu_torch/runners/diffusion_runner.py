@@ -1,5 +1,14 @@
-"""The Diffusion runner, sampling side (port of
+"""The Diffusion runner: train / sample / test (port of
 ``ddim_audio_tpu/runners/diffusion_runner.py``).
+
+``train`` builds the dataset and its deterministic split, the model, the
+per-group optimizers and the EMA, resumes from the rolling checkpoint when
+asked, and loops over ``training.train_step``: the loop never synchronises
+with the device; metrics are read in batches of 16 (or at a snapshot),
+snapshots are written at step 1 and every ``snapshot_freq`` steps, a bounded
+validation pass on the held-out split runs every ``validation_freq`` steps
+with the EMA weights, and any exception leaves an emergency snapshot before
+it propagates. ``test`` is the mean ε-loss over the held-out split.
 
 ``sample`` loads the evaluation weights from the run's checkpoint (EMA when
 ``model.ema``) and dispatches as the JAX runner does: ``--interpolation``,
@@ -9,39 +18,59 @@ draws the start noise from the seed, runs the sampler on the unpadded flat
 fp32 state through the flat-io denoiser under ``production_eval_cfg`` (only
 the model call runs in the compute dtype), converts back to [N, C, T, F],
 applies ``denoise_2d`` when ``sampling.denoise`` is set, and writes a PNG and
-a WAV per sample. Training and ``test`` are later work (ROADMAP.md, queue A).
+a WAV per sample.
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import time
 
 import numpy as np
 import torch
 
+from ..checkpoint import checkpoint_path, load_checkpoint, save_checkpoint
 from ..config import production_eval_cfg
+from ..data.audio_dataset import batch_iterator, get_dataset
 from ..data.codec import limit_length_img, pfft2img, pfft2wav
 from ..diffusion.schedules import make_schedule, make_timestep_subsequence
 from ..models.unet import (
     ModelConfig,
     apply_model_flat_io,
+    count_params,
     flat_io_adapters,
+    init_model,
     prepare_params,
 )
 from ..ops.signal import denoise_2d
 from ..sampling.driver import ScanSampler
+from ..training.losses import loss_registry
+from ..training.train_step import init_train_state, make_train_step
 from ..utils.device import resolve_device
 from ..weights import load_jax_checkpoint
 
+_SEED_STRIDE = 1_000_003  # spreads (seed, step) over generator seeds
 
-def checkpoint_path(log_path: str, ckpt_id=None) -> str:
-    """The checkpoint file a run loads: the rolling ``ckpt.npz`` by default,
-    the step-tagged ``ckpt_<id>.npz`` when ``sampling.ckpt_id`` is set (the
-    rule of the JAX package's ``checkpoint.checkpoint_path``)."""
-    if ckpt_id is None:
-        return os.path.join(log_path, "ckpt.npz")
-    return os.path.join(log_path, f"ckpt_{ckpt_id}.npz")
+
+def _device_prefetch(host_iter, device):
+    """Yield device batches one transfer ahead: batch i+1 is staged in pinned
+    host memory and its copy enqueued (non-blocking) before batch i's train
+    step is issued, so the feed rides under the step's compute. Depth 1
+    bounds the extra device memory to one batch."""
+    def to_device(x):
+        x = torch.from_numpy(np.ascontiguousarray(x))
+        if device.type == "cuda":
+            x = x.pin_memory()
+        return x.to(device, non_blocking=True)
+
+    nxt = None
+    for x, _ in host_iter:
+        cur, nxt = nxt, to_device(x)
+        if cur is not None:
+            yield cur
+    if nxt is not None:
+        yield nxt
 
 
 class Diffusion:
@@ -64,6 +93,166 @@ class Diffusion:
         )
         self.num_timesteps = self.schedule.num_timesteps
 
+    # ------------------------------------------------------------------ train
+
+    def _eval_loss_fn(self, params):
+        """loss(x0, t, e) of the eval forward (the flat kernel route in the
+        model's own dtype) for a parameter tree, without gradients."""
+        cfg = self.model_cfg
+        to_flat, from_flat = flat_io_adapters(cfg)
+        prepared = prepare_params(params, cfg)
+        alphas = torch.as_tensor(self.schedule.alphas_cumprod,
+                                 dtype=torch.float32, device=self.device)
+        loss_impl = loss_registry[self.config.model.type]
+
+        def apply_fn(p, x, t):
+            return from_flat(apply_model_flat_io(p, to_flat(x).contiguous(),
+                                                 t, cfg))
+
+        @torch.no_grad()
+        def loss(x0, t, e):
+            return loss_impl(apply_fn, prepared, x0, t, e, alphas)
+
+        return loss
+
+    def _heldout_losses(self, test_dataset, params, rng, max_batches=None):
+        """ε-loss of each held-out batch (at most max_batches), with numpy
+        timesteps and seeded noise drawn from ``rng``."""
+        loss_fn = self._eval_loss_fn(params)
+        losses = []
+        for bi, (vx, _) in enumerate(batch_iterator(
+                test_dataset, self.config.training.batch_size,
+                shuffle=False)):
+            if max_batches is not None and bi >= max_batches:
+                break
+            t = torch.from_numpy(rng.integers(
+                0, self.num_timesteps, size=(vx.shape[0],))).to(self.device)
+            gen = torch.Generator(self.device).manual_seed(
+                int(rng.integers(1 << 31)))
+            e = torch.randn(vx.shape, generator=gen, device=self.device)
+            losses.append(float(loss_fn(
+                torch.from_numpy(vx).to(self.device), t, e)))
+        return losses
+
+    def train(self):
+        args, config = self.args, self.config
+        if (config.training.n_epochs is not None) == (
+                config.training.n_iters is not None):
+            raise ValueError("set exactly one of training.n_epochs and "
+                             "training.n_iters")
+        dataset, test_dataset = get_dataset(args, config)
+        logging.info("dataset: %d train / %d test items", len(dataset),
+                     len(test_dataset))
+
+        params = init_model(torch.Generator().manual_seed(int(args.seed)),
+                            self.model_cfg, device=self.device)
+        logging.info("model params: %d", count_params(params))
+        state, tx = init_train_state(params, config.optimization,
+                                     use_ema=bool(config.model.ema))
+        train_step = make_train_step(self.model_cfg, config,
+                                     self.schedule.alphas_cumprod, tx)
+
+        start_epoch, step = 0, 0
+        if getattr(args, "resume_training", False):
+            state, meta = load_checkpoint(
+                os.path.join(args.log_path, "ckpt.npz"), state)
+            start_epoch, step = meta["epoch"], meta["step"]
+            logging.info("resumed from step %d (epoch %d)", step, start_epoch)
+
+        # one generator, re-seeded from (seed, step) before every step: the
+        # draws of step k do not depend on where a run started
+        generator = torch.Generator(self.device)
+        tb = getattr(config, "tb_logger", None)
+        log_freq = int(getattr(config.training, "log_freq", 1))
+        snapshot_freq = config.training.snapshot_freq
+        validation_freq = getattr(config.training, "validation_freq", None)
+        val_batches = int(getattr(config.training, "validation_batches", 2)
+                          or 2)
+        pending = []  # (step, device metrics), read lazily
+
+        def run_validation(step):
+            losses = self._heldout_losses(
+                test_dataset, state.ema if config.model.ema else state.params,
+                np.random.default_rng(args.seed + step), val_batches)
+            val = float(np.mean(losses)) if losses else float("nan")
+            if tb is not None:
+                tb.add_scalar("val_loss", val, global_step=step)
+            logging.info("step: %d, val-loss: %.4f", step, val)
+
+        def flush_metrics():
+            for s, m in pending:
+                host = {k: float(v) for k, v in m.items()}
+                if tb is not None:
+                    tb.add_scalar("loss", host["loss"], global_step=s)
+                logging.info(", ".join(
+                    [f"step: {s}"] + [f"{k}: {v:.4f}" for k, v in host.items()]))
+            pending.clear()
+
+        def run_step(x, epoch, step):
+            nonlocal state
+            generator.manual_seed(int(args.seed) * _SEED_STRIDE + step - 1)
+            state, metrics = train_step(state, x, generator)
+            if step % log_freq == 0:
+                pending.append((step, metrics))
+            if len(pending) >= 16:
+                flush_metrics()
+            if step % snapshot_freq == 0 or step == 1:
+                flush_metrics()
+                save_checkpoint(args.log_path, state, step, epoch=epoch)
+            if validation_freq and step % int(validation_freq) == 0:
+                flush_metrics()
+                run_validation(step)
+
+        def batches(epoch):
+            num_workers = int(getattr(config.data, "num_workers", 0) or 0)
+            return _device_prefetch(batch_iterator(
+                dataset, config.training.batch_size, shuffle=True,
+                seed=args.seed + epoch, num_workers=num_workers), self.device)
+
+        epoch = start_epoch
+        try:
+            if config.training.n_epochs is not None:
+                for epoch in range(start_epoch, config.training.n_epochs):
+                    for x in batches(epoch):
+                        step += 1
+                        run_step(x, epoch, step)
+            else:
+                while step < config.training.n_iters:
+                    for x in batches(epoch):
+                        step += 1
+                        run_step(x, epoch, step)
+                        if step >= config.training.n_iters:
+                            break
+                    epoch += 1
+        except BaseException:
+            # keep the progress since the last snapshot, then propagate
+            try:
+                path = save_checkpoint(args.log_path, state, step,
+                                       epoch=epoch, tag="emergency")
+                logging.error("training interrupted; emergency snapshot: %s",
+                              path)
+            except Exception:
+                logging.exception("emergency snapshot failed")
+            raise
+        flush_metrics()
+        save_checkpoint(args.log_path, state, step, epoch=epoch)
+
+    # ------------------------------------------------------------------- test
+
+    def test(self):
+        """Mean validation ε-loss over the held-out split."""
+        args, config = self.args, self.config
+        _, test_dataset = get_dataset(args, config)
+        t0 = time.time()
+        losses = self._heldout_losses(test_dataset, self._load_eval_params(),
+                                      np.random.default_rng(args.seed))
+        mean = float(np.mean(losses)) if losses else float("nan")
+        logging.info("test: mean eps-loss %.4f over %d batches (%.1fs)", mean,
+                     len(losses), time.time() - t0)
+        return mean
+
+    # ----------------------------------------------------------------- sample
+
     def start_noise(self) -> torch.Tensor:
         """x_T [num_samples, C, T, F] fp32 from args.seed (drawn on the CPU,
         so it is the same numbers on every device)."""
@@ -74,9 +263,9 @@ class Diffusion:
         return torch.randn(shape, generator=gen).to(self.device)
 
     def _load_eval_params(self):
-        """The evaluation weights from the run's checkpoint, written by the
-        JAX package's ``checkpoint.save_checkpoint``: the EMA weights when
-        ``model.ema``, else the raw ones."""
+        """The evaluation weights from the run's checkpoint (written by
+        ``checkpoint.save_checkpoint`` of either package): the EMA weights
+        when ``model.ema``, else the raw ones."""
         config = self.config
         ckpt = checkpoint_path(self.args.log_path,
                                getattr(config.sampling, "ckpt_id", None))

@@ -130,13 +130,23 @@ def test_cli_failing_run_exits_1(workspace, extra, doc):
 
 @pytest.mark.parametrize("flags", [["--test"], [], ["--resume_training"]])
 def test_cli_training_and_test_name_the_roadmap(workspace, flags, capsys):
+    """Training and --test are dispatched (ROADMAP.md A8 is done): with no
+    dataset folder each fails as a run (exit 1) with the reason in the log,
+    not with a refusal. Only training writes the run folder's log file."""
     exp, _ = workspace
-    with pytest.raises(SystemExit) as exc:
-        cli.main(["--config", CONFIG, "--doc", "run", "--exp", exp, "--ni",
-                  "--device", "cpu", *flags])
-    assert exc.value.code == 2
-    assert "A8" in capsys.readouterr().err
-    assert not os.path.exists(os.path.join(exp, "logs", "run", "stdout.txt"))
+    doc = "train_" + "_".join(f.strip("-") for f in flags)
+    if flags:  # --test and --resume_training read an existing run folder
+        os.makedirs(os.path.join(exp, "logs", doc), exist_ok=True)
+    try:
+        code = cli.main(["--config", CONFIG, "--doc", doc, "--exp", exp,
+                         "--ni", "--device", "cpu", *flags])
+    finally:
+        logging.getLogger().handlers.clear()
+    assert code == 1
+    err = capsys.readouterr().err
+    assert "downloads is not a directory" in err and "A8" not in err
+    assert os.path.exists(os.path.join(exp, "logs", doc, "stdout.txt")) == \
+        (flags != ["--test"])
 
 
 @pytest.mark.parametrize("buffer_dtype,atol", [("float32", 1e-3),

@@ -209,3 +209,59 @@ def test_kernels_match_twins_on_gpu(cuda, dtype, tol, F, C):
           (x, (0.1 * rnd(4, 4, C, 32)).to(dtype), rnd(32)),
           dict(c_in=C, c_out=32, residual=rnd(B, 2 * T, 2 * F * 32).to(dtype),
                want_stats=True))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("F,C", [(12, 48), (40, 64), (18, 96)])
+def test_dw_kernels_match_twins_on_gpu(cuda, dtype, F, C):
+    """The three weight-gradient kernels vs their plain twins on the same
+    CUDA tensors at ragged sizes (T = 22 is no multiple of a tile's rows,
+    F = 40 / 18 none of 16; C = 48 takes the CUDA-core variant in bf16 too,
+    C = 64 / 96 the tensor-core one), every tap to 1e-4 of max|twin| (the
+    same operand values, fp32 sums in another order), twice bit for bit,
+    and through the autograd Functions against the twins' own gradients."""
+    from ddim_audio_tpu_torch.ops import flat_grad as fg
+    from ddim_audio_tpu_torch.ops import twin_route
+
+    g = torch.Generator(device=cuda).manual_seed(1)
+
+    def rnd(*s):
+        return torch.randn(*s, generator=g, device=cuda).to(dtype)
+
+    B, T, C2 = 2, 22, 64
+    cases = [
+        (fg.conv_dw_flat, fg.conv_dw_flat_plain,
+         (rnd(B, T, F * C), rnd(B, T, F * C)), dict(c=C)),
+        (fg.conv_down_dw_flat, fg.conv_down_dw_flat_plain,
+         (rnd(B, T, F * C), rnd(B, T // 2, (F // 2) * C2)),
+         dict(c_in=C, c_out=C2)),
+        (fg.conv_up_dw_flat, fg.conv_up_dw_flat_plain,
+         (rnd(B, T, F * C), rnd(B, 2 * T, 2 * F * C2)),
+         dict(c_in=C, c_out=C2)),
+    ]
+    for kern, twin, args, kw in cases:
+        before = kern.launches
+        got, again = kern(*args, **kw), kern(*args, **kw)
+        assert kern.launches == before + 2
+        ref = twin(*args, **kw)
+        assert got.dtype == torch.float32 and torch.equal(got, again)
+        for kh in range(ref.shape[0]):
+            for kw_ in range(ref.shape[1]):
+                err = (got[kh, kw_] - ref[kh, kw_]).abs().max() / ref.abs().max()
+                assert err <= 1e-4, (kern.__name__, kh, kw_, float(err))
+
+    # the Functions: kernels forward and backward vs the twins' autograd
+    x, w, add = rnd(B, T, F * C), 0.1 * rnd(3, 3, C, C).float(), rnd(B, C).float()
+    cot = rnd(B, T, F * C)
+    grads = {}
+    for route in ("kernels", "twins"):
+        leaves = [t.detach().clone().requires_grad_(True) for t in (x, w, add)]
+        with twin_route(force=route == "twins"):
+            out = fg.conv3x3_flat_t(*leaves, c=C)
+            grads[route] = torch.autograd.grad((out.float() * cot.float()).sum(),
+                                               leaves)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for a, b in zip(grads["kernels"], grads["twins"]):
+        assert a.dtype == b.dtype
+        assert (a.float() - b.float()).abs().max() <= tol * b.float().abs().max()

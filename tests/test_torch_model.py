@@ -5,7 +5,8 @@ package's, see test_init_matches_jax_structure_and_bounds, and several times
 quicker on the CPU), given non-zero final GroupNorm weights (at init GN3 = 0
 makes every resblock the identity and would hide conv errors), handed to JAX
 as numpy arrays and carried back with ``weights.params_from_jax``; inputs come
-from a numpy seed. Geometry ch=(32, 64, 96), res=(1, 1, 1),
+from a numpy seed. Geometry ch=(32, 64), res=(1, 1) (two stages: every
+distinct Pallas call costs seconds of interpret-mode tracing),
 f_size=16: there the JAX package runs its padded-square head/tail route, which
 computes what the port's head/tail convs compute (tests/test_torch_headtail.py
 holds them against the JAX head/tail kernels themselves).
@@ -42,8 +43,8 @@ TRANSFORMERS = {
     "dtype": None,
     "fourier_impl": "dft_matmul",
 }
-GEOMETRY = dict(channels=2, f_size=16, ch=(32, 64, 96), krn=(3, 3, 3),
-                res=(1, 1, 1), num_timesteps=50)
+GEOMETRY = dict(channels=2, f_size=16, ch=(32, 64), krn=(3, 3),
+                res=(1, 1), num_timesteps=50)
 
 
 def jax_params_nonzero_gn3(cfg_t, seed=3):
@@ -125,9 +126,9 @@ def test_prepared_params_give_the_same_flat_forward(setup, dtype):
     prepared = unet.prepare_params(params_t, cfg)
     w = prepared["up_modules"]["tail"]["w"]
     assert w.shape == (3, 3, 32, 2) and w.dtype == dtype
-    conv = prepared["down_modules"]["stages"][2]["blocks"][0]["conv1"]
+    conv = prepared["down_modules"]["stages"][1]["blocks"][0]["conv1"]
     assert conv["wq"].dtype == torch.int8 and conv["w"].dtype == dtype
-    assert conv["w_scale"].shape == (96,)
+    assert conv["w_scale"].shape == (64,)
     torch.testing.assert_close(
         unet.apply_model_flat_io(prepared, xf, tt, cfg),
         unet.apply_model_flat_io(params_t, xf, tt, cfg), atol=0, rtol=0)
@@ -153,9 +154,14 @@ def test_audio_yml_param_count_and_structure():
     assert cfg.dtype == torch.float32 and cfg.ch == (32, 64, 96, 128, 192, 256)
 
 
-def test_init_matches_jax_structure_and_bounds(setup):
+def test_init_matches_jax_structure_and_bounds():
     """Same tree, shapes and init bounds as the JAX init (values differ)."""
-    cfg_j, cfg_t, _, _, _, _ = setup
+    # three stages here (the strided transitions 32 -> 64 -> 96 and back):
+    # no Pallas call is traced, so depth costs little
+    geometry = dict(GEOMETRY, ch=(32, 64, 96), krn=(3, 3, 3), res=(1, 1, 1))
+    tcfg = dict2namespace(TRANSFORMERS)
+    cfg_j = jax_unet.ModelConfig(**geometry, transformers=tcfg, conv_impl="xla")
+    cfg_t = unet.ModelConfig(**geometry, transformers=tcfg)
     pj = jax_unet.init_model(jax.random.key(0), cfg_j)
     pt = unet.init_model(torch.Generator().manual_seed(0), cfg_t,
                          device="cpu")
@@ -242,10 +248,13 @@ def test_no_module_of_the_port_imports_jax():
         "    if not name.endswith('__main__'):\n"
         "        importlib.import_module(name)\n"
         "for want in ('cli', 'ops.conv_head_tail', 'sampling.ddpm', "
-        "'utils.device'):\n"
+        "'utils.device', 'ops.flat_grad', 'training.train_step', "
+        "'training.optim', 'checkpoint', 'data.audio_dataset', "
+        "'tools.profile_train_step'):\n"
         "    assert 'ddim_audio_tpu_torch.' + want in names, want\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith"
-        "(('jax.', 'jaxlib', 'ddim_audio_tpu.')) or m == 'ddim_audio_tpu')\n"
+        "(('jax.', 'jaxlib', 'ddim_audio_tpu.', 'flax', 'optax')) or "
+        "m == 'ddim_audio_tpu')\n"
         "assert not bad, bad\n"
         "print('ok', len(names))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=repo,

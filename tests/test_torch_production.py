@@ -32,8 +32,8 @@ TRANSFORMERS = {
                "layer_norm_eps": 1e-6},
     "channels": 32, "dtype": None, "fourier_impl": "dft_matmul",
 }
-GEOMETRY = dict(channels=2, f_size=64, ch=(32, 64, 96), krn=(3, 3, 3),
-                res=(1, 1, 1), num_timesteps=50)
+GEOMETRY = dict(channels=2, f_size=64, ch=(32, 64), krn=(3, 3),
+                res=(1, 1), num_timesteps=50)
 
 
 def snr_db(out, ref):
@@ -48,7 +48,11 @@ def setup():
                                  conv_impl="pallas", tap_int8=True)
     cfg_t = unet.ModelConfig(**GEOMETRY, transformers=tcfg, tap_int8=True)
     assert supports_head_tail(2, 32, 64, hw=False)
-    params_j = jax_unet.init_model(jax.random.key(0), cfg_j)
+    # the port's init makes the same tree as the JAX init
+    # (tests/test_torch_model.py) and is much quicker on the CPU
+    params_j = jax.tree_util.tree_map(
+        lambda v: jnp.asarray(v.numpy()),
+        unet.init_model(torch.Generator().manual_seed(0), cfg_t, device="cpu"))
     rng = np.random.default_rng(3)
     for mod in ("down_modules", "up_modules"):
         for stage in params_j[mod]["stages"]:
