@@ -22,6 +22,17 @@ phase on its own lines:
    events, its bound (the larger of bytes moved / 3.35 TB/s and operations /
    the peak rate of the operand type) and the time of the one PyTorch call
    that computes the bare conv (bf16, channels-last, cuDNN);
+   Then the int8-storage kernels (the storage modes of conv3x3, int8 input
+   and residual with their scales and ``quant_out`` with and without
+   statistics, at s0-s3; ``residual_affine_flat`` with int8 or float x and
+   int8 s, ``quant_out`` on and off, at s0-s3) and the int8 strided taps
+   (down 32->64, up 64->32, up 256->192) against their twins with the
+   kernels' own groups, fp32 and bf16, B = 1 and 2: the share of int8
+   outputs that differ (never by more than 1), scales, float outputs and
+   statistics relative, the same call twice bit-equal, and for bf16 the
+   kernel's, the twin's, the bound's and the one PyTorch call's time
+   (``residual_affine_flat`` has none: no single call dequantises, adds and
+   requantises per group);
 4. full-width forward of the audio.yml model (47,155,266 params, seed-made
    weights with non-zero final GroupNorm weights) at [1, 2, 8192, 256]: the
    production forward (bf16, int8 taps, as audio.yml ships it) and the
@@ -46,6 +57,16 @@ phase on its own lines:
    then 4-step chains, bf16 kernels (float taps and production) against the
    fp32 plain chain from the same x_T, on init weights and on the
    non-zero-GN3 weights.
+
+   Then the int8-storage configuration (audio.yml plus
+   ``sampling.act_store: int8`` and ``sampling.strided_int8: true``, written
+   to a temporary file): the full-width forward with its launch counts
+   (40 storage conv3x3, 24 float, 20 ``residual_affine_flat``, down 4 + 1
+   int8, up 3 + 2 int8, head, tail) against the fp32 plain route on both
+   weight sets, every wrapper call shadowed by its kernel, its time beside
+   the production route's; and the command line's 10-step last-only run at
+   B = 2 on a checkpoint of the weights, its clips held against the same
+   run through the twins;
 
 7. the three weight-gradient kernels (``conv_dw_flat``,
    ``conv_down_dw_flat``, ``conv_up_dw_flat``) against their plain versions
@@ -73,11 +94,14 @@ Every failure raises and the script exits non-zero. The last three lines are
 the card, the per-kernel JSON summary and ``{"ok": true, "device": {...}}``.
 In the summary ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` are sums
 over the kernel's main-path shapes, each shape once: bf16 at B = 2 at the
-sampling shapes for the six forward kernels, fp32 at B = 1 at the training
-shapes for the three weight-gradient kernels. ``launches`` counts the
-launches of the three command-line sampling runs of phase 5 (forward
-kernels) or of the first command-line training run of phase 9
-(weight-gradient kernels); ``launches_train_path`` is every kernel's count in
+sampling shapes for the forward kernels (for the storage conv its int8-in,
+``quant_out`` mode, 32 of its 40 calls; for ``residual_affine_flat`` int8 x
+with ``quant_out``), fp32 at B = 1 at the training shapes for the three
+weight-gradient kernels. ``launches`` counts the launches of the three
+command-line sampling runs of phase 5 (the six production kernels), of the
+int8-storage command-line run of phase 6 (the four int8-storage kernels) or
+of the first command-line training run of phase 9 (weight-gradient
+kernels); ``launches_train_path`` is every kernel's count in
 that training run. It imports nothing of JAX.
 """
 
@@ -104,6 +128,16 @@ TOL_STATS = 1e-3
 # to 1e-4 relative.
 SNR_INT8_KERNEL_DB = 78.0  # an H100 read 80.6 dB at the worst case (bf16, C 96)
 TOL_INT8_STATS = 1e-4
+# int8 storage and int8 strided taps vs their twins with the kernels' own
+# groups. The strided kernels and residual_affine repeat the twin's
+# arithmetic operation for operation (an H100 read them bit-equal at every
+# shape); the storage conv sums its taps in another order, so an output on a
+# rounding boundary may land on the next integer: at least this share of
+# int8 outputs equal (an H100 read 0.999945 at the worst shape), none more
+# than 1 apart, scales (a group's max|out| / 127) within 1e-4 relative (an
+# H100 read 1.5e-5 at C = 128, where each output sums 1,152 products).
+INT8_EQUAL_SHARE = 0.999
+TOL_INT8_SCALES = 1e-4
 SNR_FWD_FP32_DB = 90.0
 SNR_FWD_BF16_DB = 38.0
 # The production forward (bf16, int8 taps at C <= 96) against the fp32 plain
@@ -146,6 +180,21 @@ SNR_CHAIN_GN3_BF16_DB = 41.0
 # production chains: an H100 read 49.62 dB (init weights) and 30.84 dB
 SNR_CHAIN_PROD_INIT_DB = 47.6
 SNR_CHAIN_PROD_GN3_DB = 28.8
+# The int8-storage configuration (act_store: int8, strided_int8: true, bf16,
+# tap_int8 as shipped), each floor 2 dB under an H100's reading: forward vs
+# the fp32 plain route 30.86 dB (non-zero GN3) and 43.86 dB (init weights;
+# the JAX package's own guard of this route is 38 dB), vs its own twin route
+# 32.27 dB, the command line's 10-step clips vs the twins 34.46 dB.
+SNR_FWD_I8_GN3_DB = 28.8
+SNR_FWD_I8_INIT_DB = 41.8
+SNR_FWD_I8_TWIN_DB = 30.2
+SNR_I8_CLI_TWIN_DB = 32.4
+# Every call of that forward vs its twin: the storage conv read 77.2 dB at
+# its worst call; the three kernels that repeat their twin's arithmetic read
+# identical bits in every call (snr_db gives ~3000 dB for equal tensors), so
+# their floor asks for the last bit.
+SHADOW_FLOORS = {"conv3x3_flat_store": 75.2, "residual_affine_flat": 300.0,
+                 "conv_down_flat_int8": 300.0, "conv_up_flat_int8": 300.0}
 PARAMS_AUDIO_YML = 47_155_266
 # Weight-gradient kernels vs their plain versions: the same operand values,
 # fp32 accumulation on both sides, another summation order over up to
@@ -186,11 +235,13 @@ TRAIN_STAGES = [(1024, 256, 32), (512, 128, 64), (256, 64, 96), (128, 32, 128),
 # 64 resblock convs + padded head + tail forward, 64 recomputed, dx for all
 # but the head (its input is data); dx of a down conv is the up kernel and
 # the reverse
+INT8_STORE_KERNELS = ("conv3x3_flat_store", "residual_affine_flat",
+                      "conv_down_flat_int8", "conv_up_flat_int8")
 PER_MICROBATCH = {"conv3x3_flat": 66 + 64 + 65, "conv3x3_flat_int8": 0,
                   "conv_head_flat": 0, "conv_tail_flat": 0,
                   "conv_down_flat": 5 + 5, "conv_up_flat": 5 + 5,
                   "conv_dw_flat": 66, "conv_down_dw_flat": 5,
-                  "conv_up_dw_flat": 5}
+                  "conv_up_dw_flat": 5, **dict.fromkeys(INT8_STORE_KERNELS, 0)}
 CSRC = "ddim_audio_tpu_torch/csrc/"
 PALLAS = "ddim_audio_tpu/ops/pallas/"
 REPLACES = {
@@ -207,13 +258,30 @@ REPLACES = {
                           "ddim_audio_tpu/ops/flat_grad.py:334"),
     "conv_up_dw_flat": (CSRC + "conv_dw.cu",
                         "ddim_audio_tpu/ops/flat_grad.py:437"),
+    "conv3x3_flat_store": (CSRC + "conv3x3_store.cu",
+                           PALLAS + "conv_flat.py:283"),
+    "residual_affine_flat": (CSRC + "residual_affine.cu",
+                             PALLAS + "conv_flat.py:484"),
+    "conv_down_flat_int8": (CSRC + "conv_strided_int8.cu",
+                            PALLAS + "conv_strided.py:230"),
+    "conv_up_flat_int8": (CSRC + "conv_strided_int8.cu",
+                          PALLAS + "conv_strided.py:541"),
 }
 # launches of one forward: float-tap route and production route
 PER_FORWARD_FLOAT = {"conv3x3_flat": 64, "conv3x3_flat_int8": 0,
                      "conv_head_flat": 1, "conv_tail_flat": 1,
-                     "conv_down_flat": 5, "conv_up_flat": 5}
+                     "conv_down_flat": 5, "conv_up_flat": 5,
+                     **dict.fromkeys(INT8_STORE_KERNELS, 0)}
 PER_FORWARD_PROD = dict(PER_FORWARD_FLOAT, conv3x3_flat=36,
                         conv3x3_flat_int8=28)
+# the int8-storage configuration (audio.yml + act_store: int8 +
+# strided_int8: true): s0-s3 store int8 between their kernels (40 convs, 20
+# tails, float taps there), s4-s5 float taps (24), int8 taps in down 32->64,
+# up 64->32 and up 256->192
+PER_FORWARD_I8 = dict(PER_FORWARD_FLOAT, conv3x3_flat=24, conv3x3_flat_store=40,
+                      residual_affine_flat=20, conv_down_flat=4,
+                      conv_down_flat_int8=1, conv_up_flat=3,
+                      conv_up_flat_int8=2)
 DW_KERNELS = ("conv_dw_flat", "conv_down_dw_flat", "conv_up_dw_flat")
 
 
@@ -315,8 +383,8 @@ class Shadow:
         require(calls == want_calls, f"{tag}: shadowed calls {calls} != "
                 f"{want_calls}")
         for name, (n, snr, srel) in self.seen.items():
-            floor = floor_db or (SHADOW_INT8_DB if name.endswith("int8")
-                                 else SHADOW_FLOAT_DB)
+            floor = floor_db or SHADOW_FLOORS.get(name) or (
+                SHADOW_INT8_DB if name.endswith("int8") else SHADOW_FLOAT_DB)
             log(f"{tag} {name}: {n} calls on the model's own activations, "
                 f"worst SNR vs the twin {snr:.1f} dB (>= {floor}), worst "
                 f"stats rel {srel:.2e} (<= {SHADOW_STATS})")
@@ -570,6 +638,222 @@ def phase_kernels(summary):
                              else "operations")
 
 
+# int8 storage and int8 strided taps: the stages that store int8 (s0-s3) and
+# the transitions that run int8 taps at audio.yml, (T_in, F_in, C_in, C_out)
+STORE_STAGES = STAGES[:4]
+DOWNS_I8 = [DOWNS[0]]
+UPS_I8 = [(4096, 128, 64, 32), (256, 8, 256, 192)]
+
+
+def _int8_cases(torch, bsz):
+    """The four int8-storage kernels at every production shape of their
+    path: dicts of name, label, kernel, twin, make(dtype) -> (args, kwargs),
+    layout (what each output is: "q" int8, "scales", "out" float, "stats"),
+    io, ops, kind (the operand type of the operations), lib (the one PyTorch
+    call, or None) and timed (the shape's mode the summary sums)."""
+    import torch.nn.functional as F
+
+    from ddim_audio_tpu_torch.ops.conv_flat import (
+        conv3x3_flat_plain, conv3x3_flat_store, quantize_store)
+    from ddim_audio_tpu_torch.ops.conv_strided import (
+        conv_down_flat_int8, conv_down_flat_int8_plain, conv_up_flat_int8,
+        conv_up_flat_int8_plain, quantize_strided_weights_int8,
+        up_weight_to_torch)
+    from ddim_audio_tpu_torch.ops.residual_affine import (
+        residual_affine_flat, residual_affine_flat_plain)
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
+
+    def io_of(pos, kw, outs):
+        flat = [v for p in pos for v in (p if isinstance(p, tuple) else (p,))]
+        return [*flat, *[v for v in kw.values() if isinstance(v, torch.Tensor)],
+                *(kw.get("pre") or ()), *outs]
+
+    cases = []
+    for t, f, c in STORE_STAGES:
+        x, w, res = rnd(bsz, t, f * c), rnd(3, 3, c, c, scale=(9 * c) ** -0.5), \
+            rnd(bsz, t, f * c)
+        q, sc = quantize_store(x.view(bsz, t, f, c))
+        rq, rsc = quantize_store(res.view(bsz, t, f, c))
+        pre, add = (1 + 0.1 * rnd(bsz, c), 0.1 * rnd(bsz, c)), rnd(bsz, c)
+        fused = dict(c=c, pre=pre, add=add, pre_silu=True, post_silu=True)
+        modes = [  # (label, x, kwargs, layout, timed)
+            ("float in, quant_out, stats", None, dict(quant_out=True,
+                                                      want_stats=True),
+             ("q", "scales", "stats", "stats"), False),
+            ("int8 in, quant_out, stats", q, dict(in_scales=sc, quant_out=True,
+                                                  want_stats=True),
+             ("q", "scales", "stats", "stats"), True),
+            ("int8 in, quant_out", q, dict(in_scales=sc, quant_out=True),
+             ("q", "scales"), False),
+            ("float in, int8 residual, stats", None, dict(
+                residual=rq, res_scales=rsc, want_stats=True),
+             ("out", "stats", "stats"), False),
+        ]
+        for label, xin, extra, layout, timed in modes:
+            def make(dt, x=x, xin=xin, w=w, fused=fused, extra=extra):
+                return ((x.to(dt) if xin is None else xin, w.to(dt)),
+                        dict(fused, **extra))
+
+            def lib(pos, kw, x=x, w=w, c=c):
+                xl, wl = x.to(pos[1].dtype), _oihw(w.to(pos[1].dtype))
+                return lambda: F.conv2d(_nchw(xl, c), wl, padding=1)
+            cases.append(dict(
+                name="conv3x3_flat_store", label=f"T{t} F{f} C{c} {label}",
+                kernel=conv3x3_flat_store, twin=conv3x3_flat_plain, make=make,
+                layout=layout, io=io_of, lib=lib, kind="bf16", timed=timed,
+                ops=2.0 * 9 * c * c * t * f * bsz))
+        s8, ssc = quantize_store(rnd(bsz, t, f, c))
+        aff = (1 + 0.1 * rnd(bsz, c), 0.1 * rnd(bsz, c))
+        for xk in ("int8", "float"):
+            for qo in (True, False):
+                def make(dt, xk=xk, qo=qo, x=x, q=q, sc=sc, s8=s8, ssc=ssc,
+                         aff=aff, c=c):
+                    xin, xs = (q, sc) if xk == "int8" else (x.to(dt), None)
+                    return ((xin, s8, aff), dict(
+                        c=c, x_scales=xs, s_scales=ssc, quant_out=qo,
+                        want_stats=True, out_dtype=dt))
+                cases.append(dict(
+                    name="residual_affine_flat",
+                    label=f"T{t} F{f} C{c} {xk} x, int8 s, quant_out {qo}",
+                    kernel=residual_affine_flat,
+                    twin=residual_affine_flat_plain, make=make,
+                    layout=(("q", "scales") if qo else ("out",))
+                    + ("stats", "stats"), io=io_of, lib=None, kind="fp32",
+                    timed=xk == "int8" and qo, ops=4.0 * bsz * t * f * c))
+    for up, shapes in ((False, DOWNS_I8), (True, UPS_I8)):
+        for t, f, ci, co in shapes:
+            x = rnd(bsz, t, f * ci)
+            w = rnd(4, 4, ci, co, scale=((4 if up else 16) * ci) ** -0.5)
+            wq, ws = quantize_strided_weights_int8(w)
+            b = rnd(co)
+            res = rnd(bsz, 2 * t, 2 * f * co) if up else None
+
+            def make(dt, x=x, wq=wq, ws=ws, b=b, res=res, ci=ci, co=co,
+                     up=up):
+                kw = dict(c_in=ci, c_out=co, want_stats=True)
+                if up:
+                    kw["residual"] = res.to(dt)
+                return (x.to(dt), wq, ws, b), kw
+
+            def lib(pos, kw, w=w, ci=ci, up=up):
+                if up:
+                    wl = up_weight_to_torch(w.to(pos[0].dtype)).contiguous(
+                        memory_format=torch.channels_last)
+                    return lambda: F.conv_transpose2d(_nchw(pos[0], ci), wl,
+                                                      stride=2, padding=1)
+                wl = _oihw(w.to(pos[0].dtype))
+                return lambda: F.conv2d(_nchw(pos[0], ci), wl, stride=2,
+                                        padding=1)
+            to, fo = (2 * t, 2 * f) if up else (t // 2, f // 2)
+            cases.append(dict(
+                name="conv_up_flat_int8" if up else "conv_down_flat_int8",
+                label=f"T{t} F{f} {ci}->{co}",
+                kernel=conv_up_flat_int8 if up else conv_down_flat_int8,
+                twin=conv_up_flat_int8_plain if up else conv_down_flat_int8_plain,
+                make=make, layout=("out", "stats", "stats"), io=io_of, lib=lib,
+                kind="int8", timed=True,
+                ops=2.0 * (4 if up else 16) * ci * co * to * fo * bsz))
+    return cases
+
+
+def _compare(layout, outs, refs):
+    """(int8 share equal, int8 max |diff|, float rel, scales rel, stats rel)
+    of a kernel's outputs against its twin's."""
+    eq, mx, frel, srel, strel = 1.0, 0, 0.0, 0.0, 0.0
+    for kind, o, r in zip(layout, outs, refs):
+        if kind == "q":
+            d = (o.int() - r.int()).abs()
+            eq, mx = (d == 0).float().mean().item(), int(d.max().item())
+        elif kind == "out":
+            frel = rel_err(o, r)[1]
+        elif kind == "scales":
+            srel = ((o - r).abs() / r.abs()).max().item()
+        else:
+            strel = max(strel, rel_err(o, r)[1])
+    return eq, mx, frel, srel, strel
+
+
+def phase_int8_kernels(summary):
+    """The int8-storage kernels (conv3x3 storage modes, residual_affine) and
+    the int8 strided taps against their twins (the kernels' own groups) at
+    every production shape of their path, B = 1 and 2, fp32 and bf16: int8
+    outputs equal or off by one (the share that differs), scales, float
+    outputs and statistics relative, the same call twice bit-equal; bf16
+    cases timed against the twin, the bound and the one PyTorch call."""
+    import torch
+
+    def as_tuple(r):
+        return r if isinstance(r, tuple) else (r,)
+
+    for bsz in (1, 2):
+        for case in _int8_cases(torch, bsz):
+            name, label = case["name"], f"B{bsz} " + case["label"]
+            kern, twin = case["kernel"], case["twin"]
+            entry = summary.setdefault(name, {
+                "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                "bound_ms": 0.0, "library_ms": 0.0, "_bytes": 0.0,
+                "_ops": 0.0})
+            for dtype, dt in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+                pos, kw = case["make"](dtype)
+                outs = as_tuple(kern(*pos, **kw))
+                again = as_tuple(kern(*pos, **kw))
+                refs = as_tuple(twin(*pos, **kw))
+                torch.cuda.synchronize()
+                same = all(torch.equal(a, b) for a, b in zip(outs, again))
+                eq, mx, frel, srel, strel = _compare(case["layout"], outs, refs)
+                err = max(rel_err(o, r)[0] for k, o, r in
+                          zip(case["layout"], outs, refs) if k in ("q", "out"))
+                entry["max_abs_err"] = max(entry["max_abs_err"], err)
+                line = (f"[int8] {name:20s} {label:48s} {dt} int8 equal "
+                        f"{eq:.6f} (differ {1 - eq:.2e}, max {mx}) | out rel "
+                        f"{frel:.2e} | scales rel {srel:.2e} | stats rel "
+                        f"{strel:.2e} | twice bit-equal {same}")
+                require(same, f"{name} {label} {dt}: two runs differ")
+                require(mx <= 1 and eq >= INT8_EQUAL_SHARE,
+                        f"{name} {label} {dt}: int8 outputs equal {eq:.6f}, "
+                        f"max |diff| {mx}")
+                tol = TOL_FP32 if dt == "fp32" else TOL_BF16
+                require(frel <= tol, f"{name} {label} {dt}: out rel {frel:.2e}")
+                require(srel <= TOL_INT8_SCALES, f"{name} {label} {dt}: scales "
+                        f"rel {srel:.2e} > {TOL_INT8_SCALES}")
+                require(strel <= TOL_STATS, f"{name} {label} {dt}: stats rel "
+                        f"{strel:.2e} > {TOL_STATS}")
+                if dtype != torch.bfloat16 or not (case["timed"] or bsz == 1):
+                    log(line)
+                    continue
+                ms = cuda_time(lambda: kern(*pos, **kw))
+                plain_ms = cuda_time(lambda: twin(*pos, **kw), n=5, warmup=1)
+                bnd, by = bound_ms(case["io"](pos, kw, outs), case["ops"],
+                                   case["kind"])
+                line += (f" | kernel {ms:.3f} ms, twin {plain_ms:.3f} ms, bound "
+                         f"{bnd:.3f} ms ({by})")
+                lib_ms = None
+                if case["lib"] is not None:
+                    lib_ms = cuda_time(case["lib"](pos, kw))
+                    line += f", cuDNN bf16 conv {lib_ms:.3f} ms"
+                else:
+                    line += (", library — (no single PyTorch call dequantises, "
+                             "adds and requantises per group)")
+                if bsz == 2 and case["timed"]:  # the main path, each shape once
+                    entry["ms"] += ms
+                    entry["plain_ms"] += plain_ms
+                    entry["bound_ms"] += bnd
+                    entry["_bytes" if by == "bytes" else "_ops"] += bnd
+                    if lib_ms is None:
+                        entry["library_ms"] = None
+                    else:
+                        entry["library_ms"] += lib_ms
+                log(line)
+    for name in INT8_STORE_KERNELS:
+        entry = summary[name]
+        entry["bound_by"] = ("bytes" if entry.pop("_bytes") >= entry.pop("_ops")
+                             else "operations")
+
+
 def _audio_params():
     """audio.yml config (fp32 compute) and seed-made weights with non-zero
     final GroupNorm weights (zero-init GN3 makes every resblock the identity
@@ -779,9 +1063,9 @@ def _phase_slice(summary, params, runs, clips, seed, exported):
         log(f"[slice] launches of the three CLI runs ({forwards} forwards): "
             f"{counts}")
         require(counts == want, f"main-path launches {counts} != {want}")
-        for name, n in counts.items():
-            require(n > 0, f"{name} was never launched on the main path")
-            summary[name]["launches"] = n
+        for name, n in want.items():
+            if n:
+                summary[name]["launches"] = counts[name]
 
         # The last-only run again through the runner, from the same seed:
         # its WAVs are the command line's, and its two clips are held against
@@ -1003,6 +1287,183 @@ def _dw_cases(torch):
                 _nchw(g, c), (c2, c, 4, 4), _nchw(x, c2), stride=2, padding=1),
             fb=f2, c_in=c2, c_out=c, ops=2.0 * 16 * c * c2 * t2 * f2))
     return cases
+
+
+def _int8_store_config(path):
+    """audio.yml as shipped plus ``sampling.act_store: int8`` and
+    ``sampling.strided_int8: true``, written to path."""
+    import yaml
+
+    with open("configs/audio.yml") as f:
+        raw = yaml.safe_load(f)
+    raw["sampling"].update(act_store="int8", strided_int8=True)
+    with open(path, "w") as f:
+        yaml.safe_dump(raw, f)
+    return path
+
+
+def phase_int8_store(summary, cfg, params):
+    """The int8-storage configuration (audio.yml + act_store: int8 +
+    strided_int8: true, bf16, tap_int8 as shipped): the full-width forward
+    against the fp32 plain route on both weight sets, with its launch counts,
+    every wrapper call shadowed by its kernel, its time beside the
+    production route's; then the command line's 10-step last-only run at
+    B = 2 on a checkpoint of the weights, held against the same run through
+    the twins."""
+    import logging
+    from types import SimpleNamespace
+
+    import torch
+
+    from ddim_audio_tpu_torch import cli
+    from ddim_audio_tpu_torch.config import load_config, production_eval_cfg
+    from ddim_audio_tpu_torch.diffusion.schedules import \
+        make_timestep_subsequence
+    from ddim_audio_tpu_torch.models.unet import (
+        act_store_int8_stage, apply_model, apply_model_flat_io,
+        flat_io_adapters, init_model, prepare_params, strided_int8_transition)
+    from ddim_audio_tpu_torch.ops import reset_launch_counts
+    from ddim_audio_tpu_torch.runners.diffusion_runner import Diffusion
+    from ddim_audio_tpu_torch.tools import forward_input
+    from ddim_audio_tpu_torch.weights import save_eval_checkpoint
+
+    with tempfile.TemporaryDirectory() as exp:
+        path = _int8_store_config(os.path.join(exp, "audio_int8.yml"))
+        config = load_config(path)
+        cfg_i8 = production_eval_cfg(config, cfg)
+        cfg_prod = production_eval_cfg(load_config("configs/audio.yml"), cfg)
+        require(cfg_i8.dtype == torch.bfloat16 and cfg_i8.tap_int8
+                and cfg_i8.act_store == "int8" and cfg_i8.strided_int8,
+                f"int8-storage config is {cfg_i8}")
+        stages = [c for c in cfg.ch if act_store_int8_stage(cfg_i8, c)]
+        trans = [f"down {a}->{b}" for a, b in zip(cfg.ch, cfg.ch[1:])
+                 if strided_int8_transition(cfg_i8, a, b)] + [
+            f"up {b}->{a}" for a, b in zip(cfg.ch, cfg.ch[1:])
+            if strided_int8_transition(cfg_i8, b, a, up=True)]
+        log(f"[int8] audio.yml + sampling.act_store int8 + strided_int8 true "
+            f"(bf16, tap_int8 true): int8 storage at C {stages}, int8 strided "
+            f"taps at {trans}")
+        require(stages == [32, 64, 96, 128] and trans == [
+            "down 32->64", "up 64->32", "up 256->192"],
+            "the int8 stages / transitions differ from the JAX dispatch")
+
+        x, t = forward_input(cfg)
+        to_flat, from_flat = flat_io_adapters(cfg)
+        xf = to_flat(x).contiguous()
+        p_i8 = prepare_params(params, cfg_i8)
+        p_prod = prepare_params(params, cfg_prod)
+        ref = apply_model(params, x, t, cfg)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        out = from_flat(apply_model_flat_io(p_i8, xf, t, cfg_i8))
+        torch.cuda.synchronize()
+        counts = forward_counts()
+        require(bool(torch.isfinite(out).all()), "int8-storage forward not "
+                "finite")
+        snr = snr_db(out, ref)
+        log(f"[int8] kernel route, int8 storage, vs fp32 plain: SNR {snr:.2f} "
+            f"dB (>= {SNR_FWD_I8_GN3_DB}) | launches {counts}")
+        require(counts == PER_FORWARD_I8, f"launches per forward {counts} != "
+                f"{PER_FORWARD_I8}")
+        require(snr >= SNR_FWD_I8_GN3_DB, f"int8-storage forward SNR "
+                f"{snr:.2f} < {SNR_FWD_I8_GN3_DB} dB")
+        shadow = Shadow()
+        with reference_route(shadow=shadow):
+            twin = from_flat(apply_model_flat_io(p_i8, xf, t, cfg_i8))
+        shadow.check("[int8] forward, B1,", PER_FORWARD_I8)
+        snr_t = snr_db(out, twin)
+        log(f"[int8] kernel route vs the same forward through the plain twins: "
+            f"SNR {snr_t:.2f} dB (>= {SNR_FWD_I8_TWIN_DB}); twins vs fp32 plain "
+            f"{snr_db(twin, ref):.2f} dB")
+        require(snr_t >= SNR_FWD_I8_TWIN_DB, f"int8-storage forward vs its "
+                f"twin route: SNR {snr_t:.2f} < {SNR_FWD_I8_TWIN_DB} dB")
+        del twin
+        p0 = init_model(torch.Generator().manual_seed(0), cfg)
+        ref0 = apply_model(p0, x, t, cfg)
+        out0 = from_flat(apply_model_flat_io(prepare_params(p0, cfg_i8), xf, t,
+                                             cfg_i8))
+        snr0 = snr_db(out0, ref0)
+        log(f"[int8] kernel route, int8 storage, init weights (GN3 = 0), vs "
+            f"fp32 plain: SNR {snr0:.2f} dB (>= {SNR_FWD_I8_INIT_DB}; the JAX "
+            "package's own guard of this route is 38 dB)")
+        require(snr0 >= SNR_FWD_I8_INIT_DB, f"int8-storage forward on init "
+                f"weights: SNR {snr0:.2f} < {SNR_FWD_I8_INIT_DB} dB")
+        del p0, ref0, out0
+        times = {
+            "kernel route, int8 storage": lambda: apply_model_flat_io(
+                p_i8, xf, t, cfg_i8),
+            "kernel route, production": lambda: apply_model_flat_io(
+                p_prod, xf, t, cfg_prod),
+        }
+        for rnd in (1, 2):
+            for label, fn in times.items():
+                log(f"[int8] round {rnd}, {label}: "
+                    f"{cuda_time(fn, n=5, warmup=1):.2f} ms / forward")
+        del p_i8, p_prod
+
+        # the command line on a checkpoint of these weights
+        save_eval_checkpoint(os.path.join(exp, "logs", "smoke"), params)
+        steps, clips, seed = 10, 2, 1234
+        exported = []
+        export = Diffusion.export
+
+        def checked_export(self, arr, names):
+            require(arr.shape == (clips, 2, 8192, 256),
+                    f"exported array of shape {arr.shape}")
+            require(bool(np.isfinite(arr).all()),
+                    f"non-finite output in {list(names)}")
+            exported.append(list(names))
+            return export(self, arr, names)
+
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        Diffusion.export = checked_export
+        t0 = time.perf_counter()
+        try:
+            code = cli.main(["--config", path, "--doc", "smoke", "--exp", exp,
+                             "--ni", "--sample", "--verbose", "warning",
+                             "--timesteps", str(steps), "-i", "cli"])
+        finally:
+            Diffusion.export = export
+            logging.getLogger().handlers.clear()
+        wall = time.perf_counter() - t0
+        require(code == 0, f"int8-storage CLI run exited {code}")
+        require(len(exported) == 1, f"CLI run exported {len(exported)} arrays")
+        forwards = len(make_timestep_subsequence(1000, steps, "uniform"))
+        counts = forward_counts()
+        want = {k: v * forwards for k, v in PER_FORWARD_I8.items()}
+        log(f"[int8] CLI DDIM last-only, --timesteps {steps}, {clips} clips "
+            f"[2, 2, 8192, 256]: exit 0, 4 files, every exported array "
+            f"finite, host wall {wall:.2f} s | launches ({forwards} forwards) "
+            f"{counts}")
+        require(counts == want, f"int8-storage CLI launches {counts} != {want}")
+        for name in INT8_STORE_KERNELS:
+            summary[name]["launches"] = counts[name]
+        _count_files(os.path.join(exp, "image_samples", "cli"),
+                     [f"{j}_final{ext}" for j in range(clips)
+                      for ext in (".png", ".wav")])
+        outs = {}
+        for route in ("kernels", "twins"):
+            args = SimpleNamespace(
+                seed=seed, timesteps=steps, skip_type="uniform", eta=0.0,
+                sample_type="generalized",
+                image_folder=os.path.join(exp, "image_samples", route))
+            with reference_route(force=route == "twins"):
+                outs[route] = Diffusion(args, config).sample_last_only(params)
+        for j in range(clips):
+            wav = [_read_wav(os.path.join(exp, "image_samples", d,
+                                          f"{j}_final.wav"))
+                   for d in ("cli", "kernels")]
+            same = bool(np.array_equal(wav[0], wav[1]))
+            snr = snr_db(torch.from_numpy(outs["kernels"][j]),
+                         torch.from_numpy(outs["twins"][j]))
+            log(f"[int8] clip {j}: the runner's WAV equals the command line's: "
+                f"{same}; kernels vs twins, {steps}-step sample: SNR {snr:.2f} "
+                f"dB (>= {SNR_I8_CLI_TWIN_DB})")
+            require(same and float(np.abs(wav[0]).max()) > 0,
+                    f"clip {j}: silent or not the command line's")
+            require(snr >= SNR_I8_CLI_TWIN_DB, f"clip {j}: kernels vs twins "
+                    f"SNR {snr:.2f} < {SNR_I8_CLI_TWIN_DB} dB")
 
 
 def phase_dw_kernels(summary):
@@ -1372,11 +1833,13 @@ def main() -> int:
         card = phase_device()
         phase_build()
         phase_kernels(summary)
+        phase_int8_kernels(summary)
         phase_dw_kernels(summary)
         config, cfg, params = _audio_params()
         phase_forward(config, cfg, params)
         phase_slice(summary, params)
         phase_float_path(summary, config, cfg, params)
+        phase_int8_store(summary, cfg, params)
         phase_grad(cfg, params)
         del params
         torch.cuda.empty_cache()

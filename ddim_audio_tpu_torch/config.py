@@ -34,43 +34,25 @@ def resolve_dtype(name) -> torch.dtype:
     raise ValueError(f"unknown dtype name {name!r}")
 
 
-# Options of the JAX package that this port does not have yet; each names the
-# ROADMAP item that ports it. Asking for one raises instead of silently
-# running another numeric path.
-_NOT_PORTED = {
-    "strided_int8": "int8 taps of the strided convs (ROADMAP.md, queue B, "
-                    "item B6)",
-    "act_store": "int8 activation storage and residual_affine_flat "
-                 "(ROADMAP.md, queue B, item B10)",
-}
-
-
-def reject_unported(section, where: str) -> None:
-    """Raise NotImplementedError if a config section enables an option the
-    port does not implement yet."""
-    for key, item in _NOT_PORTED.items():
-        value = getattr(section, key, None)
-        if value in (None, False, "", "null"):
-            continue
-        raise NotImplementedError(
-            f"{where}.{key}={value!r} is not ported to the PyTorch package "
-            f"yet: {item}. Set it to false/null to run the float path.")
-
-
 def production_eval_cfg(config, model_cfg):
     """The inference-only overrides of ``config.sampling`` applied to a
     ModelConfig (port of ``ddim_audio_tpu/config.py::production_eval_cfg``):
     ``sampling.dtype`` sets the denoiser's compute dtype (the sampler's
-    update arithmetic stays fp32) and ``sampling.tap_int8`` switches the
-    int8 conv taps on. ``strided_int8`` and ``act_store`` raise
-    NotImplementedError (not ported yet)."""
-    reject_unported(config.sampling, "sampling")
+    update arithmetic stays fp32), ``sampling.act_store`` the activation
+    storage of the flat forward (``"int8"``: int8 + per-group scales),
+    ``sampling.tap_int8`` switches the int8 conv taps on and
+    ``sampling.strided_int8`` the int8 taps of the strided transitions."""
     cfg = model_cfg
     sdtype = getattr(config.sampling, "dtype", None)
     if sdtype:
         cfg = dataclasses.replace(cfg, dtype=resolve_dtype(sdtype))
+    astore = getattr(config.sampling, "act_store", None)
+    if astore:
+        cfg = dataclasses.replace(cfg, act_store=str(astore))
     if bool(getattr(config.sampling, "tap_int8", False)):
         cfg = dataclasses.replace(cfg, tap_int8=True)
+    if bool(getattr(config.sampling, "strided_int8", False)):
+        cfg = dataclasses.replace(cfg, strided_int8=True)
     return cfg
 
 

@@ -53,20 +53,6 @@ __host__ __device__ constexpr int int8_smem_bytes(int c) {
   return a > b ? a : b;
 }
 
-// D += A·B, A 16×32 (row, K contiguous), B 32×8 (column, K contiguous), s8.
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ int quant1(float v, float inv) {
-  return max(-127, min(127, __float2int_rn(v * inv)));
-}
-
 template <typename T, int C>
 __global__ void __launch_bounds__(kThreads) conv3x3_int8_kernel(
     const T* __restrict__ x, const T* __restrict__ res,

@@ -1,5 +1,5 @@
 // Shared pieces of the hand-written Hopper conv kernels (conv3x3.cu,
-// conv_strided.cu).
+// conv_strided.cu and the int8 kernels beside them).
 //
 // Layout: every activation is channels-last [B, T, F, C] (the port's flat
 // [B, T, F·C] state viewed with C minor), weights are HWIO [kh, kw, Cin, Cout].
@@ -119,6 +119,24 @@ __device__ __forceinline__ Vec8 load8(const __nv_bfloat16* p) {
   return out;
 }
 
+// Eight int8 values (8 bytes, aligned) widened to fp32.
+__device__ __forceinline__ Vec8 load8(const int8_t* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  Vec8 out;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    out.v[k] = (float)(int8_t)((raw.x >> (8 * k)) & 0xff);
+    out.v[4 + k] = (float)(int8_t)((raw.y >> (8 * k)) & 0xff);
+  }
+  return out;
+}
+
+__device__ __forceinline__ void store8(float* p, const Vec8& v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v.v[0], v.v[1], v.v[2], v.v[3]);
+  *reinterpret_cast<float4*>(p + 4) =
+      make_float4(v.v[4], v.v[5], v.v[6], v.v[7]);
+}
+
 __device__ __forceinline__ void store8(__nv_bfloat16* p, const Vec8& v) {
   uint4 raw;
   __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
@@ -135,6 +153,37 @@ __device__ __forceinline__ float fma4(float acc, float4 v, float w0, float w1,
   acc = fmaf(v.y, w1, acc);
   acc = fmaf(v.z, w2, acc);
   return fmaf(v.w, w3, acc);
+}
+
+// int8 activation storage (conv3x3_store.cu, residual_affine.cu): one fp32
+// scale per storage group of kTtS time rows × kFtS frequency columns × one
+// channel, scales laid out [B, ceil(T/kTtS), ceil(F/kFtS), C].
+constexpr int kTtS = 8, kFtS = 16;
+
+__host__ __device__ __forceinline__ int store_tiles(int t_len, int f_len) {
+  return ((t_len + kTtS - 1) / kTtS) * ((f_len + kFtS - 1) / kFtS);
+}
+
+// Offset into the scales of the group that owns (t, f), channel ch.
+__device__ __forceinline__ size_t group_offset(int b, int t, int f, int ch,
+                                               int t_len, int f_len, int c) {
+  const int nt = (t_len + kTtS - 1) / kTtS, nf = (f_len + kFtS - 1) / kFtS;
+  return (((size_t)b * nt + t / kTtS) * nf + f / kFtS) * c + ch;
+}
+
+// clip(rint(v · inv), −127, 127), inv = 127 / amax (round half to even).
+__device__ __forceinline__ int quant1(float v, float inv) {
+  return max(-127, min(127, __float2int_rn(v * inv)));
+}
+
+// D += A·B, A 16×32 (row, K contiguous), B 32×8 (column, K contiguous), s8.
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 }  // namespace ddim

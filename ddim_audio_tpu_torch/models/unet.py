@@ -19,8 +19,11 @@ Three forwards, as in the JAX package:
   up path's skip add fused, and the head and tail as ``conv_head_flat`` /
   ``conv_tail_flat`` in the state's own unpadded layout. With
   ``cfg.tap_int8`` the resblock convs of the stages up to 96 channels run
-  int8 taps. On CUDA tensors these are the hand-written kernels, on CPU
-  tensors their twins.
+  int8 taps; with ``cfg.act_store == "int8"`` the stages up to 128 channels
+  keep their activations as int8 + scales between kernels
+  (``resblock_flat_int8``, which runs float taps); with ``cfg.strided_int8``
+  the transitions of ``strided_int8_transition`` run int8 taps. On CUDA
+  tensors these are the hand-written kernels, on CPU tensors their twins.
 
 Parameters are nested dicts of torch tensors with the JAX package's
 structure and storage (``init_model``); master weights are fp32 and are cast
@@ -31,6 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Any, Sequence
 
 import torch
@@ -39,14 +43,18 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.conv_flat import INT8_WIDTHS, quantize_conv_weights_int8
 from ..ops.conv_head_tail import conv_head_flat, conv_tail_flat
-from ..ops.conv_strided import conv_down_flat, conv_up_flat
+from ..ops.conv_strided import (
+    conv_down_flat,
+    conv_up_flat,
+    quantize_strided_weights_int8,
+)
 from ..ops.flat_grad import (
     conv3x3_flat_t,
     conv_down_flat_t,
     conv_up_flat_t,
     resblock_flat_train,
 )
-from ..ops.flat_resblock import resblock_flat
+from ..ops.flat_resblock import conv_taps, resblock_flat, resblock_flat_int8
 from ..utils.device import resolve_device
 from .embeddings import beta_embedding_apply, beta_embedding_init
 from .fnet import transformer_module_apply, transformer_module_init
@@ -73,6 +81,11 @@ class ModelConfig:
     # int8 × int8 → int32 taps in the resblock convs of the flat sampling
     # forward, at the stages where ``tap_int8_stage`` holds
     tap_int8: bool = False
+    # "int8": int8 activation storage through the resblocks of the stages
+    # where ``act_store_int8_stage`` holds (flat sampling forward)
+    act_store: str | None = None
+    # int8 taps in the transitions where ``strided_int8_transition`` holds
+    strided_int8: bool = False
     # Rematerialise each resblock in the backward pass of the training
     # forward (activation memory for one more forward of the convs).
     remat: bool = True
@@ -83,12 +96,10 @@ class ModelConfig:
 
     @classmethod
     def from_config(cls, config):
-        """Build from a loaded YAML namespace (config.model/.diffusion).
-        Options the port does not have yet raise (config.reject_unported)."""
-        from ..config import reject_unported, resolve_dtype
+        """Build from a loaded YAML namespace (config.model/.diffusion)."""
+        from ..config import resolve_dtype
 
         m = config.model
-        reject_unported(m, "model")
         return cls(
             channels=m.channels,
             f_size=m.f_size,
@@ -99,6 +110,8 @@ class ModelConfig:
             dtype=resolve_dtype(getattr(m, "dtype", None)),
             transformers=m.transformers,
             tap_int8=bool(getattr(m, "tap_int8", False)),
+            act_store=getattr(m, "act_store", None),
+            strided_int8=bool(getattr(m, "strided_int8", False)),
             conv_impl=getattr(m, "conv_impl", "auto"),
         )
 
@@ -182,18 +195,61 @@ def tap_int8_stage(cfg: ModelConfig, c: int) -> bool:
     return cfg.tap_int8 and c <= max(INT8_WIDTHS)
 
 
+def act_store_int8_stage(cfg: ModelConfig, c: int) -> bool:
+    """Whether a stage of width c keeps int8 activation storage: the stages
+    where the JAX package's ``supports_flat_int8`` holds on the TPU (C <= 128
+    at audio.yml; the two deepest stages carry <2% of the forward's bytes
+    and stay float)."""
+    return cfg.act_store == "int8" and c <= 128
+
+
+def strided_int8_transition(cfg: ModelConfig, c_in: int, c_out: int,
+                            up: bool = False) -> bool:
+    """Whether a transition C_in → C_out runs int8 taps: the JAX package's
+    ``strided_int8_profitable``, the transitions whose TPU tap blocks are at
+    most half dense (one C_in band of 128-lane slices covers a whole tap
+    block). At audio.yml: down 32→64, up 64→32 and up 256→192."""
+    if not cfg.strided_int8:
+        return False
+    period = math.lcm(c_in, 128)  # the flat layout's lane period of C_in
+    if up:
+        q = period
+        while (2 * q * c_out) % (c_in * 128):
+            q += period
+        lanes = q
+    else:
+        p = base = math.lcm(c_out, 128)
+        while (2 * c_in * p) % (c_out * 128):
+            p += base
+        lanes = 2 * c_in * p // c_out
+    return -(-c_in // 128) * 128 >= lanes
+
+
 def prepare_params(params, cfg: ModelConfig):
     """The tree a sampler loop passes on every step, made once per run: the
     conv weights (the 4-D leaves) cast to the compute dtype and, with
-    ``cfg.tap_int8``, the resblock convs of the int8 stages also quantised
-    FROM THE FP32 WEIGHTS (``wq``, ``w_scale`` beside ``w``). The forwards
-    then cast and quantise nothing per call; ``apply_model`` ignores the
-    extra entries."""
+    ``cfg.tap_int8``, the resblock convs of the int8-tap stages, with
+    ``cfg.strided_int8`` the int8 transitions, also quantised FROM THE FP32
+    WEIGHTS (``wq``, ``w_scale`` beside ``w``). The forwards then cast and
+    quantise nothing per call; ``apply_model`` ignores the extra entries."""
     p = _cast_conv_weights(params, cfg.dtype)
+    prev = None
+    for c, src, dst in zip(cfg.ch, params["down_modules"]["stages"],
+                           p["down_modules"]["stages"]):
+        if "down" in src and strided_int8_transition(cfg, prev, c):
+            wq, w_scale = quantize_strided_weights_int8(src["down"]["w"])
+            dst["down"].update(wq=wq, w_scale=w_scale)
+        prev = c
+    for i, (c, src, dst) in enumerate(zip(cfg.ch, params["up_modules"]["stages"],
+                                          p["up_modules"]["stages"])):
+        if "up" in src and strided_int8_transition(cfg, c, cfg.ch[i - 1],
+                                                   up=True):
+            wq, w_scale = quantize_strided_weights_int8(src["up"]["w"])
+            dst["up"].update(wq=wq, w_scale=w_scale)
     for mod in ("down_modules", "up_modules"):
         for c, src, dst in zip(cfg.ch, params[mod]["stages"],
                                p[mod]["stages"]):
-            if not tap_int8_stage(cfg, c):
+            if not tap_int8_stage(cfg, c) or act_store_int8_stage(cfg, c):
                 continue
             for bsrc, bdst in zip(src["blocks"], dst["blocks"]):
                 for name in ("conv1", "conv2"):
@@ -395,6 +451,18 @@ def _apply_model_flat_core(params, xf, temb_chunks, cfg: ModelConfig):
 
     def run_blocks(stage, hf, f, c, stats):
         blocks = stage["blocks"]
+        if act_store_int8_stage(cfg, c):
+            # int8 + scales between the kernels of the stage; its entry
+            # arrives float from a transition kernel and its last block
+            # emits the compute dtype for the transition / skip / bottleneck
+            scales = None
+            for k, block in enumerate(blocks):
+                last = k == len(blocks) - 1
+                hf, scales, stats = resblock_flat_int8(
+                    block, hf, next(temb_iter), f=f, c=c, dtype=dtype,
+                    in_stats=stats, in_scales=scales, quant_out=not last,
+                    want_out_stats=not last)
+            return hf
         for k, block in enumerate(blocks):
             last = k == len(blocks) - 1
             res = resblock_flat(block, hf, next(temb_iter), f=f, c=c,
@@ -419,9 +487,11 @@ def _apply_model_flat_core(params, xf, temb_chunks, cfg: ModelConfig):
                 "flat path: a stage > 0 without a 'down' transition has no "
                 "fused GroupNorm-statistics source")
         if "down" in stage:
+            w, w_scale = conv_taps(stage["down"], dtype,
+                                   strided_int8_transition(cfg, prev, c))
             hf, s1, s2 = conv_down_flat(
-                hf, stage["down"]["w"].to(dtype), stage["down"]["b"],
-                c_in=prev, c_out=c, want_stats=True)
+                hf, w, stage["down"]["b"], c_in=prev, c_out=c,
+                want_stats=True, w_scale=w_scale)
             stats = (s1, s2)
             t //= 2
             f //= 2
@@ -443,9 +513,12 @@ def _apply_model_flat_core(params, xf, temb_chunks, cfg: ModelConfig):
             hf = hf + hidden.pop()
         hf = run_blocks(stage, hf, f, c, stats)
         if "up" in stage:
+            w, w_scale = conv_taps(
+                stage["up"], dtype,
+                strided_int8_transition(cfg, c, chs[idx - 1], up=True))
             hf, s1, s2 = conv_up_flat(
-                hf, stage["up"]["w"].to(dtype), stage["up"]["b"], c_in=c,
-                c_out=chs[idx - 1], residual=hidden.pop(), want_stats=True)
+                hf, w, stage["up"]["b"], c_in=c, c_out=chs[idx - 1],
+                residual=hidden.pop(), want_stats=True, w_scale=w_scale)
             stats = (s1, s2)
             t *= 2
             f *= 2

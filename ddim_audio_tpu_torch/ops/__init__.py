@@ -8,10 +8,16 @@ their plain twins whatever the device.
 
 from ._cuda import twin_route
 
-from .conv_flat import conv3x3_flat, conv3x3_flat_int8
+from .conv_flat import conv3x3_flat, conv3x3_flat_int8, conv3x3_flat_store
 from .conv_head_tail import conv_head_flat, conv_tail_flat
-from .conv_strided import conv_down_flat, conv_up_flat
+from .conv_strided import (
+    conv_down_flat,
+    conv_down_flat_int8,
+    conv_up_flat,
+    conv_up_flat_int8,
+)
 from .flat_grad import conv_down_dw_flat, conv_dw_flat, conv_up_dw_flat
+from .residual_affine import residual_affine_flat
 
 KERNEL_WRAPPERS = {
     "conv3x3_flat": conv3x3_flat,
@@ -23,6 +29,10 @@ KERNEL_WRAPPERS = {
     "conv_dw_flat": conv_dw_flat,
     "conv_down_dw_flat": conv_down_dw_flat,
     "conv_up_dw_flat": conv_up_dw_flat,
+    "conv3x3_flat_store": conv3x3_flat_store,
+    "residual_affine_flat": residual_affine_flat,
+    "conv_down_flat_int8": conv_down_flat_int8,
+    "conv_up_flat_int8": conv_up_flat_int8,
 }
 
 

@@ -56,6 +56,20 @@ _SIGNATURES = {
     "ddim_conv_down": (_P,) * 5 + (_I,) * 6 + (_P,),
     # x, w, bias, res, out, stats, B, T, F, Cin, Cout, bf16, stream
     "ddim_conv_up": (_P,) * 6 + (_I,) * 6 + (_P,),
+    "ddim_store_geometry": (_I,),
+    "ddim_conv3x3_store_tiles": (_I,) * 2,
+    # x, x_scales, res, res_scales, pre_scale, pre_shift, w, add, out,
+    # out_scales, stats, B, T, F, C, x_q, res_q, pre_silu, post_silu, bf16,
+    # stream
+    "ddim_conv3x3_store": (_P,) * 11 + (_I,) * 9 + (_P,),
+    # x, x_scales, s, s_scales, scale, shift, out, out_scales, stats,
+    # B, T, F, C, x_kind, s_kind, out_kind (0 fp32, 1 bf16, 2 int8), stream
+    "ddim_residual_affine": (_P,) * 9 + (_I,) * 7 + (_P,),
+    "ddim_strided_int8_geometry": (_I,),
+    "ddim_strided_int8_tiles": (_I,) * 2,
+    # x, wq, w_scale, bias, res, out, stats, up, B, T, F, Cin, Cout, bf16,
+    # stream
+    "ddim_conv_strided_int8": (_P,) * 7 + (_I,) * 7 + (_P,),
 }
 
 
@@ -135,10 +149,16 @@ _twin_route = {"forced": False, "int8_group": None, "shadow": None}
 def twin_route(force: bool = True, int8_group=None, shadow=None):
     """The reference route, for checks and probes. Within the block every
     kernel wrapper runs its plain twin whatever the device of its tensors
-    (``force``), and the int8 twin quantises over ``int8_group = (q_tile,
-    q_halo)`` instead of the CUDA kernel's own group (a ``None`` extent means
-    the whole axis; ``((tile_t, None), (2, 0))`` is the TPU kernel's group,
-    which the parity tests use). With ``shadow``, a callable
+    (``force``), and the int8 twins quantise over the groups that
+    ``int8_group`` sets instead of the CUDA kernels' own groups: a dict with
+    any of the keys ``"taps"`` (the int8 conv taps: ``(q_tile, q_halo)``),
+    ``"store"`` (int8 activation storage: ``(rows, cols)``) and
+    ``"strided"`` (the int8 taps of the strided convs: ``(out_tile,
+    in_halo)``), each as the twin of that kernel takes it; a bare tuple sets
+    ``"taps"`` alone. A ``None`` extent means the whole axis; the TPU
+    kernels' groups, which the parity tests use, are ``((tile_t, None),
+    (2, 0))`` for the taps, ``(tile_t, "lane")`` for storage and
+    ``((tile_t, None), (2, 0))`` for the strided taps. With ``shadow``, a callable
     ``shadow(name, kernel_result, twin_result)``, each wrapper also launches
     its kernel on the same CUDA operands and hands both results over, then
     goes on with the twin's: every kernel of a whole forward is so held
@@ -158,9 +178,13 @@ def use_twin(t: torch.Tensor) -> bool:
     return t.device.type == "cpu" or _twin_route["forced"]
 
 
-def twin_int8_group():
-    """(q_tile, q_halo) set by ``twin_route``, or None."""
-    return _twin_route["int8_group"]
+def twin_int8_group(kind: str = "taps"):
+    """The quantisation group of one int8 kind (``"taps"``, ``"store"``,
+    ``"strided"``) set by ``twin_route``, or None."""
+    group = _twin_route["int8_group"]
+    if isinstance(group, dict):
+        return group.get(kind)
+    return group if kind == "taps" else None
 
 
 def twin_result(name: str, ref, t: torch.Tensor, launch):

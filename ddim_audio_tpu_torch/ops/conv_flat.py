@@ -2,12 +2,14 @@
 
 ``conv3x3_flat`` is the port of the TPU kernel
 ``ddim_audio_tpu/ops/pallas/conv_flat.py::_conv_kernel`` (its wrapper
-``conv3x3_flat``): float taps, and int8 taps (``conv3x3_flat_int8``, the TPU
-kernel's ``mxu_int8`` mode). On a CUDA tensor it launches the hand-written
-Hopper kernel (``csrc/conv3x3.cu``, ``csrc/conv3x3_int8.cu``); on a CPU tensor
-it runs the plain PyTorch twin (``conv3x3_flat_plain``,
-``conv3x3_flat_int8_plain``), which computes the same function. There is no
-fallback from one to the other.
+``conv3x3_flat``): float taps, int8 taps (``conv3x3_flat_int8``, the TPU
+kernel's ``mxu_int8`` mode) and int8 activation storage (``conv3x3_flat_store``,
+its ``in_scales`` / ``res_scales`` / ``quant_out`` modes). On a CUDA tensor it
+launches the hand-written Hopper kernel (``csrc/conv3x3.cu``,
+``csrc/conv3x3_int8.cu``, ``csrc/conv3x3_store.cu``); on a CPU tensor it runs
+the plain PyTorch twin (``conv3x3_flat_plain``, ``conv3x3_flat_int8_plain``),
+which computes the same function. There is no fallback from one to the
+other.
 
 The contract both follow (the TPU kernel's docstring, minus its lane layout):
 
@@ -22,6 +24,13 @@ The contract both follow (the TPU kernel's docstring, minus its lane layout):
 Statistics are per (sample, channel) [B, C] sums; the TPU kernel's per-lane
 sums fold to these (its GroupNorm folds lanes by lane % C only).
 
+int8 activation storage: an int8 tensor [B, T, F·C] carries fp32 scales
+[B, n_T, n_F, C], one per storage group of ``rows`` time rows × ``cols``
+frequency columns × one channel (``STORE_GROUP``, the CUDA kernels' group;
+``cols = "lane"`` is the TPU kernels' group, whose frequency index is
+f mod lcm(C, 128)/C). A consumer dequantises every value, halo included,
+with the scale of the group that owns it.
+
 On the card, bf16 convs at F >= 16 run their taps on the tensor cores (WMMA
 bf16, fp32 accumulation); fp32 convs and the F = 8 stage run on CUDA cores.
 What bounds each, and why the design, is noted at the top of
@@ -32,6 +41,7 @@ What bounds each, and why the design, is noted at the top of
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 import torch.nn.functional as F
@@ -104,28 +114,128 @@ def _prologue(x, c: int, residual, pre, pre_silu: bool, stage_dtype):
     return v.to(stage_dtype)
 
 
-def _epilogue(out32, add, post_silu: bool, dtype, want_stats: bool):
-    """out32 [B, T, F, C] fp32 → + add → SiLU → ``_finish``."""
+def _post(out32, add, post_silu: bool):
+    """out32 [B, T, F, C] fp32 → + add → SiLU."""
     b, _, _, c = out32.shape
     if add is not None:
         out32 = out32 + per_sample(add, b, c, out32.device,
                                    out32.dtype)[:, None, None, :]
-    if post_silu:
-        out32 = F.silu(out32)
-    return _finish(out32, dtype, want_stats)
+    return F.silu(out32) if post_silu else out32
+
+
+def _epilogue(out32, add, post_silu: bool, dtype, want_stats: bool):
+    """out32 [B, T, F, C] fp32 → ``_post`` → ``_finish``."""
+    return _finish(_post(out32, add, post_silu), dtype, want_stats)
+
+
+# ------------------------------------------------------ int8 storage --
+
+# The storage group of the CUDA kernels (csrc/conv3x3_store.cu,
+# csrc/residual_affine.cu): time rows × frequency columns, per channel.
+STORE_GROUP = (8, 16)
+
+
+def _store_index(t: int, f: int, c: int, group, device):
+    """(time index [T], frequency index [F], n_T, n_F) of the storage
+    groups: contiguous tiles, or ``cols = "lane"`` for the TPU lane fold."""
+    rows, cols = group
+    rows = rows or t
+    tidx = torch.arange(t, device=device) // rows
+    if cols == "lane":
+        n_f = math.lcm(c, 128) // c
+        fidx = torch.arange(f, device=device) % n_f
+    else:
+        cols = cols or f
+        n_f = -(-f // cols)
+        fidx = torch.arange(f, device=device) // cols
+    return tidx, fidx, -(-t // rows), n_f
+
+
+def quantize_store(v32: torch.Tensor, group=STORE_GROUP):
+    """v32 [B, T, F, C] fp32 → (q int8 [B, T·F·C] flat as [B, T, F·C],
+    scales fp32 [B, n_T, n_F, C]): per storage group
+    ``amax = max(max|v|, 1e-30)``, scale ``amax · (1/127)`` and
+    ``q = clip(rint(v · (127 / amax)), -127, 127)`` (a true division, round
+    half to even)."""
+    b, t, f, c = v32.shape
+    tidx, fidx, n_t, n_f = _store_index(t, f, c, group, v32.device)
+    gid = (tidx[:, None] * n_f + fidx[None, :]).reshape(1, t * f, 1)
+    amax = torch.zeros((b, n_t * n_f, c), dtype=torch.float32,
+                       device=v32.device)
+    amax.scatter_reduce_(1, gid.expand(b, t * f, c),
+                         v32.abs().reshape(b, t * f, c), "amax")
+    amax = amax.clamp_min(1e-30).view(b, n_t, n_f, c)
+    inv = torch.full_like(amax, 127.0) / amax  # not 127.0 / amax (reciprocal)
+    q = torch.round(v32 * inv[:, tidx][:, :, fidx]).clamp_(-127.0, 127.0)
+    return (q.to(torch.int8).reshape(b, t, f * c).contiguous(),
+            (amax * (1.0 / 127.0)).contiguous())
+
+
+def dequantize_store(q: torch.Tensor, scales: torch.Tensor, c: int,
+                     group=STORE_GROUP) -> torch.Tensor:
+    """int8 [B, T, F·C] + scales [B, n_T, n_F, C] → fp32 [B, T, F, C]."""
+    b, t, fc = q.shape
+    f = fc // c
+    tidx, fidx, n_t, n_f = _store_index(t, f, c, group, q.device)
+    if tuple(scales.shape) != (b, n_t, n_f, c):
+        raise ValueError(f"scales {tuple(scales.shape)} do not match the "
+                         f"storage group {group} of [{b}, {t}, {f}, {c}]: "
+                         f"expected {(b, n_t, n_f, c)}")
+    return q.view(b, t, f, c).float() * scales.float()[:, tidx][:, :, fidx]
+
+
+def _store_prologue(x, c, in_scales, residual, res_scales, pre, pre_silu,
+                    stage_dtype, group):
+    """The prologue of the storage modes (the TPU kernel's ``prep`` with
+    in_q / res_q): int8 operands dequantised to fp32 with their groups'
+    scales, a float residual cast to the staging dtype, the sum in fp32 when
+    either is int8 (else in the staging dtype), then affine and SiLU in
+    fp32, rounded to the staging dtype."""
+    b, t, fc = x.shape
+    v = (dequantize_store(x, in_scales, c, group) if in_scales is not None
+         else x.view(b, t, fc // c, c))
+    if residual is not None:
+        r = (dequantize_store(residual, res_scales, c, group)
+             if res_scales is not None
+             else residual.view(b, t, fc // c, c).to(stage_dtype))
+        v = v + r
+    if pre is not None or pre_silu:
+        v = v.float()
+        if pre is not None:
+            scale = per_sample(pre[0], b, c, x.device)
+            shift = per_sample(pre[1], b, c, x.device)
+            v = v * scale[:, None, None, :] + shift[:, None, None, :]
+        if pre_silu:
+            v = F.silu(v)
+    return v.to(stage_dtype).reshape(b, t, fc)
 
 
 def conv3x3_flat_plain(x, w, *, c: int, add=None, residual=None, pre=None,
                        pre_silu: bool = False, post_silu: bool = False,
-                       want_stats: bool = False):
+                       want_stats: bool = False, in_scales=None,
+                       res_scales=None, quant_out: bool = False,
+                       store_group=STORE_GROUP):
     """Plain PyTorch twin of ``conv3x3_flat`` (same arguments, same result):
     the prologue in torch, ``F.conv2d`` in fp32 on the dtype-rounded
-    operands, the epilogue in torch."""
-    v = _prologue(x, c, residual, pre, pre_silu, x.dtype)
+    operands, the epilogue in torch. The storage modes (int8 x with
+    ``in_scales``, int8 residual with ``res_scales``, ``quant_out``) stage in
+    w's dtype and quantise over ``store_group`` (default: the CUDA kernel's
+    ``STORE_GROUP``; ``(tile_t, "lane")`` is the TPU kernel's)."""
+    if in_scales is None and res_scales is None and not quant_out:
+        v = _prologue(x, c, residual, pre, pre_silu, x.dtype)
+    else:
+        v = _store_prologue(x, c, in_scales, residual, res_scales, pre,
+                            pre_silu, w.dtype, store_group)
     out = F.conv2d(_nchw(v, c),
                    w.to(wide_dtype(v)).permute(3, 2, 0, 1).contiguous(),
                    padding=1).permute(0, 2, 3, 1)
-    return _epilogue(out, add, post_silu, x.dtype, want_stats)
+    if not quant_out:
+        return _epilogue(out, add, post_silu, v.dtype, want_stats)
+    out = _post(out, add, post_silu)
+    q, scales = quantize_store(out, store_group)
+    if not want_stats:
+        return q, scales
+    return q, scales, out.sum(dim=(1, 2)), (out * out).sum(dim=(1, 2))
 
 
 # ------------------------------------------------------------ int8 taps --
@@ -138,12 +248,12 @@ INT8_WIDTHS = (32, 64, 96)  # C of the kernel; also where int8 accumulates exact
 
 
 def quantize_conv_weights_int8(w):
-    """w [3, 3, C, C] HWIO → (wq int8 [3, 3, C, C], s_w fp32 [C]): symmetric
-    per-output-channel quantisation from the fp32 weights,
-    ``s_w = max(max|w| over (kh, kw, ci), 1e-30) / 127`` and
-    ``wq = clip(round(w / s_w), -127, 127)`` (round half to even). The
-    values of the JAX package's ``pack_conv_weights_int8`` without its lane
-    packing."""
+    """w [kh, kw, C_in, C_out] HWIO → (wq int8 of w's shape, s_w fp32
+    [C_out]): symmetric per-output-channel quantisation from the fp32
+    weights, ``s_w = max(max|w| over (kh, kw, ci), 1e-30) / 127`` and
+    ``wq = clip(round(w / s_w), -127, 127)`` (round half to even). For the
+    3×3 conv the values of the JAX package's ``pack_conv_weights_int8``
+    without its lane packing."""
     w32 = w.float()
     amax = w32.abs().amax(dim=(0, 1, 2)).clamp_min(1e-30)
     # tensor / tensor: torch divides by a Python scalar as a multiplication
@@ -153,19 +263,20 @@ def quantize_conv_weights_int8(w):
     return wq.contiguous(), s_w.contiguous()
 
 
-def _int8_taps(v, wq, w_scale, q_tile, q_halo):
-    """The requant, the exact integer taps and the dequant of the int8 mode.
-    v [B, T, F, C] fp32 (bf16-rounded values, the prologue result) → out32
-    [B, T, F, C] fp32. Groups are a batch dimension: every group's tile is
-    cut out with its 1-position conv halo and quantised with the group's own
-    scale, so each output position uses the scale of the group that owns it."""
+def quantize_tiles(v, q_tile, q_halo):
+    """The requant of the int8 taps, per quantisation group. v [B, T, F, C]
+    fp32 → (q [N, C, rows + 2, cols + 2] fp32 integers, s_q [N, 1, 1, 1],
+    (n_r, n_c)): N = B·n_r·n_c groups, each a tile of q_tile = (rows, cols)
+    positions (``None`` = the whole axis) cut out with the 1-position conv
+    halo and quantised with one scale, ``amax = max(max|v|, 1e-30)`` over the
+    tile and the q_halo = (rows, columns) staged around it (the zero padding
+    adds nothing to a max of magnitudes), ``q = clip(rint(v · (127 /
+    amax)), -127, 127)``, ``s_q = amax · (1/127)``."""
     b, t, f, c = v.shape
     rows, cols = q_tile[0] or t, q_tile[1] or f
     hr, hc = q_halo
     n_r, n_c = -(-t // rows), -(-f // cols)
     tp, fp = n_r * rows, n_c * cols
-    # one amax per group over its staged region (tile + halo, clipped: the
-    # zero padding adds nothing to a max of magnitudes)
     mag = F.pad(v.abs().amax(dim=3), (hc, fp - f + hc, hr, tp - t + hr))
     amax = F.max_pool2d(mag[:, None], (rows + 2 * hr, cols + 2 * hc),
                         stride=(rows, cols)).clamp_min(1e-30)
@@ -175,12 +286,28 @@ def _int8_taps(v, wq, w_scale, q_tile, q_halo):
     tiles = F.pad(v.permute(0, 3, 1, 2), (1, fp - f + 1, 1, tp - t + 1))
     tiles = tiles.unfold(2, rows + 2, rows).unfold(3, cols + 2, cols)
     tiles = tiles.permute(0, 2, 3, 1, 4, 5).reshape(-1, c, rows + 2, cols + 2)
-    q = torch.round(tiles * inv).clamp_(-127.0, 127.0)
+    return torch.round(tiles * inv).clamp_(-127.0, 127.0), s_q, (n_r, n_c)
+
+
+def untile(out, b: int, n_r: int, n_c: int, t: int, f: int):
+    """Per-group outputs [N, C, rows, cols] → [B, T, F, C] (cropped)."""
+    _, c, rows, cols = out.shape
+    out = out.view(b, n_r, n_c, c, rows, cols).permute(0, 1, 4, 2, 5, 3)
+    return out.reshape(b, n_r * rows, n_c * cols, c)[:, :t, :f]
+
+
+def _int8_taps(v, wq, w_scale, q_tile, q_halo):
+    """The requant, the exact integer taps and the dequant of the int8 mode.
+    v [B, T, F, C] fp32 (bf16-rounded values, the prologue result) → out32
+    [B, T, F, C] fp32. Groups are a batch dimension: every group's tile is
+    cut out with its 1-position conv halo and quantised with the group's own
+    scale, so each output position uses the scale of the group that owns it."""
+    b, t, f, c = v.shape
+    q, s_q, (n_r, n_c) = quantize_tiles(v, q_tile, q_halo)
     # fp64 holds every partial sum of int8 products exactly
     acc = F.conv2d(q.double(), wq.double().permute(3, 2, 0, 1).contiguous())
     out = acc.float() * (s_q * w_scale.float().view(1, c, 1, 1))
-    out = out.view(b, n_r, n_c, c, rows, cols).permute(0, 1, 4, 2, 5, 3)
-    return out.reshape(b, tp, fp, c)[:, :t, :f]
+    return untile(out, b, n_r, n_c, t, f)
 
 
 def conv3x3_flat_int8_plain(x, wq, w_scale, *, c: int, add=None,
@@ -227,8 +354,8 @@ def conv3x3_flat_int8(x, wq, w_scale, *, c: int, add=None, residual=None,
     INT8_KERNEL_TILE / INT8_KERNEL_HALO); on a CPU tensor the twin runs with
     the same group, or with the one set by ``ops.twin_route``."""
     if use_twin(x):
-        q_tile, q_halo = twin_int8_group() or (INT8_KERNEL_TILE,
-                                               INT8_KERNEL_HALO)
+        q_tile, q_halo = twin_int8_group("taps") or (INT8_KERNEL_TILE,
+                                                     INT8_KERNEL_HALO)
         kw = dict(c=c, add=add, residual=residual, pre=pre, pre_silu=pre_silu,
                   post_silu=post_silu, want_stats=want_stats)
         ref = conv3x3_flat_int8_plain(x, wq, w_scale, q_tile=q_tile,
@@ -277,9 +404,110 @@ def conv3x3_flat_int8(x, wq, w_scale, *, c: int, add=None, residual=None,
     return out, tot[:, 0], tot[:, 1]
 
 
+@functools.lru_cache(maxsize=1)
+def _store_lib():
+    """The kernel library, once checked to quantise storage over the group
+    that STORE_GROUP tells the twins."""
+    lib = kernels()
+    group = tuple(lib.ddim_store_geometry(i) for i in range(2))
+    if group != STORE_GROUP:
+        raise RuntimeError(f"the built kernels' storage group {group} "
+                           "differs from STORE_GROUP")
+    return lib
+
+
+def _scales_operand(scales, b, t, f, c, name, dev):
+    n_t, n_f = -(-t // STORE_GROUP[0]), -(-f // STORE_GROUP[1])
+    check_operand(scales, name, device=dev, dtype=torch.float32,
+                  shape=(b, n_t, n_f, c))
+
+
+def conv3x3_flat_store(x, w, *, c: int, add=None, residual=None, pre=None,
+                       pre_silu: bool = False, post_silu: bool = False,
+                       want_stats: bool = False, in_scales=None,
+                       res_scales=None, quant_out: bool = False):
+    """``conv3x3_flat`` with int8 activation storage: the port of the TPU
+    kernel's ``in_q`` / ``res_q`` / ``quant_out`` modes (float taps).
+
+    x: [B, T, F·C] int8 with ``in_scales`` [B, n_T, n_F, C] fp32, or float in
+    w's dtype; residual likewise with ``res_scales``; w: [3, 3, C, C] HWIO in
+    the compute dtype (fp32 or bf16), which is also the staging dtype of the
+    prologue and the output dtype without ``quant_out``. With quant_out the
+    fp32 output is quantised per storage group and the result is (int8 out,
+    scales[, sum, sum²]); the statistics are those of the fp32 output before
+    quantisation. On a CUDA tensor this launches ``csrc/conv3x3_store.cu``
+    (C % 32 == 0; its group is STORE_GROUP); on a CPU tensor the twin
+    ``conv3x3_flat_plain`` runs with the same group, or with the one set by
+    ``ops.twin_route``."""
+    kw = dict(c=c, add=add, residual=residual, pre=pre, pre_silu=pre_silu,
+              post_silu=post_silu, want_stats=want_stats, in_scales=in_scales,
+              res_scales=res_scales, quant_out=quant_out)
+    if use_twin(x):
+        ref = conv3x3_flat_plain(
+            x, w, store_group=twin_int8_group("store") or STORE_GROUP, **kw)
+        return twin_result("conv3x3_flat_store", ref, x,
+                           lambda: conv3x3_flat_store(x, w, **kw))
+    if x.device.type != "cuda":
+        raise ValueError(f"conv3x3_flat_store: unsupported device {x.device}")
+    b, t, fc = x.shape
+    if fc % c or c % 32:
+        raise ValueError(f"conv3x3_flat_store kernel: needs C % 32 == 0 and "
+                         f"F·C % C == 0, got F·C={fc}, C={c}")
+    f = fc // c
+    bf16 = require_cuda_dtype(w, "conv3x3_flat_store")
+    dev = x.device
+    x_q = x.dtype == torch.int8
+    res_q = residual is not None and residual.dtype == torch.int8
+    if x_q != (in_scales is not None) or res_q != (res_scales is not None):
+        raise ValueError("conv3x3_flat_store: an int8 operand needs its "
+                         "scales, a float one takes none")
+    check_operand(x, "x", device=dev, dtype=torch.int8 if x_q else w.dtype)
+    check_operand(w, "w", device=dev, shape=(3, 3, c, c))
+    check_operand(residual, "residual", device=dev,
+                  dtype=torch.int8 if res_q else w.dtype, shape=x.shape)
+    if x_q:
+        _scales_operand(in_scales, b, t, f, c, "in_scales", dev)
+    if res_q:
+        _scales_operand(res_scales, b, t, f, c, "res_scales", dev)
+    add_b = per_sample(add, b, c, dev)
+    pre_s = pre_h = None
+    if pre is not None:
+        pre_s = per_sample(pre[0], b, c, dev)
+        pre_h = per_sample(pre[1], b, c, dev)
+        check_operand(pre_s, "pre scale", device=dev)
+        check_operand(pre_h, "pre shift", device=dev)
+    out = torch.empty((b, t, fc), dtype=torch.int8 if quant_out else w.dtype,
+                      device=dev)
+    out_scales = None
+    if quant_out:
+        out_scales = torch.empty((b, -(-t // STORE_GROUP[0]),
+                                  -(-f // STORE_GROUP[1]), c),
+                                 dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        lib = _store_lib()
+        stats = None
+        if want_stats:
+            tiles = lib.ddim_conv3x3_store_tiles(t, f)
+            stats = torch.empty((b, tiles, 2, c), dtype=torch.float32,
+                                device=dev)
+        err = lib.ddim_conv3x3_store(
+            ptr(x), ptr(in_scales), ptr(residual), ptr(res_scales),
+            ptr(pre_s), ptr(pre_h), ptr(w), ptr(add_b), ptr(out),
+            ptr(out_scales), ptr(stats), b, t, f, c, int(x_q), int(res_q),
+            int(pre_silu), int(post_silu), bf16, stream_ptr(x))
+    check(err, "conv3x3_flat_store")
+    conv3x3_flat_store.launches += 1
+    result = (out, out_scales) if quant_out else (out,)
+    if want_stats:
+        tot = stats.sum(dim=1)
+        result += (tot[:, 0], tot[:, 1])
+    return result if len(result) > 1 else out
+
+
 def conv3x3_flat(x, w, *, c: int, add=None, residual=None, pre=None,
                  pre_silu: bool = False, post_silu: bool = False,
-                 want_stats: bool = False, w_scale=None):
+                 want_stats: bool = False, w_scale=None, in_scales=None,
+                 res_scales=None, quant_out: bool = False):
     """Fused flat 3×3 conv (module docstring).
 
     x: [B, T, F·C] fp32 or bf16; w: [3, 3, C, C] HWIO in x's dtype;
@@ -288,7 +516,16 @@ def conv3x3_flat(x, w, *, c: int, add=None, residual=None, pre=None,
     Returns out [B, T, F·C], or (out, sum [B, C], sum² [B, C]) when
     want_stats. With w_scale (and w the int8 weights, both from
     ``quantize_conv_weights_int8``) the taps run in int8:
-    ``conv3x3_flat_int8``."""
+    ``conv3x3_flat_int8``. With int8 storage (an int8 x with in_scales, an
+    int8 residual with res_scales, or quant_out): ``conv3x3_flat_store``."""
+    if in_scales is not None or res_scales is not None or quant_out:
+        if w_scale is not None:
+            raise ValueError("conv3x3_flat: int8 storage runs float taps "
+                             "(as the TPU kernel's resblock_flat_int8 does)")
+        return conv3x3_flat_store(
+            x, w, c=c, add=add, residual=residual, pre=pre, pre_silu=pre_silu,
+            post_silu=post_silu, want_stats=want_stats, in_scales=in_scales,
+            res_scales=res_scales, quant_out=quant_out)
     if w_scale is not None:
         return conv3x3_flat_int8(
             x, w, w_scale, c=c, add=add, residual=residual, pre=pre,
@@ -340,3 +577,4 @@ def conv3x3_flat(x, w, *, c: int, add=None, residual=None, pre=None,
 
 conv3x3_flat.launches = 0
 conv3x3_flat_int8.launches = 0
+conv3x3_flat_store.launches = 0

@@ -11,9 +11,18 @@
   Its weight is the stored equivalent-forward kernel (spatially flipped
   HWIO, ``models/layers.py``).
 
+With ``w_scale`` (int8 weights from ``quantize_strided_weights_int8``) both
+run int8 × int8 → int32 taps (``conv_down_flat_int8``, ``conv_up_flat_int8``:
+the TPU kernels' ``mxu_i8`` branches, ``sampling.strided_int8``): the input
+is requantised with one scale per quantisation group (a block's staged input
+tile, halo included; for the down conv both time-parity streams of the TPU
+kernel share it), and ``out32 = float(acc) · (s_q · w_scale[co]) + bias``
+enters the float epilogue.
+
 On a CUDA tensor each wrapper launches its hand-written Hopper kernel
-(``csrc/conv_strided.cu``); on a CPU tensor it runs its plain PyTorch twin
-(``*_plain``). No fallback from one to the other. bf16 transitions at the
+(``csrc/conv_strided.cu``, ``csrc/conv_strided_int8.cu``); on a CPU tensor it
+runs its plain PyTorch twin (``*_plain``). No fallback from one to the
+other. bf16 transitions at the
 audio.yml widths run their taps on the tensor cores (WMMA); fp32 and the
 narrowest bf16 geometries run on CUDA cores (what bounds each: the note at
 the top of ``csrc/conv_strided.cu``). Statistics come from per-block partials
@@ -25,6 +34,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+import functools
+
 from ._cuda import (
     check,
     check_operand,
@@ -32,10 +43,26 @@ from ._cuda import (
     ptr,
     require_cuda_dtype,
     stream_ptr,
+    twin_int8_group,
     twin_result,
     use_twin,
 )
-from .conv_flat import _finish, _nchw, wide_dtype
+from .conv_flat import (
+    _finish,
+    _nchw,
+    quantize_conv_weights_int8,
+    quantize_tiles,
+    untile,
+    wide_dtype,
+)
+
+# The quantisation group of the int8 strided kernels
+# (csrc/conv_strided_int8.cu): a block's output tile (rows, columns) and the
+# halo (input rows, columns) staged around the input positions of that tile.
+# In input positions the group is 16 × 32 for the down conv and 4 × 8 for
+# the up conv.
+STRIDED_INT8_TILE = (8, 16)
+STRIDED_INT8_HALO = (1, 1)
 
 
 def _bias(bias, c_out: int, device, dtype=torch.float32) -> torch.Tensor:
@@ -77,6 +104,170 @@ def conv_up_flat_plain(x, w, bias, *, c_in: int, c_out: int, residual=None,
     return _finish(out, x.dtype, want_stats)
 
 
+def quantize_strided_weights_int8(w):
+    """w [4, 4, C_in, C_out] (HWIO; for the up conv the stored
+    equivalent-forward kernel) → (wq int8 [4, 4, C_in, C_out], s_w fp32
+    [C_out]): symmetric per-output-channel quantisation from the fp32
+    weights, the values of the JAX package's ``pack_down_weights_int8`` /
+    ``pack_up_weights_int8`` without their lane packing."""
+    return quantize_conv_weights_int8(w)
+
+
+def _in_tile(out_tile, up: bool):
+    """Input extents of a group: the down conv reads twice its output tile,
+    the up conv half of it (``None`` = the whole axis)."""
+    def one(n):
+        if n is None:
+            return None
+        if up and n % 2:
+            raise ValueError(f"an up-conv group's output tile {out_tile} "
+                             "must be even")
+        return n // 2 if up else 2 * n
+    return tuple(one(n) for n in out_tile)
+
+
+def _dequant(acc, s_q, w_scale, c_out: int):
+    return acc.float() * (s_q * w_scale.float().view(1, c_out, 1, 1))
+
+
+def conv_down_flat_int8_plain(x, wq, w_scale, bias, *, c_in: int, c_out: int,
+                              want_stats: bool = False,
+                              q_tile=STRIDED_INT8_TILE,
+                              q_halo=STRIDED_INT8_HALO):
+    """Plain twin of ``conv_down_flat_int8``. q_tile = the (rows, columns)
+    of a quantisation group's output tile and q_halo the (rows, columns) of
+    input staged around its input tile (``None`` = the whole axis); the
+    defaults are the CUDA kernel's group, ``((tile_t, None), (2, 0))`` the
+    TPU kernel's."""
+    b, t, fc = x.shape
+    f = fc // c_in
+    q, s_q, (n_r, n_c) = quantize_tiles(x.float().view(b, t, f, c_in),
+                                        _in_tile(q_tile, False), q_halo)
+    # fp64 holds every partial sum of int8 products exactly
+    acc = F.conv2d(q.double(), wq.double().permute(3, 2, 0, 1).contiguous(),
+                   stride=2)
+    out = untile(_dequant(acc, s_q, w_scale, c_out), b, n_r, n_c, t // 2,
+                 f // 2)
+    out = out + _bias(bias, c_out, x.device)
+    return _finish(out, x.dtype, want_stats)
+
+
+def conv_up_flat_int8_plain(x, wq, w_scale, bias, *, c_in: int, c_out: int,
+                            residual=None, want_stats: bool = False,
+                            q_tile=STRIDED_INT8_TILE,
+                            q_halo=STRIDED_INT8_HALO):
+    """Plain twin of ``conv_up_flat_int8`` (groups as
+    ``conv_down_flat_int8_plain``'s; the output tile's rows and columns must
+    be even)."""
+    b, t, fc = x.shape
+    f = fc // c_in
+    q, s_q, (n_r, n_c) = quantize_tiles(x.float().view(b, t, f, c_in),
+                                        _in_tile(q_tile, True), q_halo)
+    acc = F.conv_transpose2d(q.double(),
+                             up_weight_to_torch(wq.double()).contiguous(),
+                             stride=2, padding=1)[:, :, 2:-2, 2:-2]
+    out = untile(_dequant(acc, s_q, w_scale, c_out), b, n_r, n_c, 2 * t,
+                 2 * f)
+    out = out + _bias(bias, c_out, x.device)
+    if residual is not None:
+        out = out + residual.float().view(b, 2 * t, 2 * f, c_out)
+    return _finish(out, x.dtype, want_stats)
+
+
+@functools.lru_cache(maxsize=1)
+def _int8_lib():
+    """The kernel library, once checked to quantise over the group that
+    STRIDED_INT8_TILE / STRIDED_INT8_HALO tell the twins."""
+    lib = kernels()
+    group = tuple(lib.ddim_strided_int8_geometry(i) for i in range(4))
+    if group != STRIDED_INT8_TILE + STRIDED_INT8_HALO:
+        raise RuntimeError(f"the built kernel's quantisation group {group} "
+                           "differs from STRIDED_INT8_TILE/HALO")
+    return lib
+
+
+def _strided_int8(x, wq, w_scale, bias, residual, *, c_in, c_out, up,
+                  want_stats, name):
+    """Checks, allocation and launch of csrc/conv_strided_int8.cu."""
+    b, t, f = _geometry(x, c_in, name)
+    if c_in % 32 or c_out % 32:
+        raise ValueError(f"{name} kernel: needs C_in and C_out % 32 == 0, "
+                         f"got {c_in}, {c_out}")
+    if not up and (t % 2 or f % 2):
+        raise ValueError(f"{name}: T={t} and F={f} must be even")
+    bf16 = require_cuda_dtype(x, name)
+    dev = x.device
+    t_out, f_out = (2 * t, 2 * f) if up else (t // 2, f // 2)
+    out_shape = (b, t_out, f_out * c_out)
+    check_operand(x, "x", device=dev)
+    check_operand(wq, "wq", device=dev, dtype=torch.int8,
+                  shape=(4, 4, c_in, c_out))
+    check_operand(w_scale, "w_scale", device=dev, dtype=torch.float32,
+                  shape=(c_out,))
+    check_operand(residual, "residual", device=dev, dtype=x.dtype,
+                  shape=out_shape)
+    bias = _bias(bias, c_out, dev)
+    out = torch.empty(out_shape, dtype=x.dtype, device=dev)
+    with torch.cuda.device(dev):
+        lib = _int8_lib()
+        stats = None
+        if want_stats:
+            tiles = lib.ddim_strided_int8_tiles(t_out, f_out)
+            stats = torch.empty((b, tiles, 2, c_out), dtype=torch.float32,
+                                device=dev)
+        err = lib.ddim_conv_strided_int8(
+            ptr(x), ptr(wq), ptr(w_scale), ptr(bias), ptr(residual), ptr(out),
+            ptr(stats), int(up), b, t, f, c_in, c_out, bf16, stream_ptr(x))
+    check(err, name)
+    if not want_stats:
+        return out
+    tot = stats.sum(dim=1)
+    return out, tot[:, 0], tot[:, 1]
+
+
+def conv_down_flat_int8(x, wq, w_scale, bias, *, c_in: int, c_out: int,
+                        want_stats: bool = False):
+    """``conv_down_flat`` with int8 × int8 → int32 taps (module docstring).
+    wq, w_scale: ``quantize_strided_weights_int8``. On a CUDA tensor this
+    launches ``csrc/conv_strided_int8.cu`` (C_in, C_out % 32 == 0); on a CPU
+    tensor the twin runs with the kernel's group, or with the one set by
+    ``ops.twin_route``."""
+    kw = dict(c_in=c_in, c_out=c_out, want_stats=want_stats)
+    if use_twin(x):
+        q_tile, q_halo = twin_int8_group("strided") or (STRIDED_INT8_TILE,
+                                                        STRIDED_INT8_HALO)
+        ref = conv_down_flat_int8_plain(x, wq, w_scale, bias, q_tile=q_tile,
+                                        q_halo=q_halo, **kw)
+        return twin_result("conv_down_flat_int8", ref, x,
+                           lambda: conv_down_flat_int8(x, wq, w_scale, bias,
+                                                       **kw))
+    res = _strided_int8(x, wq, w_scale, bias, None, up=False,
+                        name="conv_down_flat_int8", **kw)
+    conv_down_flat_int8.launches += 1
+    return res
+
+
+def conv_up_flat_int8(x, wq, w_scale, bias, *, c_in: int, c_out: int,
+                      residual=None, want_stats: bool = False):
+    """``conv_up_flat`` with int8 × int8 → int32 taps (module docstring);
+    the skip add and the statistics of the sum as ``conv_up_flat``."""
+    kw = dict(c_in=c_in, c_out=c_out, residual=residual,
+              want_stats=want_stats)
+    if use_twin(x):
+        q_tile, q_halo = twin_int8_group("strided") or (STRIDED_INT8_TILE,
+                                                        STRIDED_INT8_HALO)
+        ref = conv_up_flat_int8_plain(x, wq, w_scale, bias, q_tile=q_tile,
+                                      q_halo=q_halo, **kw)
+        return twin_result("conv_up_flat_int8", ref, x,
+                           lambda: conv_up_flat_int8(x, wq, w_scale, bias,
+                                                     **kw))
+    res = _strided_int8(x, wq, w_scale, bias, residual, c_in=c_in,
+                        c_out=c_out, up=True, want_stats=want_stats,
+                        name="conv_up_flat_int8")
+    conv_up_flat_int8.launches += 1
+    return res
+
+
 def _geometry(x, c_in: int, name: str):
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
@@ -88,10 +279,14 @@ def _geometry(x, c_in: int, name: str):
 
 
 def conv_down_flat(x, w, bias, *, c_in: int, c_out: int,
-                   want_stats: bool = False):
+                   want_stats: bool = False, w_scale=None):
     """x: [B, T, F·C_in] → [B, T/2, (F/2)·C_out]; w: [4, 4, C_in, C_out] HWIO
     in x's dtype; bias: [C_out] fp32. Returns out, or (out, sum [B, C_out],
-    sum² [B, C_out]) when want_stats."""
+    sum² [B, C_out]) when want_stats. With w_scale (w then the int8 weights)
+    the taps run in int8: ``conv_down_flat_int8``."""
+    if w_scale is not None:
+        return conv_down_flat_int8(x, w, w_scale, bias, c_in=c_in,
+                                   c_out=c_out, want_stats=want_stats)
     if use_twin(x):
         kw = dict(c_in=c_in, c_out=c_out, want_stats=want_stats)
         return twin_result("conv_down_flat",
@@ -127,11 +322,16 @@ def conv_down_flat(x, w, bias, *, c_in: int, c_out: int,
 
 
 def conv_up_flat(x, w, bias, *, c_in: int, c_out: int, residual=None,
-                 want_stats: bool = False):
+                 want_stats: bool = False, w_scale=None):
     """x: [B, T, F·C_in] → [B, 2T, (2F)·C_out]; w: [4, 4, C_in, C_out]
     equivalent-forward HWIO in x's dtype; bias: [C_out] fp32; residual:
     optional [B, 2T, 2F·C_out] skip in x's dtype added in the epilogue.
-    Returns out, or (out, sum, sum²) of the summed fp32 output."""
+    Returns out, or (out, sum, sum²) of the summed fp32 output. With
+    w_scale (w then the int8 weights) the taps run in int8:
+    ``conv_up_flat_int8``."""
+    if w_scale is not None:
+        return conv_up_flat_int8(x, w, w_scale, bias, c_in=c_in, c_out=c_out,
+                                 residual=residual, want_stats=want_stats)
     if use_twin(x):
         kw = dict(c_in=c_in, c_out=c_out, residual=residual,
                   want_stats=want_stats)
@@ -169,3 +369,5 @@ def conv_up_flat(x, w, bias, *, c_in: int, c_out: int, residual=None,
 
 conv_down_flat.launches = 0
 conv_up_flat.launches = 0
+conv_down_flat_int8.launches = 0
+conv_up_flat_int8.launches = 0

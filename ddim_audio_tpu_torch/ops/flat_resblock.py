@@ -15,6 +15,11 @@ runs as two fused ``conv3x3_flat`` calls plus plain torch glue:
 
 GroupNorm statistics are per-(sample, channel) sums [B, C]; the groups fold
 from them exactly (8 groups, eps 1e-6).
+
+``resblock_flat_int8`` is the int8 activation-storage block (port of
+``resblock_flat_int8``, ``sampling.act_store: int8``): both convs store their
+outputs as int8 + per-group scales (``conv3x3_flat`` with ``quant_out``,
+float taps), and the tail runs as the fused ``residual_affine_flat`` kernel.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from .conv_flat import conv3x3_flat, quantize_conv_weights_int8
+from .residual_affine import residual_affine_flat
 
 GROUPS = 8
 EPS = 1e-6
@@ -54,20 +60,21 @@ def gn_affine_from_sums(s1, s2, n: int, norm_params, c: int):
     return scale.view(b, c), shift.view(b, c)
 
 
-def _taps(conv, dtype, tap_int8: bool):
-    """(w, w_scale) of a resblock conv for ``conv3x3_flat``: the float weight
-    in the compute dtype, or the int8 weight and its scales from
+def conv_taps(conv, dtype, int8: bool):
+    """(w, w_scale) of a conv (a resblock's, or a transition's for
+    ``conv_down_flat`` / ``conv_up_flat``): the float weight in the compute
+    dtype, or the int8 weight and its scales from
     ``models.unet.prepare_params``'s copy (``wq``, ``w_scale``). A tree that
     was not prepared is quantised here only while it still holds the fp32
     weights, which gives the same integers; quantising a weight that was
     already cast would not, so that raises."""
-    if not tap_int8:
+    if not int8:
         return conv["w"].to(dtype), None
     if "wq" in conv:
         return conv["wq"], conv["w_scale"]
     if conv["w"].dtype != torch.float32:
         raise ValueError(
-            f"tap_int8: the conv weight is {conv['w'].dtype} and has no "
+            f"int8 taps: the conv weight is {conv['w'].dtype} and has no "
             "'wq'/'w_scale': int8 weights are quantised from the fp32 "
             "weights (models.unet.prepare_params), not from a cast copy")
     return quantize_conv_weights_int8(conv["w"])
@@ -86,8 +93,8 @@ def resblock_flat(p, x_flat, temb, *, f: int, c: int, in_stats=None,
     n = t * f * (c // GROUPS)
     if in_stats is None:
         in_stats = channel_sums(x_flat, c)
-    w1, ws1 = _taps(p["conv1"], dtype, tap_int8)
-    w2, ws2 = _taps(p["conv2"], dtype, tap_int8)
+    w1, ws1 = conv_taps(p["conv1"], dtype, tap_int8)
+    w2, ws2 = conv_taps(p["conv2"], dtype, tap_int8)
     h, h1, h2 = conv3x3_flat(
         x_flat, w1, c=c, pre=gn_affine_from_sums(*in_stats, n, p["norm1"], c),
         pre_silu=True, add=temb, post_silu=True, want_stats=True, w_scale=ws1)
@@ -103,3 +110,47 @@ def resblock_flat(p, x_flat, temb, *, f: int, c: int, in_stats=None,
     if want_out_stats:
         return out, channel_sums(out, c)
     return out
+
+
+def resblock_flat_int8(p, x_flat, temb, *, f: int, c: int, dtype,
+                       in_stats=None, in_scales=None, quant_out: bool = False,
+                       want_out_stats: bool = False):
+    """The residual block with int8 activation storage. x_flat [B, T, F·C]
+    is int8 with in_scales (an interior block) or float (a stage entry, from
+    a transition kernel); dtype is the compute dtype, in which the convs
+    stage their inputs and run float taps (``tap_int8`` does not apply
+    here, as in the JAX package). in_stats: the per-channel (sum, sum²) of
+    x's fp32 values before their quantisation; required for an int8 x.
+
+    conv1 (GN1 from in_stats, SiLU, + temb, SiLU) and conv2 (GN2 from conv1's
+    pre-quant statistics, + bias, SiLU) each emit int8 + scales; the tail
+    ``deq(x) + deq(s)·scale3 + shift3`` (GN3 from conv2's pre-quant
+    statistics) is quantised for the next block with ``quant_out`` and else
+    emitted in dtype; ``want_out_stats`` adds its pre-quant statistics.
+    Returns (out, out_scales | None, out_stats | None)."""
+    b, t, fc = x_flat.shape
+    n = t * f * (c // GROUPS)
+    if x_flat.dtype != torch.int8:
+        x_flat = x_flat.to(dtype)
+    if in_stats is None:
+        if x_flat.dtype == torch.int8:
+            raise ValueError("an int8 input needs in_stats (its pre-quant "
+                             "sums)")
+        in_stats = channel_sums(x_flat, c)
+    w1, _ = conv_taps(p["conv1"], dtype, False)
+    w2, _ = conv_taps(p["conv2"], dtype, False)
+    h, h_sc, h1, h2 = conv3x3_flat(
+        x_flat, w1, c=c, in_scales=in_scales,
+        pre=gn_affine_from_sums(*in_stats, n, p["norm1"], c), pre_silu=True,
+        add=temb, post_silu=True, want_stats=True, quant_out=True)
+    s, s_sc, s1, s2 = conv3x3_flat(
+        h, w2, c=c, in_scales=h_sc,
+        pre=gn_affine_from_sums(h1, h2, n, p["norm2"], c),
+        add=p["conv2"]["b"], post_silu=True, want_stats=True, quant_out=True)
+    res = residual_affine_flat(
+        x_flat, s, gn_affine_from_sums(s1, s2, n, p["norm3"], c), c=c,
+        x_scales=in_scales, s_scales=s_sc, quant_out=quant_out,
+        want_stats=want_out_stats, out_dtype=dtype)
+    res = res if isinstance(res, tuple) else (res,)
+    return (res[0], res[1] if quant_out else None,
+            tuple(res[-2:]) if want_out_stats else None)

@@ -1,11 +1,13 @@
 """torch.profiler view of one denoiser forward of the port, on the card.
 
-    python -m ddim_audio_tpu_torch.tools.profile_forward [--route production|float|plain]
-                                                         [--forwards 3] [--top 12]
+    python -m ddim_audio_tpu_torch.tools.profile_forward \
+        [--route production|int8_store|float|plain] [--forwards 3] [--top 12]
 
 Builds the audio.yml model with seed-made weights (non-zero final GroupNorm
 weights), warms the route up, profiles ``--forwards`` forwards at
-[1, 2, 8192, 256] and prints, per forward: wall time, device-busy time (the
+[1, 2, 8192, 256] and prints, per forward (``int8_store``: the production
+configuration plus ``sampling.act_store: int8`` and
+``sampling.strided_int8: true``): wall time, device-busy time (the
 sum of every device kernel), host time in torch operators and the device time
 by kernel name. The busy share is device-busy time over the wall time
 measured without the profiler. Run it in a process of its own and time nothing after it: the
@@ -30,7 +32,7 @@ from . import audio_model, forward_input
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--route", default="production",
-                    choices=["production", "float", "plain"])
+                    choices=["production", "int8_store", "float", "plain"])
     ap.add_argument("--forwards", type=int, default=3)
     ap.add_argument("--top", type=int, default=12)
     args = ap.parse_args(argv)
@@ -43,7 +45,9 @@ def main(argv=None) -> int:
     x, t = forward_input(cfg)
     to_flat, _ = flat_io_adapters(cfg)
     xf = to_flat(x).contiguous()
-    if args.route == "production":
+    if args.route == "int8_store":
+        config.sampling.act_store, config.sampling.strided_int8 = "int8", True
+    if args.route in ("production", "int8_store"):
         c = production_eval_cfg(config, cfg)
     else:
         c = dataclasses.replace(cfg, dtype=torch.bfloat16)

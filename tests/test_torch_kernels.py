@@ -265,3 +265,74 @@ def test_dw_kernels_match_twins_on_gpu(cuda, dtype, F, C):
     for a, b in zip(grads["kernels"], grads["twins"]):
         assert a.dtype == b.dtype
         assert (a.float() - b.float()).abs().max() <= tol * b.float().abs().max()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("F,C", [(40, 32), (24, 64)])
+def test_int8_storage_kernels_match_twins_on_gpu(cuda, dtype, F, C):
+    """The int8-storage kernels (the storage modes of conv3x3_flat,
+    residual_affine_flat) and the int8 strided taps vs their twins with the
+    kernels' own groups, at ragged sizes (T = 20 is no multiple of a group's
+    8 rows, F = 40 / 24 none of its 16 columns): int8 outputs equal at
+    >= 99.9% of positions and never more than 1 apart, scales within 1e-5,
+    float outputs within 1e-4 (fp32) / 2e-2 (bf16) of max|twin|, the same
+    call twice bit for bit, one launch each."""
+    from ddim_audio_tpu_torch.ops.conv_flat import quantize_store
+    from ddim_audio_tpu_torch.ops.conv_strided import (
+        conv_down_flat_int8, conv_down_flat_int8_plain, conv_up_flat_int8,
+        conv_up_flat_int8_plain, quantize_strided_weights_int8)
+    from ddim_audio_tpu_torch.ops.residual_affine import (
+        residual_affine_flat, residual_affine_flat_plain)
+
+    g = torch.Generator(device=cuda).manual_seed(2)
+
+    def rnd(*s):
+        return torch.randn(*s, generator=g, device=cuda)
+
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    B, T = 2, 20
+    x = rnd(B, T, F * C)
+    q, sc = quantize_store(x.view(B, T, F, C))
+    w = (rnd(3, 3, C, C) / (3 * C ** 0.5)).to(dtype)
+    fused = dict(c=C, pre=(1 + 0.1 * rnd(B, C), 0.1 * rnd(B, C)),
+                 pre_silu=True, add=rnd(B, C), post_silu=True, want_stats=True)
+    wq, ws = quantize_strided_weights_int8(0.1 * rnd(4, 4, C, 64))
+    wu, wus = quantize_strided_weights_int8(0.1 * rnd(4, 4, C, 32))
+    cases = [
+        (conv3x3_flat, conv3x3_flat_plain, (x.to(dtype), w),
+         dict(fused, quant_out=True)),
+        (conv3x3_flat, conv3x3_flat_plain, (q, w),
+         dict(fused, in_scales=sc, quant_out=True)),
+        (conv3x3_flat, conv3x3_flat_plain, (x.to(dtype), w),
+         dict(fused, residual=q, res_scales=sc)),
+        (residual_affine_flat, residual_affine_flat_plain,
+         (q, q, (rnd(B, C), rnd(B, C))),
+         dict(c=C, x_scales=sc, s_scales=sc, quant_out=True, want_stats=True)),
+        (residual_affine_flat, residual_affine_flat_plain,
+         (x.to(dtype), q, (rnd(B, C), rnd(B, C))),
+         dict(c=C, s_scales=sc, want_stats=True, out_dtype=dtype)),
+        (conv_down_flat_int8, conv_down_flat_int8_plain,
+         (x.to(dtype), wq, ws, rnd(64)), dict(c_in=C, c_out=64,
+                                             want_stats=True)),
+        (conv_up_flat_int8, conv_up_flat_int8_plain,
+         (x.to(dtype), wu, wus, rnd(32)),
+         dict(c_in=C, c_out=32, want_stats=True,
+              residual=rnd(B, 2 * T, 2 * F * 32).to(dtype))),
+    ]
+    for kern, twin, args, kw in cases:
+        counts = sum(launch_counts().values())
+        got, again = kern(*args, **kw), kern(*args, **kw)
+        assert sum(launch_counts().values()) == counts + 2
+        ref = twin(*args, **kw)
+        for a, b, c in zip(got, again, ref):
+            assert torch.equal(a, b)
+            if a.dtype == torch.int8:
+                d = (a.int() - c.int()).abs()
+                assert int(d.max()) <= 1
+                assert float((d == 0).float().mean()) >= 0.999
+            elif a.ndim == 4:  # scales
+                assert float(((a - c).abs() / c).max()) <= 1e-5
+            else:
+                err = (a.float() - c.float()).abs().max() / c.float().abs().max()
+                assert err <= tol, (kern.__name__, float(err))

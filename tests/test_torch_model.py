@@ -250,7 +250,8 @@ def test_no_module_of_the_port_imports_jax():
         "for want in ('cli', 'ops.conv_head_tail', 'sampling.ddpm', "
         "'utils.device', 'ops.flat_grad', 'training.train_step', "
         "'training.optim', 'checkpoint', 'data.audio_dataset', "
-        "'tools.profile_train_step'):\n"
+        "'tools.profile_train_step', 'ops.residual_affine', "
+        "'ops.conv_strided'):\n"
         "    assert 'ddim_audio_tpu_torch.' + want in names, want\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith"
         "(('jax.', 'jaxlib', 'ddim_audio_tpu.', 'flax', 'optax')) or "

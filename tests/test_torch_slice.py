@@ -182,16 +182,15 @@ def test_config_rules():
     assert eval_cfg.dtype == torch.bfloat16 and eval_cfg.tap_int8
     config.sampling.tap_int8 = False
     assert not tconfig.production_eval_cfg(config, cfg).tap_int8
-    for key, value in (("act_store", "int8"), ("strided_int8", True)):
-        setattr(config.sampling, key, value)
-        with pytest.raises(NotImplementedError, match=key):
-            tconfig.production_eval_cfg(config, cfg)
-        setattr(config.sampling, key, None)
+    assert eval_cfg.act_store is None and not eval_cfg.strided_int8
+    config.sampling.act_store, config.sampling.strided_int8 = "int8", True
+    eval_cfg = tconfig.production_eval_cfg(config, cfg)
+    assert eval_cfg.act_store == "int8" and eval_cfg.strided_int8
     config.model.tap_int8 = True
     assert unet.ModelConfig.from_config(config).tap_int8
-    config.model.strided_int8 = True
-    with pytest.raises(NotImplementedError, match="strided_int8"):
-        unet.ModelConfig.from_config(config)
+    config.model.act_store, config.model.strided_int8 = "int8", True
+    model_cfg = unet.ModelConfig.from_config(config)
+    assert model_cfg.act_store == "int8" and model_cfg.strided_int8
     for name, want in (("float32", torch.float32), ("bfloat16", torch.bfloat16),
                        ("torch.cuda.FloatTensor", torch.float32),
                        ("torch.FloatTensor", torch.float32),
@@ -212,6 +211,7 @@ def test_port_imports_no_jax():
         "import ddim_audio_tpu_torch, ddim_audio_tpu_torch.config\n"
         "import ddim_audio_tpu_torch.weights, ddim_audio_tpu_torch.ops\n"
         "import ddim_audio_tpu_torch.ops.flat_resblock\n"
+        "import ddim_audio_tpu_torch.ops.residual_affine\n"
         "import ddim_audio_tpu_torch.ops.signal\n"
         "import ddim_audio_tpu_torch.runners.diffusion_runner\n"
         "import ddim_audio_tpu_torch.models.unet\n"
