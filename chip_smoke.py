@@ -20,8 +20,15 @@ phase on its own lines:
    down and up transitions, the head and the tail (also at one small ragged
    shape). Each bf16 case prints the kernel's and the twin's time from CUDA
    events, its bound (the larger of bytes moved / 3.35 TB/s and operations /
-   the peak rate of the operand type) and the time of the one PyTorch call
-   that computes the bare conv (bf16, channels-last, cuDNN);
+   the peak rate of the operand type), the time of the one PyTorch call
+   that computes the bare conv (bf16, channels-last, cuDNN), the kernel /
+   cuDNN ratio and the share of the bound; the redesigned conv3x3 and up
+   kernels also show that the library's tile plan equals the Python model
+   their wrappers size the statistics partials from, that bf16 takes the
+   tensor-core variant at every production shape (``ddim_conv3x3_variant``,
+   ``ddim_conv_up_variant``) and fp32 the CUDA-core one, and that the same
+   call twice gives the same bits. Each kernel's sums at B = 2 in bf16 close
+   the phase: kernel / cuDNN and the share of the bound;
    Then the int8-storage kernels (the storage modes of conv3x3, int8 input
    and residual with their scales and ``quant_out`` with and without
    statistics, at s0-s3; ``residual_affine_flat`` with int8 or float x and
@@ -494,7 +501,8 @@ def _kernel_cases(torch, bsz):
         cases.append(dict(name="conv3x3_flat", label=f"T{t} F{f} C{c}",
                           prod=True, kernel=conv3x3_flat,
                           twin=conv3x3_flat_plain, make=make, lib=lib,
-                          io=io_conv, ops=ops, int8=False))
+                          io=io_conv, ops=ops, int8=False,
+                          plan=("conv3x3", (t, f, c))))
         if (t, f, c) not in INT8_STAGES:
             continue
         wq, s_w = quantize_conv_weights_int8(w)
@@ -542,7 +550,8 @@ def _kernel_cases(torch, bsz):
                           label=f"T{t // 2} F{f // 2} {ci}->{co}", prod=True,
                           kernel=conv_up_flat, twin=conv_up_flat_plain,
                           make=make, lib=lib, io=io_conv,
-                          ops=2.0 * 4 * ci * co * t * f * bsz, int8=False))
+                          ops=2.0 * 4 * ci * co * t * f * bsz, int8=False,
+                          plan=("conv_up", (t // 2, f // 2, ci, co))))
     for t, f, prod in HEAD_TAIL:
         cin, c0 = 2, 32
         x, wh, bh = rnd(bsz, t, f * cin), rnd(3, 3, cin, c0, scale=0.2), rnd(c0)
@@ -576,6 +585,28 @@ def _kernel_cases(torch, bsz):
     return cases
 
 
+def check_plan(case, bsz, bf16) -> str:
+    """The redesigned kernels (conv3x3_flat, conv_up_flat): the library's
+    tile plan equals the Python model the wrapper sizes its partials from,
+    and the variant is the tensor-core kernel in bf16 (the CUDA-core one in
+    fp32). Returns the plan's note for the kernel's line."""
+    from ddim_audio_tpu_torch.ops import _cuda, tile_plan
+
+    kind, shape = case["plan"]
+    lib = _cuda.kernels()
+    model = getattr(tile_plan, f"{kind}_plan")(*shape, bool(bf16), bsz)
+    got = tile_plan.library_plan(getattr(lib, f"ddim_{kind}_plan"), *shape,
+                                 bf16, bsz)
+    variant = getattr(lib, f"ddim_{kind}_variant")(*shape, bf16)
+    tag = f"{case['name']} B{bsz} {case['label']} bf16={bf16}"
+    require(got == model, f"{tag}: library plan {got} != Python model {model}")
+    want = tile_plan.VARIANT_MMA if bf16 else tile_plan.VARIANT_FMA
+    require(variant == want == got.variant,
+            f"{tag}: variant {variant}, want {want}")
+    return (f" | {'mma' if variant else 'fma'} tile {got.tile_t}x{got.tile_f}"
+            f" split {got.split}/{got.groups}")
+
+
 def phase_kernels(summary):
     import torch
 
@@ -595,6 +626,12 @@ def phase_kernels(summary):
                 err, rel = rel_err(outs[0], refs[0])
                 line = (f"[kernels] {name:17s} {label:23s} {dt} max_abs "
                         f"{err:.3e} rel {rel:.3e}")
+                if "plan" in case:
+                    line += check_plan(case, bsz, int(dt == "bf16"))
+                    again = as_tuple(kern(*pos, **kw))
+                    require(all(torch.equal(a, b) for a, b in zip(outs, again)),
+                            f"{name} {label} {dt}: two calls differ")
+                    line += " twice bit-equal"
                 if case["int8"]:
                     snr = snr_db(outs[0], refs[0])
                     line += f" SNR {snr:.1f} dB (>= {SNR_INT8_KERNEL_DB})"
@@ -625,7 +662,9 @@ def phase_kernels(summary):
                          f"{bnd:.3f} ms ({by})")
                 if dtype == torch.bfloat16:
                     lib_ms = cuda_time(case["lib"](pos, kw))
-                    line += f", cuDNN bf16 conv {lib_ms:.3f} ms"
+                    line += (f", cuDNN bf16 conv {lib_ms:.3f} ms: kernel / "
+                             f"cuDNN {ms / lib_ms:.2f}x, bound / kernel "
+                             f"{bnd / ms:.1%} ({by})")
                 if dtype == torch.bfloat16 and bsz == 2:  # the main path
                     entry["ms"] += ms
                     entry["plain_ms"] += plain_ms
@@ -633,9 +672,13 @@ def phase_kernels(summary):
                     entry["library_ms"] += lib_ms
                     entry["_bytes" if by == "bytes" else "_ops"] += bnd
                 log(line)
-    for entry in summary.values():
+    for name, entry in summary.items():
         entry["bound_by"] = ("bytes" if entry.pop("_bytes") >= entry.pop("_ops")
                              else "operations")
+        log(f"[kernels] sum B2 bf16 {name:17s} kernel {entry['ms']:.3f} ms, "
+            f"cuDNN {entry['library_ms']:.3f} ms: "
+            f"{entry['ms'] / entry['library_ms']:.2f}x; bound / kernel "
+            f"{entry['bound_ms'] / entry['ms']:.1%} ({entry['bound_by']})")
 
 
 # int8 storage and int8 strided taps: the stages that store int8 (s0-s3) and

@@ -14,30 +14,60 @@
 //             partial (sum, sum²) of out32 per channel (optional)
 //             out = out32 rounded to the storage dtype
 //
-// Two variants, chosen per call by conv3x3_use_mma:
+// Two variants; conv3x3_plan (conv_plan.h) picks one per call and
+// ddim_conv3x3_variant reports it:
 //
-// - conv3x3_mma_kernel (bf16 storage, F >= 16, C % 32 == 0 — every bf16
-//   conv of the audio.yml main path but the F = 8 bottleneck stage): the
-//   taps run on the tensor cores as WMMA 16×16×16 bf16 products with fp32
-//   accumulation. A block owns 8 time rows × 16 columns × 32 output
-//   channels; warp w owns time row w, so for tap (dt, df) its A operand
-//   (16 positions × 16 channels) is a plain row-major slice of the staged
-//   halo (leading dimension = the chunk width) and no im2col copy is made.
-//   On an H100 the MMAs are cheap next to the staging pass; what bounds it
-//   is the prologue (load, residual add, GroupNorm affine, SiLU, rounding)
-//   and the L2 traffic of re-staging each chunk's weights per block, so the
-//   block is as tall as the static shared-memory budget allows.
-// - conv3x3_kernel (fp32, and bf16 at narrow F): the MACs run on CUDA cores
-//   in fp32, bound by FMA issue and shared-memory reads (one float4
+// - conv3x3_mma_kernel (bf16, C % 32 == 0: every bf16 conv of the audio.yml
+//   stages, F = 8 included). On an H100 its bound is bytes at s0-s2 (x,
+//   residual and out in bf16 against 9·C MACs a value) and tensor-core
+//   operations from s3 on. The kernel before this design reached 3-16% of
+//   that bound: its staging ran once per 32-channel output slice (C/32
+//   times a position), synchronously, and its epilogue took an fp32 tile
+//   through shared memory to 2-byte stores. This one:
+//   * stages the prologue-applied bf16 halo of a tile once for all C output
+//     channels: (TT+2)·(FT+2) positions × C in dynamic shared memory (pitch
+//     C + 8, so ldmatrix rows fall in distinct banks; 95 KB at C = 256).
+//     A block owns 256 positions (16 × 16, or 32 × 8 where F < 16) at
+//     C <= 96, 128 (8 × 16 / 16 × 8) from C = 128 on, and walks its C / NB
+//     output-channel groups (NB = 32, or 64 from C = 128 on) over the same
+//     halo. Where the spatial grid alone is under two blocks per SM (s3 at
+//     B = 1, s4-s5 at B = 1 and 2) the groups are shared out over grid.z
+//     and each such block stages the L2-resident halo again (conv_plan.h);
+//   * streams the weights as tap rows (3 taps × 32 input channels × NB)
+//     through a 3-deep cp.async ring, the first two while the halo is staged;
+//   * runs the taps as mma.sync.m16n8k16 bf16 → fp32: a warp owns 32
+//     positions × 32 channels, its A rows are halo positions read by
+//     ldmatrix at their own addresses (no im2col), its B fragments come from
+//     the HWIO stage by ldmatrix.trans (no repack). mma.sync rather than
+//     wgmma: a tap's A rows are scattered halo rows, which wgmma's
+//     shared-memory descriptors cannot address, and the register epilogue
+//     wants mma.sync's fragment layout. ptxas: 123 registers (WN = 2,
+//     2 blocks an SM), 126 (WN = 1 at C = 96), 80 with 60 bytes of spill
+//     (C <= 64, bounded for 3 blocks an SM: conv3x3_min_blocks);
+//   * keeps the epilogue in registers: a quad transpose gives each lane 8
+//     consecutive channels of a position, so add, SiLU, (sum, sum²) and the
+//     bf16 store move 16 bytes a lane; the statistics reduce over the quad
+//     columns by shuffles and over the block's warps through 2 KB of shared
+//     memory, in a fixed order (no atomics, deterministic). SiLU, twice a
+//     value (prologue and epilogue), takes the fast exponential and
+//     division (silu_fast) in place of the IEEE division's instruction
+//     sequence.
+//   Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py, all fusions on,
+//   B = 1): 0.378 / 0.265 / 0.147 ms at s0-s2, 32 / 23 / 15% of the byte
+//   bound (cuDNN's bare conv: 0.224 / 0.101 / 0.078), 0.079 / 0.077 / 0.053
+//   ms at s3-s5, 12 / 7 / 5% of the tensor-core bound. No single piece
+//   holds it there (tools/conv_ablation.py takes one out at a time; PERF.md
+//   §6): the prologue, the MMAs, the weight stream and the epilogue run in
+//   series inside a block, and one block's phases overlap only other
+//   blocks'.
+// - conv3x3_kernel (fp32, and bf16 where C % 32 != 0): the MACs run on CUDA
+//   cores in fp32, bound by FMA issue and shared-memory reads (one float4
 //   broadcast read per 4 MACs of a position, one weight read per 4 MACs per
 //   lane), not by HBM. 8 positions per thread reuse each staged weight 8
-//   times; the input halo is staged once per channel chunk.
-//
-// Both fuse the prologue into the staging pass, so the activation makes one
-// trip from HBM. wgmma/TMA pipelines are later work.
-#include <mma.h>
-
-#include "conv_common.cuh"
+//   times; the input halo is staged once per channel chunk. It fuses the
+//   prologue into the staging pass, so the activation makes one trip from
+//   HBM.
+#include "conv_mma.cuh"
 
 namespace ddim {
 
@@ -141,63 +171,91 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-constexpr int kCkM = 32;                // input channels per staged chunk
-constexpr int kTtM = 8, kFtM = 16;      // 128 positions per block
-constexpr int kHwM = kFtM + 2;
-constexpr int kHaloM = (kTtM + 2) * kHwM;
+// ------------------------------------------------- tensor-core variant --
 
-__host__ __device__ __forceinline__ bool conv3x3_use_mma(int f_len, int c,
-                                                         int bf16) {
-  return bf16 && f_len >= kFtM && c % kCkM == 0;
-}
-
-__host__ __device__ __forceinline__ int conv3x3_tiles(int t_len, int f_len,
-                                                      int c, int bf16) {
-  if (!conv3x3_use_mma(f_len, c, bf16)) return num_tiles(t_len, f_len);
-  return ((t_len + kTtM - 1) / kTtM) * ((f_len + kFtM - 1) / kFtM);
-}
-
-__global__ void __launch_bounds__(kThreads) conv3x3_mma_kernel(
+// WN warps share a tile's positions across NB = 32·WN output channels;
+// registers are bounded for MINB resident blocks per SM.
+template <int WN, int MINB>
+__global__ void __launch_bounds__(kThreads, MINB) conv3x3_mma_kernel(
     const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ res,
     const float* __restrict__ pre_scale, const float* __restrict__ pre_shift,
     const __nv_bfloat16* __restrict__ w, const float* __restrict__ add,
     __nv_bfloat16* __restrict__ out, float* __restrict__ stats, int t_len,
-    int f_len, int c, int pre_silu, int post_silu) {
-  using namespace nvcuda;
+    int f_len, int c, int pre_silu, int post_silu, int split) {
   using T = __nv_bfloat16;
-  __shared__ __align__(32) T xs[kHaloM * kCkM];
-  // the chunk's weights [tap][ci][32 co]; after the last chunk the same
-  // bytes hold the fp32 accumulator tile [128 positions][32 co]
-  __shared__ __align__(32) T ws[9 * kCkM * kCoTile];
-  __shared__ float red[2 * kThreads];
-  static_assert(sizeof(ws) >= kTtM * kFtM * kCoTile * sizeof(float),
-                "accumulator tile must fit the weight buffer");
+  constexpr int kWarpsM = 8 / WN;
+  constexpr int kM = 32 * kWarpsM;     // positions per block
+  constexpr int kNB = 32 * WN;         // output channels per group
+  constexpr int kWP = kNB + 8;         // stage pitch (elements)
+  constexpr int kTap = kMmaK * kWP;    // one tap's 32 ci × NB in a stage
+  constexpr int kStage = 3 * kTap;     // a tap row (dt, df = 0 … 2)
+  extern __shared__ __align__(16) unsigned char smem[];
 
-  const int b = blockIdx.y;
-  const int tiles_f = (f_len + kFtM - 1) / kFtM;
-  const int t0 = (blockIdx.x / tiles_f) * kTtM;
-  const int f0 = (blockIdx.x % tiles_f) * kFtM;
-  const int co0 = blockIdx.z * kCoTile;
+  const int ft = f_len >= 16 ? 16 : 8, tt = kM / ft;
+  const int hw = ft + 2, hn = (tt + 2) * hw, pitch = c + 8;
+  T* halo = reinterpret_cast<T*>(smem);         // [hn][pitch]
+  T* ring = halo + hn * pitch;             // [stages][3 df][32 ci][kWP]
+  float* red = reinterpret_cast<float*>(ring + kConvStages * kStage);
+
+  const int b = blockIdx.y, z = blockIdx.z;
+  const int tiles_f = (f_len + ft - 1) / ft;
+  const int t0 = (blockIdx.x / tiles_f) * tt, f0 = (blockIdx.x % tiles_f) * ft;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int co = co0 + lane;
+  const int wm = warp % kWarpsM, wn = warp / kWarpsM;
+  const int gid = lane >> 2, tig = lane & 3;
   const size_t xb = (size_t)b * t_len * f_len * c;
+  const int kc_n = c / kMmaK, group_steps = 3 * kc_n;
+  const int nsteps = (c / kNB - z + split - 1) / split * group_steps;
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
-  wmma::fill_fragment(acc[0], 0.f);
-  wmma::fill_fragment(acc[1], 0.f);
+  // step s: group z + (s / group_steps)·split, tap row dt, 32-channel
+  // chunk kc
+  auto load_stage = [&](int s) {
+    const int rem = s % group_steps, dt = rem / kc_n, kc = rem % kc_n;
+    const int g = z + (s / group_steps) * split;
+    T* dst = ring + (s % kConvStages) * kStage;
+    for (int i = threadIdx.x; i < 3 * kMmaK * kNB / 8; i += kThreads) {
+      const int q = i % (kNB / 8), r = (i / (kNB / 8)) % kMmaK;
+      const int df = i / (kMmaK * kNB / 8);
+      cp_async16(dst + df * kTap + r * kWP + 8 * q,
+                 w + ((size_t)(dt * 3 + df) * c + kc * kMmaK + r) * c +
+                     g * kNB + 8 * q);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < kConvStages - 1; ++s) {
+    if (s < nsteps) load_stage(s);
+    cp_async_commit();
+  }
 
-  for (int c0 = 0; c0 < c; c0 += kCkM) {
-    // Stage the prologue-applied halo chunk, 8 channels (16 bytes) per item.
-    for (int idx = threadIdx.x; idx < kHaloM * kCkM / 8; idx += kThreads) {
-      const int q = idx % (kCkM / 8), hp = idx / (kCkM / 8);
-      const int t = t0 + hp / kHwM - 1, f = f0 + hp % kHwM - 1;
-      const int ch = c0 + 8 * q;
-      Vec8 v;
-      if (t >= 0 && t < t_len && f >= 0 && f < f_len) {
-        const size_t off = xb + ((size_t)t * f_len + f) * c + ch;
-        v = load8(x + off);
+  // Stage the prologue-applied halo once (while the first weight stages
+  // load), 8 channels (16 bytes) per item, kBatch items' loads in flight per
+  // thread before their arithmetic.
+  constexpr int kBatch = 4;
+  const int cq = c / 8, n_items = hn * cq;
+  for (int i0 = threadIdx.x; i0 < n_items; i0 += kBatch * kThreads) {
+    uint4 xr[kBatch], rr[kBatch];
+    bool in[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int idx = i0 + u * kThreads, hp = idx / cq, q = idx % cq;
+      const int t = t0 + hp / hw - 1, f = f0 + hp % hw - 1;
+      in[u] = idx < n_items && t >= 0 && t < t_len && f >= 0 && f < f_len;
+      xr[u] = rr[u] = make_uint4(0, 0, 0, 0);
+      if (in[u]) {
+        const size_t off = xb + ((size_t)t * f_len + f) * c + 8 * q;
+        xr[u] = ldg16(x + off);
+        if (res != nullptr) rr[u] = ldg16(res + off);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int idx = i0 + u * kThreads;
+      if (idx >= n_items) break;
+      const int hp = idx / cq, ch = 8 * (idx % cq);
+      Vec8 v = unpack8(xr[u]);
+      if (in[u]) {
         if (res != nullptr) {
-          const Vec8 r = load8(res + off);
+          const Vec8 r = unpack8(rr[u]);
 #pragma unroll
           for (int k = 0; k < 8; ++k) v.v[k] = round_to<T>(v.v[k] + r.v[k]);
         }
@@ -209,102 +267,152 @@ __global__ void __launch_bounds__(kThreads) conv3x3_mma_kernel(
         }
         if (pre_silu) {
 #pragma unroll
-          for (int k = 0; k < 8; ++k) v.v[k] = silu(v.v[k]);
-        }
-      } else {
-#pragma unroll
-        for (int k = 0; k < 8; ++k) v.v[k] = 0.f;
-      }
-      store8(xs + hp * kCkM + 8 * q, v);
-    }
-    // Stage the chunk's weights ws[tap][ci][32 co] as 16-byte copies
-    // (C % 32 == 0 on this path, so the co tile is never ragged).
-    for (int idx = threadIdx.x; idx < 9 * kCkM * kCoTile / 8;
-         idx += kThreads) {
-      const int q = idx % (kCoTile / 8), r = idx / (kCoTile / 8);
-      const int ci = r % kCkM, tap = r / kCkM;
-      *reinterpret_cast<uint4*>(ws + r * kCoTile + 8 * q) =
-          *reinterpret_cast<const uint4*>(
-              w + ((size_t)tap * c + c0 + ci) * c + co0 + 8 * q);
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
-      const T* arow = xs + ((warp + tap / 3) * kHwM + tap % 3) * kCkM;
-#pragma unroll
-      for (int kk = 0; kk < kCkM; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> a;
-        wmma::load_matrix_sync(a, arow + kk, kCkM);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> bm;
-          wmma::load_matrix_sync(bm, ws + (tap * kCkM + kk) * kCoTile + 16 * j,
-                                 kCoTile);
-          wmma::mma_sync(acc[j], a, bm, acc[j]);
+          for (int k = 0; k < 8; ++k) v.v[k] = silu_fast(v.v[k]);
         }
       }
-    }
-    __syncthreads();
-  }
-
-  float* accs = reinterpret_cast<float*>(ws);
-  wmma::store_matrix_sync(accs + warp * 16 * kCoTile, acc[0], kCoTile,
-                          wmma::mem_row_major);
-  wmma::store_matrix_sync(accs + warp * 16 * kCoTile + 16, acc[1], kCoTile,
-                          wmma::mem_row_major);
-  __syncthreads();
-
-  float s1 = 0.f, s2 = 0.f;
-  const int t = t0 + warp;
-#pragma unroll 4
-  for (int i = 0; i < kFtM; ++i) {
-    const int f = f0 + i;
-    if (t < t_len && f < f_len && co < c) {
-      float o = accs[(warp * 16 + i) * kCoTile + lane];
-      if (add != nullptr) o += add[b * c + co];
-      if (post_silu) o = silu(o);
-      s1 += o;
-      s2 += o * o;
-      out[xb + ((size_t)t * f_len + f) * c + co] = from_f<T>(o);
+      store8(halo + hp * pitch + ch, v);
     }
   }
-  if (stats != nullptr) {
-    float* dst = stats + ((size_t)b * gridDim.x + blockIdx.x) * 2 * c;
-    block_stats(s1, s2, red, dst, co, c);
+
+  uint32_t a_base[kMT];  // lane's A row (position) in the halo, tap (0, 0)
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt) {
+    const int p = wm * 32 + mt * 16 + (lane & 15);
+    a_base[mt] =
+        smem_u32(halo + ((p / ft) * hw + p % ft) * pitch + (lane >> 4) * 8);
   }
+  const uint32_t b_base =
+      smem_u32(ring) + b_lane_offset(lane, kWP) + wn * 32 * 2;
+  float acc[kMT][kNT][4];
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[mt][nt][k] = 0.f;
+
+#pragma unroll 1
+  for (int s = 0; s < nsteps; ++s) {
+    cp_async_wait<kConvStages - 2>();
+    __syncthreads();  // stage s (and the halo) visible; slot s − 1 free
+    if (s + kConvStages - 1 < nsteps) load_stage(s + kConvStages - 1);
+    cp_async_commit();
+    const int rem = s % group_steps, dt = rem / kc_n, kc = rem % kc_n;
+    const uint32_t a_row = ((dt * hw) * pitch + kc * kMmaK) * 2;
+    const uint32_t b_stage = b_base + (s % kConvStages) * kStage * 2;
+#pragma unroll
+    for (int df = 0; df < 3; ++df)
+#pragma unroll
+      for (int kk = 0; kk < kMmaK / 16; ++kk) {
+        uint32_t aa[kMT];
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt)
+          aa[mt] = a_base[mt] + a_row + df * pitch * 2 + kk * 32;
+        warp_mma_k16(acc, aa, b_stage + (df * kTap + kk * 16 * kWP) * 2, 32);
+      }
+    if (rem != group_steps - 1) continue;
+
+    // Epilogue of group g from the registers.
+    const int g = z + (s / group_steps) * split;
+    const int co = g * kNB + wn * 32 + 8 * tig;
+    float av[8], s1[8], s2[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      av[k] = add != nullptr ? __ldg(add + b * c + co + k) : 0.f;
+      s1[k] = s2[k] = 0.f;
+    }
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        Vec8 o = quad_gather(acc[mt], r, tig);
+        const int p = wm * 32 + mt * 16 + gid + 8 * r;
+        const int t = t0 + p / ft, f = f0 + p % ft;
+        if (t < t_len && f < f_len) {
+#pragma unroll
+          for (int k = 0; k < 8; ++k) {
+            float v = o.v[k] + av[k];
+            if (post_silu) v = silu_fast(v);
+            s1[k] += v;
+            s2[k] += v * v;
+            o.v[k] = v;
+          }
+          store8(out + xb + ((size_t)t * f_len + f) * c + co, o);
+        }
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+          for (int k = 0; k < 2; ++k) acc[mt][nt][2 * r + k] = 0.f;
+      }
+    if (stats != nullptr) {
+      sum_over_gid(s1);
+      sum_over_gid(s2);
+      if (gid == 0) {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          red[(wm * 2) * kNB + wn * 32 + 8 * tig + k] = s1[k];
+          red[(wm * 2 + 1) * kNB + wn * 32 + 8 * tig + k] = s2[k];
+        }
+      }
+      finish_group_stats(
+          red, kWarpsM, kNB,
+          stats + ((size_t)b * gridDim.x + blockIdx.x) * 2 * c + g * kNB, c);
+    }
+  }
+}
+
+template <int WN, int MINB>
+cudaError_t launch_conv3x3_mma(const TilePlan& p, const void* x,
+                               const void* res, const float* pre_scale,
+                               const float* pre_shift, const void* w,
+                               const float* add, void* out, float* stats,
+                               int batch, int t_len, int f_len, int c,
+                               int pre_silu, int post_silu, cudaStream_t s) {
+  using T = __nv_bfloat16;
+  static bool raised = false;  // per instantiation; one card per process
+  if (!raised) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        conv3x3_mma_kernel<WN, MINB>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kSmemLimit);
+    if (err != cudaSuccess) return err;
+    raised = true;
+  }
+  conv3x3_mma_kernel<WN, MINB>
+      <<<dim3(p.tiles, batch, p.split), kThreads, p.smem, s>>>(
+          static_cast<const T*>(x), static_cast<const T*>(res), pre_scale,
+          pre_shift, static_cast<const T*>(w), add, static_cast<T*>(out),
+          stats, t_len, f_len, c, pre_silu, post_silu, p.split);
+  return cudaGetLastError();
 }
 
 }  // namespace ddim
 
 extern "C" {
 
-// Spatial tiles per sample of the variant that ddim_conv3x3 picks for these
-// arguments (the partials' second dimension).
-int ddim_conv3x3_tiles(int t_len, int f_len, int c, int bf16) {
-  return ddim::conv3x3_tiles(t_len, f_len, c, bf16);
-}
-
 // x, res, out: [B, T, F, C] (fp32 or bf16, as `bf16` says); w: [3, 3, C, C]
 // in the same dtype; pre_scale, pre_shift, add: [B, C] fp32; stats:
 // [B, ddim_conv3x3_tiles(...), 2, C] fp32. res, pre_*, add and stats may be
-// null; every pointer is 16-byte aligned. Returns cudaGetLastError() after
-// the launch.
+// null; x, res, w, out and pre_* are 16-byte aligned. Returns
+// cudaGetLastError() after the launch.
 int ddim_conv3x3(const void* x, const void* res, const float* pre_scale,
                  const float* pre_shift, const void* w, const float* add,
                  void* out, float* stats, int batch, int t_len, int f_len,
                  int c, int pre_silu, int post_silu, int bf16, void* stream) {
   using namespace ddim;
-  const dim3 grid(conv3x3_tiles(t_len, f_len, c, bf16), batch,
-                  (c + kCoTile - 1) / kCoTile);
+  const TilePlan p = conv3x3_plan(t_len, f_len, c, bf16, batch);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (conv3x3_use_mma(f_len, c, bf16)) {
-    using T = __nv_bfloat16;
-    conv3x3_mma_kernel<<<grid, kThreads, 0, s>>>(
-        static_cast<const T*>(x), static_cast<const T*>(res), pre_scale,
-        pre_shift, static_cast<const T*>(w), add, static_cast<T*>(out), stats,
-        t_len, f_len, c, pre_silu, post_silu);
-  } else if (bf16) {
+  if (p.variant == kVariantMma) {
+    // audio.yml: C = 32, 64 → <1, 3>; 96 → <1, 2>; 128 … 256 → <2, 2>
+    const auto launch = conv3x3_warps_n(c) == 2      ? launch_conv3x3_mma<2, 2>
+                        : conv3x3_min_blocks(c) == 3 ? launch_conv3x3_mma<1, 3>
+                                                     : launch_conv3x3_mma<1, 2>;
+    return static_cast<int>(launch(p, x, res, pre_scale, pre_shift, w, add,
+                                   out, stats, batch, t_len, f_len, c,
+                                   pre_silu, post_silu, s));
+  }
+  const dim3 grid(p.tiles, batch, p.split);
+  if (bf16) {
     using T = __nv_bfloat16;
     conv3x3_kernel<T><<<grid, kThreads, 0, s>>>(
         static_cast<const T*>(x), static_cast<const T*>(res), pre_scale,

@@ -25,11 +25,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "conv_plan.h"
+
 namespace ddim {
 
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kWarps = kThreads / 32;
-constexpr int kPos = 64;       // output positions per block
+constexpr int kWarps = kThreads / 32;  // kThreads, kPos: conv_plan.h
 constexpr int kPosPerThread = kPos / kWarps;
 constexpr int kCoTile = 32;    // output channels per block, one per lane
 
@@ -58,18 +58,7 @@ __device__ __forceinline__ float round_to(float v) {
 
 __device__ __forceinline__ float silu(float v) { return v / (1.0f + expf(-v)); }
 
-// Tile geometry shared by the kernels and the host-side tile count:
-// FT = 16 frequency columns when the output is at least that wide, else 8.
-__host__ __device__ __forceinline__ int tile_f(int f_out) {
-  return f_out >= 16 ? 16 : 8;
-}
-__host__ __device__ __forceinline__ int tile_t(int f_out) {
-  return kPos / tile_f(f_out);
-}
-__host__ __device__ __forceinline__ int num_tiles(int t_out, int f_out) {
-  const int ft = tile_f(f_out), tt = tile_t(f_out);
-  return ((t_out + tt - 1) / tt) * ((f_out + ft - 1) / ft);
-}
+// Tile geometry (tile_f, tile_t, num_tiles): conv_plan.h.
 
 // Per-block partial (sum, sum²) for the block's 32 output channels. Every
 // thread of the block must call it (it synchronises). dst points at

@@ -1,0 +1,184 @@
+// Pieces of the bf16 tensor-core conv kernels (conv3x3.cu, conv_strided.cu
+// up): cp.async weight staging, ldmatrix fragment loads, mma.sync.m16n8k16
+// bf16 → fp32, and the register epilogue's quad transpose and statistics.
+//
+// Warp tile: MT m16 tiles (16·MT positions, one per A-fragment row) × 4 n8
+// tiles (32 output channels). A rows are positions of the staged halo, read
+// with ldmatrix at each position's own address, so no im2col copy exists;
+// B is a weight stage [32 ci][n co] (co contiguous as in HWIO) read with
+// ldmatrix.trans, so no repack exists either.
+#pragma once
+
+#include "conv_common.cuh"
+
+namespace ddim {
+
+constexpr int kMT = 2;  // m16 tiles per warp of conv3x3 (up: a parameter)
+constexpr int kNT = 4;  // n8 tiles per warp
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// As cp_async16, but writes 16 zero bytes (reading nothing) unless `inside`.
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
+                                                 bool inside) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(inside ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ uint4 ldg16(const __nv_bfloat16* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
+}
+
+// Eight bf16 values (one 16-byte load) widened to fp32.
+__device__ __forceinline__ Vec8 unpack8(uint4 raw) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+  Vec8 out;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float2 f = __bfloat1622float2(h[k]);
+    out.v[2 * k] = f.x;
+    out.v[2 * k + 1] = f.y;
+  }
+  return out;
+}
+
+// silu with the fast exponential and division (a few ulp of fp32): the
+// bf16 tensor-core kernels round its result to bf16 or hold it to a bf16
+// tolerance, so they need not spend the instruction sequence of the IEEE
+// division in conv_common.cuh's silu, twice a value in conv3x3.
+__device__ __forceinline__ float silu_fast(float v) {
+  return __fdividef(v, 1.0f + __expf(-v));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// D += A·B, A 16×16 (row), B 16×8 (col), bf16 operands, fp32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One k16 step of a warp tile of MT m16 tiles: A rows at a_addr[mt] (byte
+// addresses in shared memory of lane l's row l % 16, k half l / 16), B from
+// a stage at b_addr (lane l's k row and n half, see below).
+template <int MT>
+__device__ __forceinline__ void warp_mma_k16(float (&acc)[MT][kNT][4],
+                                             const uint32_t (&a_addr)[MT],
+                                             uint32_t b_addr, int b_np_stride) {
+  uint32_t a[MT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) ldsm_x4(a[mt], a_addr[mt]);
+#pragma unroll
+  for (int np = 0; np < kNT / 2; ++np) {
+    uint32_t b[4];
+    ldsm_x4_t(b, b_addr + np * b_np_stride);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      mma_bf16(acc[mt][2 * np], a[mt], b[0], b[1]);
+      mma_bf16(acc[mt][2 * np + 1], a[mt], b[2], b[3]);
+    }
+  }
+}
+
+// Byte offset, within a weight stage row block, of lane l's ldmatrix.trans
+// row: matrix l / 8 covers k rows 8·(m & 1) … +7 and n columns 8·(m >> 1)
+// … +7 of a k16 × n16 block, so the four results are (b0, b1) of n tile
+// 2·np and (b0, b1) of n tile 2·np + 1.
+__device__ __forceinline__ int b_lane_offset(int lane, int wp) {
+  const int m = lane >> 3;
+  return (((lane & 7) + 8 * (m & 1)) * wp + 8 * (m >> 1)) * 2;
+}
+
+__device__ __forceinline__ float2 pick4(const float2 (&v)[4], int i) {
+  return i == 0 ? v[0] : i == 1 ? v[1] : i == 2 ? v[2] : v[3];
+}
+
+// The accumulators of one row of an m16 tile (r = 0: row gid, r = 1: row
+// gid + 8) hold, in lane tig, channels 8·nt + 2·tig + {0, 1} of the four n8
+// tiles. A 4 × 4 transpose across the quad (three xor-shuffle rounds, fixed
+// order) gives lane tig the eight consecutive channels 8·tig … 8·tig + 7,
+// which the epilogue reads and writes as one 16-byte vector.
+__device__ __forceinline__ Vec8 quad_gather(const float (&acc)[kNT][4], int r,
+                                            int tig) {
+  float2 a[4], b[4];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    a[nt] = make_float2(acc[nt][2 * r], acc[nt][2 * r + 1]);
+    b[nt] = a[nt];
+  }
+#pragma unroll
+  for (int k = 1; k < 4; ++k) {
+    const int p = tig ^ k;
+    const float2 send = pick4(a, p);
+    float2 got;
+    got.x = __shfl_xor_sync(0xffffffffu, send.x, k);
+    got.y = __shfl_xor_sync(0xffffffffu, send.y, k);
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+      if (s == p) b[s] = got;
+  }
+  return {{b[0].x, b[0].y, b[1].x, b[1].y, b[2].x, b[2].y, b[3].x, b[3].y}};
+}
+
+// Sum over the 8 lanes of one quad column (same tig, gid = 0 … 7) in a fixed
+// butterfly order: afterwards every lane holds its column's total.
+__device__ __forceinline__ void sum_over_gid(float (&v)[8]) {
+#pragma unroll
+  for (int m = 4; m < 32; m <<= 1)
+#pragma unroll
+    for (int k = 0; k < 8; ++k) v[k] += __shfl_xor_sync(0xffffffffu, v[k], m);
+}
+
+// Block statistics of one output-channel group of nb channels from
+// red[warp_m][2][nb] (each warp's column totals): sums over warp_m in order,
+// writes dst[0 … nb) (sum) and dst[c … c + nb) (sum²). All threads call it.
+__device__ __forceinline__ void finish_group_stats(const float* red,
+                                                   int warps_m, int nb,
+                                                   float* dst, int c) {
+  __syncthreads();
+  for (int i = threadIdx.x; i < 2 * nb; i += kThreads) {
+    const int which = i / nb, ch = i % nb;
+    float s = 0.f;
+    for (int wm = 0; wm < warps_m; ++wm) s += red[(wm * 2 + which) * nb + ch];
+    dst[which * c + ch] = s;
+  }
+}
+
+}  // namespace ddim

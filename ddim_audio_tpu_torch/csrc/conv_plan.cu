@@ -1,0 +1,51 @@
+// The tile-plan queries of ddim_conv3x3 and ddim_conv_up (conv_plan.h).
+// Plain C++: nvcc builds it into the kernel library, and a host compiler
+// builds it alone for the CPU tests of the port's Python model of the plans.
+#include "conv_plan.h"
+
+namespace {
+
+int write_plan(const ddim::TilePlan& p, int* out) {
+  const int v[7] = {p.variant, p.tile_t, p.tile_f, p.tiles,
+                    p.groups,  p.split,  p.smem};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
+  return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Spatial tiles per sample of the variant that ddim_conv3x3 picks for these
+// arguments (the partials' second dimension; no batch dependence).
+int ddim_conv3x3_tiles(int t_len, int f_len, int c, int bf16) {
+  return ddim::conv3x3_plan(t_len, f_len, c, bf16, 1).tiles;
+}
+
+// 1 when ddim_conv3x3 runs the tensor-core kernel, 0 for CUDA cores.
+int ddim_conv3x3_variant(int t_len, int f_len, int c, int bf16) {
+  return ddim::conv3x3_plan(t_len, f_len, c, bf16, 1).variant;
+}
+
+// out[0 … 7): variant, tile_t, tile_f, tiles, groups, split, smem bytes.
+int ddim_conv3x3_plan(int t_len, int f_len, int c, int bf16, int batch,
+                      int* out) {
+  return write_plan(ddim::conv3x3_plan(t_len, f_len, c, bf16, batch), out);
+}
+
+// The same for ddim_conv_up, in its input geometry (T, F, C_in, C_out).
+int ddim_conv_up_tiles(int t_in, int f_in, int c_in, int c_out, int bf16) {
+  return ddim::conv_up_plan(t_in, f_in, c_in, c_out, bf16, 1).tiles;
+}
+
+int ddim_conv_up_variant(int t_in, int f_in, int c_in, int c_out, int bf16) {
+  return ddim::conv_up_plan(t_in, f_in, c_in, c_out, bf16, 1).variant;
+}
+
+int ddim_conv_up_plan(int t_in, int f_in, int c_in, int c_out, int bf16,
+                      int batch, int* out) {
+  return write_plan(
+      ddim::conv_up_plan(t_in, f_in, c_in, c_out, bf16, batch), out);
+}
+
+}  // extern "C"

@@ -1,0 +1,130 @@
+// Tile plans of the conv kernels: which variant a call takes, how its grid
+// cuts the positions and channels, and the shared memory it asks for.
+//
+// Plain C++ with no CUDA header, so that the host compiler can build
+// conv_plan.cu on its own: the port's Python model of these plans
+// (ddim_audio_tpu_torch/ops/tile_plan.py), which the wrappers use to size
+// the statistics partials, is held against this file by the CPU tests.
+#pragma once
+
+#if defined(__CUDACC__)
+#define DDIM_HD __host__ __device__ __forceinline__
+#else
+#define DDIM_HD inline
+#endif
+
+namespace ddim {
+
+constexpr int kThreads = 256;  // 8 warps
+constexpr int kPos = 64;       // output positions per block (CUDA-core kernels)
+
+// CUDA-core tile geometry shared by the kernels and the host-side tile count:
+// FT = 16 frequency columns when the output is at least that wide, else 8.
+DDIM_HD int tile_f(int f_out) { return f_out >= 16 ? 16 : 8; }
+DDIM_HD int tile_t(int f_out) { return kPos / tile_f(f_out); }
+DDIM_HD int cdiv(int a, int b) { return (a + b - 1) / b; }
+DDIM_HD int num_tiles(int t_out, int f_out) {
+  return cdiv(t_out, tile_t(f_out)) * cdiv(f_out, tile_f(f_out));
+}
+
+// ---------------------------------------------- tensor-core (mma.sync) --
+//
+// Variants: 0 = CUDA cores (fp32, and bf16 where channels are no multiple
+// of 32), 1 = tensor cores (mma.sync.m16n8k16 bf16, fp32 accumulation).
+constexpr int kVariantFma = 0;
+constexpr int kVariantMma = 1;
+constexpr int kMmaK = 32;         // input channels per weight stage
+// cp.async ring depth; a conv3x3 stage holds a tap row (3 taps), an up
+// stage one tap of each of the four parity classes
+constexpr int kConvStages = 3;
+constexpr int kUpStages = 3;
+constexpr int kMmaRed = 2048;     // bytes of the statistics scratch
+constexpr int kSmemLimit = 232448;
+// Blocks the grid should reach before the halo is staged more than once:
+// two resident blocks on each of the H100's 132 SMs.
+constexpr int kFillBlocks = 2 * 132;
+
+struct TilePlan {
+  int variant;
+  int tile_t, tile_f;  // a block's spatial tile (conv_up: input positions)
+  int tiles;           // spatial tiles per sample (the partials' dimension)
+  int groups;          // output-channel groups
+  int split;           // grid.z: blocks that share a tile's groups
+  int smem;            // dynamic shared memory per block, bytes
+};
+
+// Output-channel groups go to separate blocks (grid.z, each re-staging the
+// tile) only as far as the spatial grid alone falls short of kFillBlocks,
+// in a split that divides the groups evenly.
+DDIM_HD int fill_split(int tiles, int batch, int groups) {
+  const int have = tiles * batch;
+  int split = have >= kFillBlocks ? 1 : cdiv(kFillBlocks, have);
+  while (split < groups && groups % split != 0) ++split;
+  return split < groups ? split : groups;
+}
+
+// Resident blocks per SM that conv3x3's registers are bounded for
+// (__launch_bounds__): 3 (80 registers a thread) at C <= 64, where a block's
+// work is mostly staging and epilogue and more resident blocks hide its
+// latency, 2 (128, no spills) from C = 96 on, where the MMAs dominate.
+DDIM_HD int conv3x3_min_blocks(int c) { return c <= 64 ? 3 : 2; }
+
+// conv3x3: a warp owns 32 positions × 32 output channels; two warps share
+// a tile's positions across 64 channels when C is a multiple of 64 from 128
+// on (128 positions a block), else one (256 positions a block).
+DDIM_HD int conv3x3_warps_n(int c) { return c >= 128 && c % 64 == 0 ? 2 : 1; }
+
+DDIM_HD TilePlan conv3x3_plan(int t, int f, int c, int bf16, int batch) {
+  TilePlan p;
+  if (bf16 && c % 32 == 0) {
+    const int wn = conv3x3_warps_n(c), m = 32 * (8 / wn), nb = 32 * wn;
+    p.variant = kVariantMma;
+    p.tile_f = f >= 16 ? 16 : 8;
+    p.tile_t = m / p.tile_f;
+    p.tiles = cdiv(t, p.tile_t) * cdiv(f, p.tile_f);
+    p.groups = c / nb;
+    p.split = fill_split(p.tiles, batch, p.groups);
+    p.smem = 2 * ((p.tile_t + 2) * (p.tile_f + 2) * (c + 8) +
+                  kConvStages * 3 * kMmaK * (nb + 8)) +
+             kMmaRed;
+    if (p.smem <= kSmemLimit) return p;
+  }
+  p.variant = kVariantFma;
+  p.tile_f = tile_f(f);
+  p.tile_t = tile_t(f);
+  p.tiles = num_tiles(t, f);
+  p.groups = cdiv(c, 32);
+  p.split = p.groups;
+  p.smem = 0;
+  return p;
+}
+
+// conv_up: a block owns 128 input positions and their 512 outputs; warp w
+// computes output parity class w % 4 of input positions 64·(w / 4) … +63
+// for one group of 32 output channels.
+DDIM_HD TilePlan conv_up_plan(int t_in, int f_in, int c_in, int c_out,
+                              int bf16, int batch) {
+  TilePlan p;
+  if (bf16 && c_in % 32 == 0 && c_out % 32 == 0) {
+    p.variant = kVariantMma;
+    p.tile_f = f_in >= 16 ? 16 : 8;
+    p.tile_t = 128 / p.tile_f;
+    p.tiles = cdiv(t_in, p.tile_t) * cdiv(f_in, p.tile_f);
+    p.groups = c_out / 32;
+    p.split = fill_split(p.tiles, batch, p.groups);
+    p.smem = 2 * ((p.tile_t + 2) * (p.tile_f + 2) * (c_in + 8) +
+                  kUpStages * 4 * kMmaK * (32 + 8)) +
+             kMmaRed;
+    if (p.smem <= kSmemLimit) return p;
+  }
+  p.variant = kVariantFma;
+  p.tile_f = tile_f(2 * f_in);
+  p.tile_t = tile_t(2 * f_in);
+  p.tiles = num_tiles(2 * t_in, 2 * f_in);
+  p.groups = cdiv(c_out, 32);
+  p.split = p.groups;
+  p.smem = 0;
+  return p;
+}
+
+}  // namespace ddim

@@ -33,8 +33,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "ddim_conv3x3_tiles": (_I,) * 4,
+    "ddim_conv3x3_variant": (_I,) * 4,
+    # T, F, C, bf16, B, out[7] (ops/tile_plan.py)
+    "ddim_conv3x3_plan": (_I,) * 5 + (_P,),
     "ddim_conv_down_tiles": (_I,) * 5,
     "ddim_conv_up_tiles": (_I,) * 5,
+    "ddim_conv_up_variant": (_I,) * 5,
+    # T, F, Cin, Cout, bf16, B, out[7]
+    "ddim_conv_up_plan": (_I,) * 6 + (_P,),
     "ddim_conv3x3_int8_tiles": (_I,) * 2,
     "ddim_conv3x3_int8_geometry": (_I,),
     "ddim_conv_head_tiles": (_I,) * 2,

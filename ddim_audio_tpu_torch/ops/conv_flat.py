@@ -31,11 +31,13 @@ frequency columns × one channel (``STORE_GROUP``, the CUDA kernels' group;
 f mod lcm(C, 128)/C). A consumer dequantises every value, halo included,
 with the scale of the group that owns it.
 
-On the card, bf16 convs at F >= 16 run their taps on the tensor cores (WMMA
-bf16, fp32 accumulation); fp32 convs and the F = 8 stage run on CUDA cores.
-What bounds each, and why the design, is noted at the top of
-``csrc/conv3x3.cu``. Both write per-block statistics partials that
-``torch.sum`` finishes, so runs are deterministic.
+On the card, bf16 float-tap convs with C % 32 == 0 (every audio.yml stage,
+F = 8 included) run their taps on the tensor cores (mma.sync bf16, fp32
+accumulation; all C output channels per staging pass of the prologue); fp32
+convs and other channel counts run on CUDA cores. ``tile_plan.conv3x3_plan``
+says which, and how the grid is cut; what bounds each variant, and why the
+design, is noted at the top of ``csrc/conv3x3.cu``. Both write per-block
+statistics partials that ``torch.sum`` finishes, so runs are deterministic.
 """
 
 from __future__ import annotations
@@ -57,6 +59,7 @@ from ._cuda import (
     twin_result,
     use_twin,
 )
+from .tile_plan import conv3x3_plan
 
 
 def wide_dtype(x: torch.Tensor) -> torch.dtype:
@@ -560,7 +563,7 @@ def conv3x3_flat(x, w, *, c: int, add=None, residual=None, pre=None,
         lib = kernels()
         stats = None
         if want_stats:
-            tiles = lib.ddim_conv3x3_tiles(t, f, c, bf16)
+            tiles = conv3x3_plan(t, f, c, bf16, b).tiles
             stats = torch.empty((b, tiles, 2, c), dtype=torch.float32,
                                 device=dev)
         err = lib.ddim_conv3x3(

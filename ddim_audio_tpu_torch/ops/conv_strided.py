@@ -22,11 +22,12 @@ enters the float epilogue.
 On a CUDA tensor each wrapper launches its hand-written Hopper kernel
 (``csrc/conv_strided.cu``, ``csrc/conv_strided_int8.cu``); on a CPU tensor it
 runs its plain PyTorch twin (``*_plain``). No fallback from one to the
-other. bf16 transitions at the
-audio.yml widths run their taps on the tensor cores (WMMA); fp32 and the
-narrowest bf16 geometries run on CUDA cores (what bounds each: the note at
-the top of ``csrc/conv_strided.cu``). Statistics come from per-block partials
-finished by ``torch.sum`` (deterministic).
+other. bf16 transitions at the audio.yml widths run their taps on the
+tensor cores (down: WMMA; up: mma.sync in the sub-pixel form, all four
+output parity classes from one staged input tile, ``tile_plan.conv_up_plan``);
+fp32 and the bf16 geometries those do not take run on CUDA cores (what
+bounds each: the note at the top of ``csrc/conv_strided.cu``). Statistics
+come from per-block partials finished by ``torch.sum`` (deterministic).
 """
 
 from __future__ import annotations
@@ -55,6 +56,7 @@ from .conv_flat import (
     untile,
     wide_dtype,
 )
+from .tile_plan import conv_up_plan
 
 # The quantisation group of the int8 strided kernels
 # (csrc/conv_strided_int8.cu): a block's output tile (rows, columns) and the
@@ -353,7 +355,7 @@ def conv_up_flat(x, w, bias, *, c_in: int, c_out: int, residual=None,
         lib = kernels()
         stats = None
         if want_stats:
-            tiles = lib.ddim_conv_up_tiles(t, f, c_in, c_out, bf16)
+            tiles = conv_up_plan(t, f, c_in, c_out, bf16, b).tiles
             stats = torch.empty((b, tiles, 2, c_out), dtype=torch.float32,
                                 device=dev)
         err = lib.ddim_conv_up(

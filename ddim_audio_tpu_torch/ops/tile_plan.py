@@ -1,0 +1,104 @@
+"""Tile plans of the conv3x3 and up-conv kernels, in Python.
+
+A model of ``csrc/conv_plan.h``: which variant a call takes (0: CUDA cores,
+1: tensor cores), the block's spatial tile, the spatial tiles per sample
+(the second dimension of the statistics partials, which the wrappers size
+from here), the output-channel groups, how many blocks share a tile's groups
+(``split``, grid.z) and the dynamic shared memory. ``tests/
+test_torch_conv_redesign.py`` holds the model against the C functions
+(``ddim_conv3x3_plan``, ``ddim_conv_up_plan``) built by the host compiler;
+``chip_smoke.py`` against the kernel library on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+VARIANT_FMA, VARIANT_MMA = 0, 1
+MMA_K = 32               # input channels per weight stage
+CONV_STAGES = 3          # conv3x3 weight ring: stages of a tap row each
+UP_STAGES = 3            # up weight ring: stages of one tap per class
+MMA_RED = 2048           # bytes of the statistics scratch
+SMEM_LIMIT = 232_448     # dynamic shared memory a block may ask for
+FILL_BLOCKS = 2 * 132    # two blocks on each SM of an H100
+FMA_POS = 64             # positions per block of the CUDA-core kernels
+
+
+class TilePlan(NamedTuple):
+    variant: int
+    tile_t: int
+    tile_f: int
+    tiles: int
+    groups: int
+    split: int
+    smem: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _fma_tile(f_out: int) -> tuple[int, int]:
+    ft = 16 if f_out >= 16 else 8
+    return FMA_POS // ft, ft
+
+
+def _fma_plan(t_out: int, f_out: int, c_out: int) -> TilePlan:
+    tt, ft = _fma_tile(f_out)
+    groups = _cdiv(c_out, 32)
+    return TilePlan(VARIANT_FMA, tt, ft, _cdiv(t_out, tt) * _cdiv(f_out, ft),
+                    groups, groups, 0)
+
+
+def fill_split(tiles: int, batch: int, groups: int) -> int:
+    """Blocks that share a tile's output-channel groups: only as many as the
+    spatial grid needs to reach FILL_BLOCKS, dividing the groups evenly."""
+    have = tiles * batch
+    split = 1 if have >= FILL_BLOCKS else _cdiv(FILL_BLOCKS, have)
+    while split < groups and groups % split:
+        split += 1
+    return min(split, groups)
+
+
+def conv3x3_plan(t: int, f: int, c: int, bf16: bool,
+                 batch: int = 1) -> TilePlan:
+    """The plan of ``ddim_conv3x3`` at [batch, t, f, c]."""
+    if bf16 and c % 32 == 0:
+        wn = 2 if c >= 128 and c % 64 == 0 else 1  # warps across a group
+        m, nb = 32 * (8 // wn), 32 * wn
+        ft = 16 if f >= 16 else 8
+        tt = m // ft
+        tiles = _cdiv(t, tt) * _cdiv(f, ft)
+        groups = c // nb
+        smem = 2 * ((tt + 2) * (ft + 2) * (c + 8)
+                    + CONV_STAGES * 3 * MMA_K * (nb + 8)) + MMA_RED
+        if smem <= SMEM_LIMIT:
+            return TilePlan(VARIANT_MMA, tt, ft, tiles, groups,
+                            fill_split(tiles, batch, groups), smem)
+    return _fma_plan(t, f, c)
+
+
+def conv_up_plan(t_in: int, f_in: int, c_in: int, c_out: int, bf16: bool,
+                 batch: int = 1) -> TilePlan:
+    """The plan of ``ddim_conv_up`` for an input [batch, t_in, f_in, c_in];
+    the tensor-core tile is in input positions (128 a block)."""
+    if bf16 and c_in % 32 == 0 and c_out % 32 == 0:
+        ft = 16 if f_in >= 16 else 8
+        tt = 128 // ft
+        tiles = _cdiv(t_in, tt) * _cdiv(f_in, ft)
+        groups = c_out // 32
+        smem = 2 * ((tt + 2) * (ft + 2) * (c_in + 8)
+                    + UP_STAGES * 4 * MMA_K * (32 + 8)) + MMA_RED
+        if smem <= SMEM_LIMIT:
+            return TilePlan(VARIANT_MMA, tt, ft, tiles, groups,
+                            fill_split(tiles, batch, groups), smem)
+    return _fma_plan(2 * t_in, 2 * f_in, c_out)
+
+
+def library_plan(fn, *args) -> TilePlan:
+    """A plan as the C query ``fn`` (``ddim_conv3x3_plan`` or
+    ``ddim_conv_up_plan`` of a loaded library) reports it."""
+    out = (ctypes.c_int * len(TilePlan._fields))()
+    fn(*args, ctypes.cast(out, ctypes.c_void_p))
+    return TilePlan(*out)

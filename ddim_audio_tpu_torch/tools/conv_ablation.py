@@ -1,0 +1,199 @@
+"""Where the time of the bf16 tensor-core conv3x3 and up kernels goes, on
+the card: each kernel built again with one piece of its work taken out.
+
+    python -m ddim_audio_tpu_torch.tools.conv_ablation [--out FILE]
+
+Copies ``csrc`` into a temporary folder once per variant, edits one line of
+the source there (``no_mma``: the tap products; ``no_weights``: the weight
+stream after the first stages; ``no_epilogue``: the epilogue, the MMAs
+kept), builds ``conv3x3.cu``, ``conv_strided.cu`` and ``conv_plan.cu`` of
+each copy with nvcc, all at once, and times the C entry points
+(``ddim_conv3x3``, ``ddim_conv_up``) with CUDA events at the audio.yml stage
+shapes, B = 1 and 2, every fusion on, against the same call of the unedited
+build, the unedited build without its fused residual (``no_residual``;
+conv3x3 also without the affine and SiLU prologue: ``no_prologue``) and one
+cuDNN call of the bare conv. The edited builds compute wrong results on
+purpose: only their times mean anything. Prints one line per shape.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import os
+import re
+import shutil
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+import torch
+import torch.nn.functional as F
+
+from ..ops import _cuda
+from ..ops.tile_plan import conv3x3_plan, conv_up_plan
+
+STAGES = [(8192, 256, 32), (4096, 128, 64), (2048, 64, 96), (1024, 32, 128),
+          (512, 16, 192), (256, 8, 256)]
+UPS = [(4096, 128, 64, 32), (2048, 64, 96, 64), (1024, 32, 128, 96),
+       (512, 16, 192, 128), (256, 8, 256, 192)]
+SOURCES = ("conv3x3.cu", "conv_strided.cu", "conv_plan.cu")
+# variant → (file, pattern, replacement) edits; a pattern must match
+VARIANTS = {
+    "full": [],
+    "no_mma": [
+        ("conv3x3.cu", r"warp_mma_k16\(acc, aa,", "if (s < 0) warp_mma_k16(acc, aa,"),
+        ("conv_strided.cu", r"warp_mma_k16\(acc, aa,",
+         "if (s < 0) warp_mma_k16(acc, aa,")],
+    "no_weights": [
+        ("conv3x3.cu", r"if \(s \+ kConvStages - 1 < nsteps\) load_stage",
+         "if (false) load_stage"),
+        ("conv_strided.cu", r"if \(s \+ kUpStages - 1 < nsteps\) load_stage",
+         "if (false) load_stage")],
+    "no_epilogue": [
+        ("conv3x3.cu", r"if \(rem != group_steps - 1\) continue;",
+         "if (rem != group_steps - 1 || post_silu >= 0) continue;"),
+        ("conv_strided.cu", r"if \(rem != group_steps - 1\) continue;",
+         "if (rem != group_steps - 1 || c_out >= 0) continue;")],
+}
+
+
+def build(root: Path) -> dict:
+    """One library per variant, built in parallel; each copy sets its own
+    shared-memory attribute (the template's guard is shared by every loaded
+    copy of the same symbol)."""
+    procs = {}
+    for name, edits in VARIANTS.items():
+        d = root / name
+        shutil.copytree(_cuda.CSRC, d)
+        for fn in ("conv3x3.cu", "conv_strided.cu"):
+            q = d / fn
+            q.write_text(q.read_text().replace("static bool raised = false;",
+                                               "bool raised = false;"))
+        for fn, pat, rep in edits:
+            q = d / fn
+            text, n = re.subn(pat, rep, q.read_text())
+            if n == 0:
+                raise RuntimeError(f"{name}: no match for {pat} in {fn}")
+            q.write_text(text)
+        procs[name] = subprocess.Popen(
+            [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-shared", "-o",
+             str(d / "lib.so"), *[str(d / s) for s in SOURCES]],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {name}:\n{log[-4000:]}")
+        lib = ctypes.CDLL(str(root / name / "lib.so"))
+        lib.ddim_conv3x3.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 \
+            + [ctypes.c_void_p]
+        lib.ddim_conv_up.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 \
+            + [ctypes.c_void_p]
+        libs[name] = lib
+    return libs
+
+
+def cuda_ms(fn, n: int = 20, warmup: int = 3) -> float:
+    for _ in range(warmup):
+        fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--out", default=None, help="also write the lines here")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("conv_ablation: needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    lines = []
+
+    def emit(line):
+        print(line, flush=True)
+        lines.append(line)
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    emit(smi.stdout.strip())
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device="cuda") * scale)
+
+    st = torch.cuda.current_stream().cuda_stream
+    with tempfile.TemporaryDirectory(dir=os.environ.get("TMPDIR")) as tmp:
+        libs = build(Path(tmp))
+        for bsz in (1, 2):
+            for t, f, c in STAGES:
+                x, res = rnd(bsz, t, f * c).bfloat16(), rnd(bsz, t, f * c).bfloat16()
+                w = rnd(3, 3, c, c, scale=(9 * c) ** -0.5).bfloat16()
+                sc, sh, add = 1 + 0.1 * rnd(bsz, c), 0.1 * rnd(bsz, c), rnd(bsz, c)
+                out = torch.empty_like(x)
+                stats = torch.empty(bsz, conv3x3_plan(t, f, c, True, bsz).tiles,
+                                    2, c, device="cuda")
+                row = [f"conv3x3 B{bsz} T{t} F{f} C{c}"]
+                for name, lib in libs.items():
+                    def run(lib=lib, res_on=True, pre_on=True):
+                        err = lib.ddim_conv3x3(
+                            x.data_ptr(), res.data_ptr() if res_on else None,
+                            sc.data_ptr() if pre_on else None,
+                            sh.data_ptr() if pre_on else None, w.data_ptr(),
+                            add.data_ptr(), out.data_ptr(), stats.data_ptr(),
+                            bsz, t, f, c, int(pre_on), 1, 1, st)
+                        if err:
+                            raise RuntimeError(f"ddim_conv3x3 {name}: {err}")
+                    row.append(f"{name} {cuda_ms(run):.4f}")
+                    if name == "full":
+                        row.append("no_residual "
+                                   f"{cuda_ms(lambda: run(res_on=False)):.4f}")
+                        row.append("no_prologue "
+                                   f"{cuda_ms(lambda: run(res_on=False, pre_on=False)):.4f}")
+                wl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+                xn = x.view(bsz, t, f, c).permute(0, 3, 1, 2)
+                row.append(f"cudnn {cuda_ms(lambda: F.conv2d(xn, wl, padding=1)):.4f}")
+                emit(" | ".join(row))
+            for t, f, ci, co in UPS:
+                x = rnd(bsz, t, f * ci).bfloat16()
+                w = rnd(4, 4, ci, co, scale=(4 * ci) ** -0.5).bfloat16()
+                bias, res = rnd(co), rnd(bsz, 2 * t, 2 * f * co).bfloat16()
+                out = torch.empty_like(res)
+                stats = torch.empty(bsz, conv_up_plan(t, f, ci, co, True, bsz).tiles,
+                                    2, co, device="cuda")
+                row = [f"up B{bsz} T{t} F{f} {ci}->{co}"]
+                for name, lib in libs.items():
+                    def run(lib=lib, res_on=True):
+                        err = lib.ddim_conv_up(
+                            x.data_ptr(), w.data_ptr(), bias.data_ptr(),
+                            res.data_ptr() if res_on else None, out.data_ptr(),
+                            stats.data_ptr(), bsz, t, f, ci, co, 1, st)
+                        if err:
+                            raise RuntimeError(f"ddim_conv_up {name}: {err}")
+                    row.append(f"{name} {cuda_ms(run):.4f}")
+                    if name == "full":
+                        row.append("no_residual "
+                                   f"{cuda_ms(lambda: run(res_on=False)):.4f}")
+                wl = w.permute(2, 3, 0, 1).flip(2, 3).contiguous(
+                    memory_format=torch.channels_last)
+                xn = x.view(bsz, t, f, ci).permute(0, 3, 1, 2)
+                lib_ms = cuda_ms(lambda: F.conv_transpose2d(xn, wl, stride=2,
+                                                            padding=1))
+                row.append(f"cudnn {lib_ms:.4f}")
+                emit(" | ".join(row))
+    if args.out:
+        Path(args.out).write_text("\n".join(lines) + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,289 @@
+"""Index math of the bf16 tensor-core conv3x3 and up-conv kernels, on the CPU.
+
+The CUDA kernels (``csrc/conv3x3.cu`` ``conv3x3_mma_kernel``,
+``csrc/conv_strided.cu`` ``conv_up_mma_kernel``) run only on the card. What
+surrounds their arithmetic is checked here:
+
+- the tile plans: the Python model (``ops/tile_plan.py``, which the wrappers
+  use to size the statistics partials) against the C functions of
+  ``csrc/conv_plan.cu``, built by the host compiler;
+- numpy models of the two kernels' blocks, walking the grid of the plan as
+  the kernels do (halo offsets, tap choice, parity classes, output-channel
+  groups over grid.z, ragged edges, per-tile statistics partials), against
+  the plain twins in fp64 and, for the sub-pixel up conv, against the JAX
+  package's ``conv_up_flat`` in Pallas interpret mode.
+"""
+
+import ctypes
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from jax.experimental.pallas import tpu as pltpu
+
+from ddim_audio_tpu.ops.pallas.conv_strided import (
+    conv_up_flat as jax_conv_up,
+    pack_up_weights,
+)
+from ddim_audio_tpu_torch.ops.conv_flat import _prologue, conv3x3_flat_plain
+from ddim_audio_tpu_torch.ops.conv_strided import conv_up_flat_plain
+from ddim_audio_tpu_torch.ops.tile_plan import (
+    VARIANT_FMA,
+    VARIANT_MMA,
+    TilePlan,
+    conv3x3_plan,
+    conv_up_plan,
+    library_plan,
+)
+
+torch.set_num_threads(2)
+CSRC = Path(__file__).resolve().parent.parent / "ddim_audio_tpu_torch" / "csrc"
+
+# audio.yml stages (T, F, C) and up transitions (T_in, F_in, C_in, C_out)
+STAGES = [(8192, 256, 32), (4096, 128, 64), (2048, 64, 96), (1024, 32, 128),
+          (512, 16, 192), (256, 8, 256)]
+UPS = [(4096, 128, 64, 32), (2048, 64, 96, 64), (1024, 32, 128, 96),
+       (512, 16, 192, 128), (256, 8, 256, 192)]
+
+
+@pytest.fixture(scope="module")
+def plan_lib(tmp_path_factory):
+    cxx = shutil.which("c++") or shutil.which("g++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler to build csrc/conv_plan.cu")
+    lib_path = tmp_path_factory.mktemp("plan") / "libconv_plan.so"
+    subprocess.run([cxx, "-x", "c++", "-std=c++17", "-O1", "-shared", "-fPIC",
+                    "-o", str(lib_path), str(CSRC / "conv_plan.cu")],
+                   check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(str(lib_path))
+    for name, n in (("ddim_conv3x3_plan", 5), ("ddim_conv_up_plan", 6)):
+        getattr(lib, name).argtypes = [ctypes.c_int] * n + [ctypes.c_void_p]
+    return lib
+
+
+def test_tile_plans_match_the_c_plans(plan_lib):
+    """Every production shape (B = 1, 2; bf16 and fp32) and a sweep of small
+    and ragged ones: variant, tile, tiles, groups, split and shared memory as
+    conv_plan.h computes them; the production bf16 calls all take the
+    tensor-core variant, the fp32 ones the CUDA-core one."""
+    c3 = [(t, f, c) for t in (1, 7, 16, 33) for f in (1, 8, 12, 16, 40)
+          for c in (16, 32, 48, 64, 96, 128, 192, 256, 512, 1024)] + STAGES
+    for t, f, c in c3:
+        for bf16 in (0, 1):
+            for b in (1, 2, 5):
+                want = library_plan(plan_lib.ddim_conv3x3_plan, t, f, c,
+                                    bf16, b)
+                assert conv3x3_plan(t, f, c, bool(bf16), b) == want, (t, f, c)
+                assert plan_lib.ddim_conv3x3_tiles(t, f, c, bf16) == want.tiles
+                assert plan_lib.ddim_conv3x3_variant(t, f, c, bf16) == \
+                    want.variant
+    ups = [(t, f, ci, co) for t in (1, 6, 9) for f in (1, 8, 12, 20)
+           for ci, co in ((32, 32), (48, 32), (64, 48), (256, 192),
+                          (1024, 64))] + UPS
+    for t, f, ci, co in ups:
+        for bf16 in (0, 1):
+            for b in (1, 2, 3):
+                want = library_plan(plan_lib.ddim_conv_up_plan, t, f, ci, co,
+                                    bf16, b)
+                assert conv_up_plan(t, f, ci, co, bool(bf16), b) == want
+                assert plan_lib.ddim_conv_up_tiles(t, f, ci, co, bf16) == \
+                    want.tiles
+                assert plan_lib.ddim_conv_up_variant(t, f, ci, co, bf16) == \
+                    want.variant
+    for b in (1, 2):
+        assert all(conv3x3_plan(*s, True, b).variant == VARIANT_MMA
+                   for s in STAGES)
+        assert all(conv_up_plan(*s, True, b).variant == VARIANT_MMA
+                   for s in UPS)
+        assert all(conv3x3_plan(*s, False, b).variant == VARIANT_FMA
+                   for s in STAGES)
+    # s5 at B = 1 (16 tiles) shares its four groups over grid.z; s0 does not
+    assert conv3x3_plan(256, 8, 256, True, 1).split == 4
+    assert conv3x3_plan(8192, 256, 32, True, 1).split == 1
+    assert conv_up_plan(256, 8, 256, 192, True, 1).split == 6
+
+
+def _tile_origin(plan: TilePlan, tile: int, f_len: int):
+    tiles_f = -(-f_len // plan.tile_f)
+    return (tile // tiles_f) * plan.tile_t, (tile % tiles_f) * plan.tile_f
+
+
+def _groups_of(plan: TilePlan, z: int):
+    return range(z, plan.groups, plan.split)
+
+
+def emulate_conv3x3_mma(x, w, *, c, add, residual, pre, pre_silu, post_silu):
+    """conv3x3_mma_kernel's grid, block by block, in fp64: the halo of the
+    prologue-applied input around each tile (zero outside the array), the
+    block's 32·(8 / WN) positions at tile coordinates (p / FT, p % FT), the
+    nine taps read at halo offset (dt, df), the block's output-channel groups
+    z, z + split, …, stores masked to the array, per-tile partials."""
+    b_, t, fc = x.shape
+    f = fc // c
+    plan = conv3x3_plan(t, f, c, True, b_)
+    nb = c // plan.groups
+    v = _prologue(x, c, residual, pre, pre_silu, x.dtype).view(b_, t, f, c)
+    w64 = w.double()
+    out = torch.full((b_, t, f, c), float("nan"), dtype=torch.float64)
+    hits = torch.zeros((b_, t, f, c), dtype=torch.int64)
+    parts = torch.zeros((b_, plan.tiles, 2, c), dtype=torch.float64)
+    tt, ft = plan.tile_t, plan.tile_f
+    p = torch.arange(tt * ft)
+    pr, pc = p // ft, p % ft
+    for b in range(b_):
+        for tile in range(plan.tiles):
+            t0, f0 = _tile_origin(plan, tile, f)
+            halo = torch.zeros((tt + 2, ft + 2, c), dtype=torch.float64)
+            ts, fs = slice(max(t0 - 1, 0), min(t0 + tt + 1, t)), \
+                slice(max(f0 - 1, 0), min(f0 + ft + 1, f))
+            halo[ts.start - t0 + 1:ts.stop - t0 + 1,
+                 fs.start - f0 + 1:fs.stop - f0 + 1] = v[b, ts, fs]
+            valid = (t0 + pr < t) & (f0 + pc < f)
+            for z in range(plan.split):
+                for g in _groups_of(plan, z):
+                    cos = slice(g * nb, (g + 1) * nb)
+                    acc = torch.zeros((tt * ft, nb), dtype=torch.float64)
+                    for tap in range(9):
+                        dt, df = divmod(tap, 3)
+                        acc += halo[pr + dt, pc + df] @ w64[dt, df][:, cos]
+                    o = acc + torch.as_tensor(add, dtype=torch.float64)[b, cos]
+                    if post_silu:
+                        o = torch.nn.functional.silu(o)
+                    o = o[valid]
+                    out[b, t0 + pr[valid], f0 + pc[valid], cos] = o
+                    hits[b, t0 + pr[valid], f0 + pc[valid], cos] += 1
+                    parts[b, tile, 0, cos] = o.sum(0)
+                    parts[b, tile, 1, cos] = (o * o).sum(0)
+    assert torch.all(hits == 1), "every output written by exactly one block"
+    tot = parts.sum(dim=1)
+    return out.reshape(b_, t, fc), tot[:, 0], tot[:, 1]
+
+
+def emulate_conv_up_mma(x, w, bias, *, c_in, c_out, residual):
+    """conv_up_mma_kernel's grid in fp64: per block the halo of its input
+    tile (rows i0 − 1 …, columns j0 − 1 …, zero outside), per parity class
+    (py, px) and tap offset (a, b) the halo read at (li + py + a,
+    lj + px + b) and the stored tap w[py + 2a, px + 2b], the output at
+    (2i + py, 2j + px) + bias + residual, groups of 32 output channels over
+    grid.z, per-tile partials of the summed output."""
+    b_, t, fc = x.shape
+    f = fc // c_in
+    plan = conv_up_plan(t, f, c_in, c_out, True, b_)
+    xs = x.double().view(b_, t, f, c_in)
+    w64 = w.double()
+    res = residual.double().view(b_, 2 * t, 2 * f, c_out)
+    out = torch.full((b_, 2 * t, 2 * f, c_out), float("nan"),
+                     dtype=torch.float64)
+    hits = torch.zeros(out.shape, dtype=torch.int64)
+    parts = torch.zeros((b_, plan.tiles, 2, c_out), dtype=torch.float64)
+    tt, ft = plan.tile_t, plan.tile_f
+    p = torch.arange(tt * ft)
+    li, lj = p // ft, p % ft
+    for b in range(b_):
+        for tile in range(plan.tiles):
+            i0, j0 = _tile_origin(plan, tile, f)
+            halo = torch.zeros((tt + 2, ft + 2, c_in), dtype=torch.float64)
+            ts, fs = slice(max(i0 - 1, 0), min(i0 + tt + 1, t)), \
+                slice(max(j0 - 1, 0), min(j0 + ft + 1, f))
+            halo[ts.start - i0 + 1:ts.stop - i0 + 1,
+                 fs.start - j0 + 1:fs.stop - j0 + 1] = xs[b, ts, fs]
+            valid = (i0 + li < t) & (j0 + lj < f)
+            for z in range(plan.split):
+                for g in _groups_of(plan, z):
+                    cos = slice(32 * g, 32 * g + 32)
+                    s1 = torch.zeros(32, dtype=torch.float64)
+                    s2 = torch.zeros(32, dtype=torch.float64)
+                    for cls in range(4):
+                        py, px = cls >> 1, cls & 1
+                        acc = torch.zeros((tt * ft, 32), dtype=torch.float64)
+                        for ab in range(4):
+                            a, bb = ab >> 1, ab & 1
+                            acc += halo[li + py + a, lj + px + bb] @ \
+                                w64[py + 2 * a, px + 2 * bb][:, cos]
+                        oi = 2 * (i0 + li[valid]) + py
+                        oj = 2 * (j0 + lj[valid]) + px
+                        o = (acc[valid] + bias.double()[cos]
+                             + res[b, oi, oj, cos])
+                        out[b, oi, oj, cos] = o
+                        hits[b, oi, oj, cos] += 1
+                        s1 += o.sum(0)
+                        s2 += (o * o).sum(0)
+                    parts[b, tile, 0, cos], parts[b, tile, 1, cos] = s1, s2
+    assert torch.all(hits == 1), "every output written by exactly one block"
+    tot = parts.sum(dim=1)
+    return out.reshape(b_, 2 * t, 2 * f * c_out), tot[:, 0], tot[:, 1]
+
+
+def _close(got, ref, tol):
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape
+        err = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+        assert err <= tol, err
+
+
+# (B, T, F, C): F = 8 with C = 256 (s5's geometry), the 16-column tile,
+# ragged T and F, and the 256-position block of C = 32 / 96
+@pytest.mark.parametrize("b,t,f,c", [(1, 19, 8, 256), (2, 9, 12, 64),
+                                     (2, 11, 20, 96), (1, 17, 18, 32),
+                                     (2, 5, 3, 192)])
+def test_conv3x3_block_model_matches_plain(b, t, f, c):
+    rng = np.random.default_rng(t * f + c)
+
+    def r(*s, scale=1.0):
+        return torch.from_numpy(rng.standard_normal(s) * scale)
+    x, res = r(b, t, f * c), r(b, t, f * c)
+    w = r(3, 3, c, c, scale=(9 * c) ** -0.5)
+    pre = (1 + 0.1 * r(b, c).float(), 0.1 * r(b, c).float())
+    kw = dict(c=c, add=r(b, c), residual=res, pre=pre, pre_silu=True,
+              post_silu=True)
+    got = emulate_conv3x3_mma(x, w, **kw)
+    ref = conv3x3_flat_plain(x, w, want_stats=True, **kw)
+    _close(got, ref, 1e-12)
+
+
+# (B, T_in, F_in, C_in, C_out): f_out = 16 at 256→192, ragged T and F
+UP_CASES = [(1, 6, 8, 256, 192), (2, 3, 12, 64, 32), (2, 5, 20, 32, 64),
+            (1, 9, 16, 96, 64)]
+
+
+@pytest.mark.parametrize("b,t,f,c_in,c_out", UP_CASES)
+def test_conv_up_subpixel_model_matches_plain(b, t, f, c_in, c_out):
+    rng = np.random.default_rng(c_in + f)
+
+    def r(*s, scale=1.0):
+        return torch.from_numpy(rng.standard_normal(s) * scale)
+    x, w, bias = r(b, t, f * c_in), r(4, 4, c_in, c_out, scale=0.1), r(c_out)
+    # the twin adds the residual in fp32 (as the kernel's epilogue does)
+    res = r(b, 2 * t, 2 * f * c_out).float().double()
+    got = emulate_conv_up_mma(x, w, bias, c_in=c_in, c_out=c_out, residual=res)
+    ref = conv_up_flat_plain(x, w, bias, c_in=c_in, c_out=c_out, residual=res,
+                             want_stats=True)
+    _close(got, ref, 1e-12)
+
+
+def test_conv_up_subpixel_model_matches_jax_kernel():
+    """The sub-pixel form at 256→192, f_out = 16, against the JAX kernel in
+    interpret mode (the tolerances of the port's twin test of it)."""
+    b, t, f, c_in, c_out = 2, 6, 8, 256, 192
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((b, t, f * c_in)).astype(np.float32)
+    w = (rng.standard_normal((4, 4, c_in, c_out)) * 0.1).astype(np.float32)
+    bias = rng.standard_normal(c_out).astype(np.float32)
+    res = rng.standard_normal((b, 2 * t, 2 * f * c_out)).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        ref, r1, r2 = jax_conv_up(
+            jnp.asarray(x), pack_up_weights(jnp.asarray(w)), bias,
+            c_in=c_in, c_out=c_out, tile_t=2, residual=jnp.asarray(res),
+            want_stats=True)
+    out, s1, s2 = emulate_conv_up_mma(
+        torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(bias),
+        c_in=c_in, c_out=c_out, residual=torch.from_numpy(res))
+    fold = [np.asarray(s).reshape(b, -1, c_out).sum(axis=1) for s in (r1, r2)]
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
+    np.testing.assert_allclose(s1.numpy(), fold[0], rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(s2.numpy(), fold[1], rtol=1e-5, atol=1e-4)

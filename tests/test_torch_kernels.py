@@ -179,8 +179,9 @@ def cuda():
 @pytest.mark.parametrize("F,C", [(12, 48), (40, 64)])
 def test_kernels_match_twins_on_gpu(cuda, dtype, tol, F, C):
     """Each CUDA kernel vs its plain twin on the same CUDA tensors, at odd
-    sizes that exercise the ragged tile edges (F=40, C=64 takes the bf16
-    tensor-core conv3x3, F=12 the CUDA-core one); relative to max|twin|."""
+    sizes that exercise the ragged tile edges (C=64 takes the bf16
+    tensor-core conv3x3 and up, C=48 the CUDA-core ones); relative to
+    max|twin|."""
     g = torch.Generator(device=cuda).manual_seed(0)
 
     def rnd(*s):
@@ -336,3 +337,61 @@ def test_int8_storage_kernels_match_twins_on_gpu(cuda, dtype, F, C):
             else:
                 err = (a.float() - c.float()).abs().max() / c.float().abs().max()
                 assert err <= tol, (kern.__name__, float(err))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("case", ["conv3x3 F8 C256", "up 256->192 f_in 8",
+                                  "conv3x3 ragged C96", "up ragged 64->32"])
+def test_redesigned_kernels_match_twins_on_gpu(cuda, dtype, tol, B, case):
+    """The redesigned bf16 kernels at the geometries that took other paths
+    before (conv3x3 at F = 8, up at f_out = 16) and at ragged T and F: the
+    variant the library reports (tensor cores in bf16, CUDA cores in fp32),
+    the plan the wrapper sizes its partials from, output and statistics
+    against the twin, and the same call twice bit for bit."""
+    from ddim_audio_tpu_torch.ops import tile_plan
+    from ddim_audio_tpu_torch.ops._cuda import kernels
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+
+    def rnd(*s):
+        return torch.randn(*s, generator=g, device=cuda)
+
+    bf16 = int(dtype == torch.bfloat16)
+    want = tile_plan.VARIANT_MMA if bf16 else tile_plan.VARIANT_FMA
+    lib = kernels()
+    if case.startswith("conv3x3"):
+        T, F, C = (19, 8, 256) if "F8" in case else (21, 37, 96)
+        shape = (T, F, C)
+        assert lib.ddim_conv3x3_variant(*shape, bf16) == want
+        assert tile_plan.library_plan(lib.ddim_conv3x3_plan, *shape, bf16, B) \
+            == tile_plan.conv3x3_plan(*shape, bool(bf16), B)
+        kern, twin = conv3x3_flat, conv3x3_flat_plain
+        args = (rnd(B, T, F * C).to(dtype),
+                (rnd(3, 3, C, C) / (3 * C ** 0.5)).to(dtype))
+        kw = dict(c=C, residual=rnd(B, T, F * C).to(dtype),
+                  pre=(1 + 0.1 * rnd(B, C), 0.1 * rnd(B, C)), pre_silu=True,
+                  add=rnd(B, C), post_silu=True, want_stats=True)
+    else:
+        T, F, C_in, C_out = (5, 8, 256, 192) if "256" in case else \
+            (11, 21, 64, 32)
+        shape = (T, F, C_in, C_out)
+        assert lib.ddim_conv_up_variant(*shape, bf16) == want
+        assert tile_plan.library_plan(lib.ddim_conv_up_plan, *shape, bf16, B) \
+            == tile_plan.conv_up_plan(*shape, bool(bf16), B)
+        kern, twin = conv_up_flat, conv_up_flat_plain
+        args = (rnd(B, T, F * C_in).to(dtype),
+                (rnd(4, 4, C_in, C_out) / (2 * C_in ** 0.5)).to(dtype),
+                rnd(C_out))
+        kw = dict(c_in=C_in, c_out=C_out, want_stats=True,
+                  residual=rnd(B, 2 * T, 2 * F * C_out).to(dtype))
+    before = kern.launches
+    got, again = kern(*args, **kw), kern(*args, **kw)
+    assert kern.launches == before + 2
+    ref = twin(*args, **kw)
+    for a, b, c in zip(got, again, ref):
+        assert torch.equal(a, b)
+        err = (a.float() - c.float()).abs().max() / c.float().abs().max()
+        assert err <= (tol if a.ndim == 3 else 1e-3), (case, float(err))
