@@ -22,13 +22,16 @@ phase on its own lines:
    events, its bound (the larger of bytes moved / 3.35 TB/s and operations /
    the peak rate of the operand type), the time of the one PyTorch call
    that computes the bare conv (bf16, channels-last, cuDNN), the kernel /
-   cuDNN ratio and the share of the bound; the redesigned conv3x3 and up
-   kernels also show that the library's tile plan equals the Python model
-   their wrappers size the statistics partials from, that bf16 takes the
-   tensor-core variant at every production shape (``ddim_conv3x3_variant``,
-   ``ddim_conv_up_variant``) and fp32 the CUDA-core one, and that the same
-   call twice gives the same bits. Each kernel's sums at B = 2 in bf16 close
-   the phase: kernel / cuDNN and the share of the bound;
+   cuDNN ratio and the share of the bound; the redesigned conv3x3, up, down
+   and int8-tap kernels also show that the library's tile plan equals the
+   Python model their wrappers size the statistics partials from, that bf16
+   takes the tensor-core variant at every production shape
+   (``ddim_conv3x3_variant``, ``ddim_conv_up_variant``,
+   ``ddim_conv_down_variant``; 192->256 at f_out = 8 included) and fp32 the
+   CUDA-core one, that the int8 taps keep their 8 x 16 quantisation group
+   (``ddim_conv3x3_int8_geometry``), and that the same call twice gives the
+   same bits. Each kernel's sums at B = 2 in bf16 close the phase: kernel /
+   cuDNN and the share of the bound;
    Then the int8-storage kernels (the storage modes of conv3x3, int8 input
    and residual with their scales and ``quant_out`` with and without
    statistics, at s0-s3; ``residual_affine_flat`` with int8 or float x and
@@ -465,7 +468,7 @@ def _kernel_cases(torch, bsz):
 
     from ddim_audio_tpu_torch.ops.conv_flat import (
         INT8_KERNEL_HALO, INT8_KERNEL_TILE, conv3x3_flat, conv3x3_flat_int8,
-        conv3x3_flat_int8_plain, conv3x3_flat_plain,
+        conv3x3_flat_int8_plain, conv3x3_flat_plain, int8_weights_co_ci,
         quantize_conv_weights_int8)
     from ddim_audio_tpu_torch.ops.conv_head_tail import (
         conv_head_flat, conv_head_flat_plain, conv_tail_flat,
@@ -506,16 +509,19 @@ def _kernel_cases(torch, bsz):
         if (t, f, c) not in INT8_STAGES:
             continue
         wq, s_w = quantize_conv_weights_int8(w)
+        wq_t = int8_weights_co_ci(wq)  # as prepare_params lays it out
 
-        def make8(dt, x=x, wq=wq, s_w=s_w, res=res, fused=fused):
-            return (x.to(dt), wq, s_w), dict(fused, residual=res.to(dt))
+        def make8(dt, x=x, wq=wq, s_w=s_w, wq_t=wq_t, res=res, fused=fused):
+            return (x.to(dt), wq, s_w), dict(fused, residual=res.to(dt),
+                                             wq_t=wq_t)
 
-        def twin8(*pos, **kw):  # the kernel's own quantisation group
+        def twin8(*pos, wq_t=None, **kw):  # the kernel's own group; HWIO wq
             return conv3x3_flat_int8_plain(
                 *pos, q_tile=INT8_KERNEL_TILE, q_halo=INT8_KERNEL_HALO, **kw)
         cases.append(dict(name="conv3x3_flat_int8", label=f"T{t} F{f} C{c}",
                           prod=True, kernel=conv3x3_flat_int8, twin=twin8,
-                          make=make8, lib=lib, io=io_conv, ops=ops, int8=True))
+                          make=make8, lib=lib, io=io_conv, ops=ops, int8=True,
+                          plan=("conv3x3_int8", (t, f, c))))
     for t, f, ci, co in DOWNS:
         x, w, b = (rnd(bsz, t, f * ci), rnd(4, 4, ci, co, scale=(16 * ci) ** -0.5),
                    rnd(co))
@@ -531,7 +537,7 @@ def _kernel_cases(torch, bsz):
                           prod=True, kernel=conv_down_flat,
                           twin=conv_down_flat_plain, make=make, lib=lib,
                           io=io_conv, ops=2.0 * 16 * ci * co * (t // 2) * (f // 2) * bsz,
-                          int8=False))
+                          int8=False, plan=("conv_down", (t, f, ci, co))))
     for t, f, co, ci in DOWNS:  # up runs each transition in reverse
         x, w, b, res = (rnd(bsz, t // 2, (f // 2) * ci),
                         rnd(4, 4, ci, co, scale=(4 * ci) ** -0.5), rnd(co),
@@ -586,10 +592,13 @@ def _kernel_cases(torch, bsz):
 
 
 def check_plan(case, bsz, bf16) -> str:
-    """The redesigned kernels (conv3x3_flat, conv_up_flat): the library's
-    tile plan equals the Python model the wrapper sizes its partials from,
-    and the variant is the tensor-core kernel in bf16 (the CUDA-core one in
-    fp32). Returns the plan's note for the kernel's line."""
+    """The redesigned kernels (conv3x3_flat, conv_up_flat, conv_down_flat,
+    conv3x3_flat_int8): the library's tile plan equals the Python model the
+    wrapper sizes its partials from, and the variant is the tensor-core
+    kernel in bf16 (the CUDA-core one in fp32; the int8 taps run on the
+    tensor cores in both, over the quantisation group the geometry query
+    reports, 8 × 16 with a 1-position halo). Returns the plan's note for
+    the kernel's line."""
     from ddim_audio_tpu_torch.ops import _cuda, tile_plan
 
     kind, shape = case["plan"]
@@ -597,10 +606,15 @@ def check_plan(case, bsz, bf16) -> str:
     model = getattr(tile_plan, f"{kind}_plan")(*shape, bool(bf16), bsz)
     got = tile_plan.library_plan(getattr(lib, f"ddim_{kind}_plan"), *shape,
                                  bf16, bsz)
-    variant = getattr(lib, f"ddim_{kind}_variant")(*shape, bf16)
     tag = f"{case['name']} B{bsz} {case['label']} bf16={bf16}"
     require(got == model, f"{tag}: library plan {got} != Python model {model}")
-    want = tile_plan.VARIANT_MMA if bf16 else tile_plan.VARIANT_FMA
+    if case["int8"]:
+        group = tuple(lib.ddim_conv3x3_int8_geometry(i) for i in range(4))
+        require(group == (8, 16, 1, 1), f"{tag}: quantisation group {group}")
+        variant, want = got.variant, tile_plan.VARIANT_MMA
+    else:
+        variant = getattr(lib, f"ddim_{kind}_variant")(*shape, bf16)
+        want = tile_plan.VARIANT_MMA if bf16 else tile_plan.VARIANT_FMA
     require(variant == want == got.variant,
             f"{tag}: variant {variant}, want {want}")
     return (f" | {'mma' if variant else 'fma'} tile {got.tile_t}x{got.tile_f}"

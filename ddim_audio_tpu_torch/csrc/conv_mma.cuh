@@ -1,6 +1,7 @@
-// Pieces of the bf16 tensor-core conv kernels (conv3x3.cu, conv_strided.cu
-// up): cp.async weight staging, ldmatrix fragment loads, mma.sync.m16n8k16
-// bf16 → fp32, and the register epilogue's quad transpose and statistics.
+// Pieces of the tensor-core conv kernels (conv3x3.cu, conv_strided.cu up
+// and down; conv3x3_int8.cu takes the copies, ldmatrix and statistics):
+// cp.async staging, ldmatrix fragment loads, mma.sync.m16n8k16 bf16 →
+// fp32, and the register epilogue's quad transpose and statistics.
 //
 // Warp tile: MT m16 tiles (16·MT positions, one per A-fragment row) × 4 n8
 // tiles (32 output channels). A rows are positions of the staged halo, read
@@ -173,7 +174,7 @@ __device__ __forceinline__ void finish_group_stats(const float* red,
                                                    int warps_m, int nb,
                                                    float* dst, int c) {
   __syncthreads();
-  for (int i = threadIdx.x; i < 2 * nb; i += kThreads) {
+  for (int i = threadIdx.x; i < 2 * nb; i += blockDim.x) {
     const int which = i / nb, ch = i % nb;
     float s = 0.f;
     for (int wm = 0; wm < warps_m; ++wm) s += red[(wm * 2 + which) * nb + ch];

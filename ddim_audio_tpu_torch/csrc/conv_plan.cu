@@ -1,4 +1,5 @@
-// The tile-plan queries of ddim_conv3x3 and ddim_conv_up (conv_plan.h).
+// The tile-plan queries of ddim_conv3x3, ddim_conv_up, ddim_conv_down and
+// ddim_conv3x3_int8 (conv_plan.h).
 // Plain C++: nvcc builds it into the kernel library, and a host compiler
 // builds it alone for the CPU tests of the port's Python model of the plans.
 #include "conv_plan.h"
@@ -46,6 +47,29 @@ int ddim_conv_up_plan(int t_in, int f_in, int c_in, int c_out, int bf16,
                       int batch, int* out) {
   return write_plan(
       ddim::conv_up_plan(t_in, f_in, c_in, c_out, bf16, batch), out);
+}
+
+// The same for ddim_conv_down, in its input geometry (T, F, C_in, C_out).
+int ddim_conv_down_tiles(int t_in, int f_in, int c_in, int c_out, int bf16) {
+  return ddim::conv_down_plan(t_in, f_in, c_in, c_out, bf16, 1).tiles;
+}
+
+int ddim_conv_down_variant(int t_in, int f_in, int c_in, int c_out,
+                           int bf16) {
+  return ddim::conv_down_plan(t_in, f_in, c_in, c_out, bf16, 1).variant;
+}
+
+int ddim_conv_down_plan(int t_in, int f_in, int c_in, int c_out, int bf16,
+                        int batch, int* out) {
+  return write_plan(
+      ddim::conv_down_plan(t_in, f_in, c_in, c_out, bf16, batch), out);
+}
+
+// The same for ddim_conv3x3_int8 (T, F, C, bf16 storage, B).
+int ddim_conv3x3_int8_plan(int t_len, int f_len, int c, int bf16, int batch,
+                           int* out) {
+  return write_plan(ddim::conv3x3_int8_plan(t_len, f_len, c, bf16, batch),
+                    out);
 }
 
 }  // extern "C"

@@ -31,6 +31,7 @@ DDIM_HD int num_tiles(int t_out, int f_out) {
 //
 // Variants: 0 = CUDA cores (fp32, and bf16 where channels are no multiple
 // of 32), 1 = tensor cores (mma.sync.m16n8k16 bf16, fp32 accumulation).
+constexpr int kVariantNone = -1;  // no kernel takes the shape (the call raises)
 constexpr int kVariantFma = 0;
 constexpr int kVariantMma = 1;
 constexpr int kMmaK = 32;         // input channels per weight stage
@@ -38,6 +39,9 @@ constexpr int kMmaK = 32;         // input channels per weight stage
 // stage one tap of each of the four parity classes
 constexpr int kConvStages = 3;
 constexpr int kUpStages = 3;
+// conv_down ring: a stage holds kDownTaps taps (a tap row) × 32 ci × NB co
+constexpr int kDownStages = 3;
+constexpr int kDownTaps = 4;
 constexpr int kMmaRed = 2048;     // bytes of the statistics scratch
 constexpr int kSmemLimit = 232448;
 // Blocks the grid should reach before the halo is staged more than once:
@@ -124,6 +128,90 @@ DDIM_HD TilePlan conv_up_plan(int t_in, int f_in, int c_in, int c_out,
   p.groups = cdiv(c_out, 32);
   p.split = p.groups;
   p.smem = 0;
+  return p;
+}
+
+// conv_down (k4 s2 p1): a block owns TT × FT output positions and stages
+// their (2TT + 2) × (2FT + 2) input halo once, all C_in channels; WM × WN
+// warps of MT m16 tiles × 32 output channels each, so NB = 32·WN output
+// channels a group (64 where C_out allows, else 32) and 16·MT·WM positions
+// a block. MT = 2 (128 or 256 positions) wherever its shared memory fits,
+// else MT = 1 (64 or 128): the halo of a stride-2 tile is 4.8 times its
+// output, so at 192→256 only the smaller tile fits. From 64→96 on that
+// means one block an SM: a thicker warp tile rather than a second resident
+// block with thinner ones (PERF.md).
+DDIM_HD int conv_down_warps_n(int c_out) { return c_out % 64 == 0 ? 2 : 1; }
+
+DDIM_HD int conv_down_smem(int tt, int ft, int c_in, int nb) {
+  return 2 * ((2 * tt + 2) * (2 * ft + 2) * (c_in + 8) +
+              kDownStages * kDownTaps * kMmaK * (nb + 8)) +
+         kMmaRed;
+}
+
+DDIM_HD TilePlan conv_down_plan(int t_in, int f_in, int c_in, int c_out,
+                                int bf16, int batch) {
+  const int t_out = t_in / 2, f_out = f_in / 2;
+  TilePlan p;
+  if (bf16 && c_in % kMmaK == 0 && c_out % 32 == 0) {
+    const int wn = conv_down_warps_n(c_out), nb = 32 * wn;
+    p.variant = kVariantMma;
+    p.tile_f = f_out >= 16 ? 16 : 8;
+    p.tile_t = 16 * 2 * (8 / wn) / p.tile_f;  // MT = 2
+    p.smem = conv_down_smem(p.tile_t, p.tile_f, c_in, nb);
+    if (p.smem > kSmemLimit) {  // MT = 1
+      p.tile_t /= 2;
+      p.smem = conv_down_smem(p.tile_t, p.tile_f, c_in, nb);
+    }
+    p.tiles = cdiv(t_out, p.tile_t) * cdiv(f_out, p.tile_f);
+    p.groups = c_out / nb;
+    p.split = fill_split(p.tiles, batch, p.groups);
+    if (p.smem <= kSmemLimit) return p;
+  }
+  p.variant = kVariantFma;
+  p.tile_f = tile_f(f_out);
+  p.tile_t = tile_t(f_out);
+  p.tiles = num_tiles(t_out, f_out);
+  p.groups = cdiv(c_out, 32);
+  p.split = p.groups;
+  p.smem = 0;
+  return p;
+}
+
+// conv3x3 with int8 taps: the quantisation group is an 8 × 16 output tile
+// with its 1-position halo, all C channels, one scale. A persistent block
+// walks groups (grid: as many blocks as stay resident, at most one a
+// group); it stages the nine taps' int8 weights [tap][co][ci] once, and for
+// each group its raw input halo (bf16: the residual's too), its int8 halo
+// and the statistics scratch [WM][2][C]. WN = C / 32 warps across the
+// channels (32 each) and WM across the positions: 256 threads a block at
+// C = 32 and 64, 384 at C = 96.
+constexpr int kTtQ = 8, kFtQ = 16;  // output tile = quantisation group
+constexpr int kHaloQ = (kTtQ + 2) * (kFtQ + 2);
+
+DDIM_HD constexpr int conv3x3_int8_threads(int c) { return c == 96 ? 384 : 256; }
+DDIM_HD constexpr int conv3x3_int8_warps_n(int c) { return c / 32; }
+// bytes of an int8 row (position or output channel) in shared memory: 16
+// past C keeps the 8 rows of an ldmatrix in distinct banks
+DDIM_HD constexpr int int8_pitch(int c) { return c + 16; }
+
+DDIM_HD constexpr int conv3x3_int8_smem(int c, int bf16) {
+  return 9 * c * int8_pitch(c) + kHaloQ * int8_pitch(c) +
+         kHaloQ * c * 4 +  // raw x in fp32, or raw x and residual in bf16
+         4 * (conv3x3_int8_threads(c) / 32 / conv3x3_int8_warps_n(c)) * 2 *
+             c +
+         4 * 16;
+}
+
+DDIM_HD TilePlan conv3x3_int8_plan(int t, int f, int c, int bf16, int batch) {
+  TilePlan p;
+  p.variant = c == 32 || c == 64 || c == 96 ? kVariantMma : kVariantNone;
+  p.tile_t = kTtQ;
+  p.tile_f = kFtQ;
+  p.tiles = cdiv(t, kTtQ) * cdiv(f, kFtQ);
+  p.groups = 1;  // one block computes all C output channels of a group
+  p.split = 1;
+  p.smem = p.variant == kVariantMma ? conv3x3_int8_smem(c, bf16) : 0;
+  (void)batch;
   return p;
 }
 

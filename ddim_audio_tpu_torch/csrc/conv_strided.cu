@@ -19,16 +19,44 @@
 // Both can emit per-block partial (sum, sum²) of the fp32 output (for up: of
 // the summed output up(h) + residual) before the store cast.
 //
-// down, two variants picked per call (down_use_mma):
-// - tensor cores (bf16 storage, C_in % 16 == 0, C_out % 32 == 0, at least 16
-//   output columns): WMMA 16×16×16 bf16 products, fp32 accumulation, 128
-//   output positions × 32 output channels per block; the A operand for tap
-//   (dt, df) is the staged input halo read with a leading dimension of two
-//   positions (the stride-2 window), so no im2col copy is made. What bounds
-//   it on an H100 is staging (synchronous 16-byte copies of the input halo
-//   and of all 16 taps' weights per channel chunk, once per 32-channel
-//   output slice) and the epilogue's 2-byte stores, not the MMAs.
-// - CUDA cores (fp32, and bf16 where the above does not apply): FMA
+// down, two variants picked per call (conv_down_plan, conv_plan.h;
+// ddim_conv_down_variant reports it):
+// - conv_down_mma_kernel (bf16, C_in % 32 == 0, C_out % 32 == 0: every bf16
+//   transition of audio.yml, 192→256 at f_out = 8 included). On an H100 the
+//   bf16 down conv is bound by bytes at 32→64 (16·C_in MACs per output
+//   element against an input four times the output's positions: at B = 1,
+//   134 MB in, 67 MB out, 0.060 ms at 3.35 TB/s) and by tensor-core
+//   operations from 64→96 on. The kernel before this design (WMMA, 128
+//   positions × 32 channels a block) staged the input halo once per
+//   32-channel output slice and all 16 taps' weights per 16-channel chunk,
+//   synchronously, took its epilogue through an fp32 tile in shared memory
+//   to 2-byte stores, and at f_out = 8 (192→256) did not apply: CUDA cores
+//   ran there at 19× cuDNN. This design stages a tile's input halo once for
+//   all its output-channel groups (cp.async, zero-filled outside, each halo
+//   row split into its even and odd columns so that the stride-2 window of
+//   a tap is 8 consecutive rows for ldmatrix), streams the weights (a tap
+//   row, 4 taps × 32 input channels × the group's 32 or 64 output channels,
+//   a stage) through a 3-deep cp.async ring, runs the taps as
+//   mma.sync.m16n8k16
+//   bf16 → fp32 (ldmatrix at each output position's own halo address, so
+//   no im2col; ldmatrix.trans on the HWIO weights, so no repack) and keeps
+//   the epilogue in registers (quad transpose, bias, fixed-order
+//   statistics, 16-byte stores). A block owns 256 output positions (16 ×
+//   16) at 64→96, 128 (8 × 16) at 32→64, 96→128 and 128→192, and 64 (8 ×
+//   8) at 192→256, where a stride-2 tile's halo (4.8 times its output
+//   positions × all C_in) leaves no room for more (one block an SM from
+//   64→96 on: a warp tile of 32 positions beat a second resident block of
+//   16-position tiles). Output-channel groups go to grid.z only where the
+//   spatial grid is under two blocks per SM (96→128 at B = 1, 128→192,
+//   192→256). Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py, B =
+//   1, through the wrapper): 0.225 / 0.185 / 0.106 / 0.087 / 0.081 ms from
+//   32→64 to 192→256 (the WMMA / CUDA-core kernel before: 0.666 / 0.508 /
+//   0.257 / 0.135 / 0.313; cuDNN's bare conv 0.188 / 0.068 / 0.046 / 0.031
+//   / 0.034), 32→64 at 27% of its byte bound. Without its MMAs the kernel
+//   still takes 64% of its time at 32→64 and 51% at 64→96 (B = 1)
+//   (tools/conv_ablation.py, PERF.md): staging, ldmatrix and the ring's
+//   barriers, not the tensor cores, hold it.
+// - conv_down_kernel (fp32, and bf16 with channels no multiple of 32): FMA
 //   implicit GEMM, 16·Cin MACs per output element, bound by FMA issue and
 //   shared-memory reads. 64 output positions × 32 output channels per block,
 //   input halo and weights staged per chunk as fp32, 8 accumulators per
@@ -68,8 +96,6 @@
 // - conv_up_kernel (fp32, and bf16 with channels no multiple of 32): the FMA
 //   implicit GEMM, 4·Cin MACs per output element; every warp owns one
 //   (row, column) parity class so each staged weight is reused 8 times.
-#include <mma.h>
-
 #include "conv_mma.cuh"
 
 namespace ddim {
@@ -270,118 +296,199 @@ __global__ void __launch_bounds__(kThreads)
 
 // ------------------------------------------------- tensor-core variants --
 
-constexpr int kCkD = 16;                 // down: input channels per chunk
-constexpr int kTtD = 8, kFtD = 16;       // down: 8 × 16 output positions
-constexpr int kHwD = 2 * kFtD + 2;       // 34 input columns
-constexpr int kHaloDM = (2 * kTtD + 2) * kHwD;
-
-__host__ __device__ __forceinline__ bool down_use_mma(int f_out, int c_in,
-                                                      int c_out, int bf16) {
-  return bf16 && f_out >= kFtD && c_in % kCkD == 0 && c_out % kCoTile == 0;
-}
-
-__host__ __device__ __forceinline__ int down_tiles(int t_out, int f_out,
-                                                   int c_in, int c_out,
-                                                   int bf16) {
-  if (!down_use_mma(f_out, c_in, c_out, bf16)) return num_tiles(t_out, f_out);
-  return ((t_out + kTtD - 1) / kTtD) * ((f_out + kFtD - 1) / kFtD);
-}
-
-// 16-byte copy of 8 bf16 channels, or zeros outside the input.
-__device__ __forceinline__ void copy8(__nv_bfloat16* dst,
-                                      const __nv_bfloat16* src, bool inside) {
-  *reinterpret_cast<uint4*>(dst) =
-      inside ? *reinterpret_cast<const uint4*>(src) : make_uint4(0, 0, 0, 0);
-}
-
-__global__ void __launch_bounds__(kThreads) conv_down_mma_kernel(
+// The down conv on the tensor cores. A block owns TT × FT output positions
+// (16·MT·WM of them) and stages their input halo, rows 2·t0 − 1 … 2·t0 + 2TT
+// and columns 2·f0 − 1 … 2·f0 + 2FT, once for all its output-channel groups,
+// all C_in channels (cp.async, zero-filled outside the input). Each halo row
+// keeps its even columns first and its odd ones after (slot (hc % 2)·(FT + 1)
+// + hc / 2): tap (dt, df) of output column fo reads halo column 2·fo + df,
+// which this order puts at slot (df % 2)·(FT + 1) + fo + df / 2, so the 8
+// rows of an ldmatrix are 8 consecutive slots (conflict-free at pitch
+// C_in + 8) and every tap is one constant offset from a position's base.
+// Warp (wm, wn) computes MT m16 tiles of positions × 32 output channels
+// (wn·32 … of the group), mma.sync.m16n8k16 bf16 → fp32; the weights stream
+// through a kDownStages-deep cp.async ring, kDownTaps taps × 32 input
+// channels × NB output channels a stage, read by ldmatrix.trans from
+// HWIO; the epilogue (bias, statistics, 16-byte stores) runs from the
+// registers, as conv3x3's.
+template <int MT, int WN>
+__global__ void __launch_bounds__(kThreads, 2) conv_down_mma_kernel(
     const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
     const float* __restrict__ bias, __nv_bfloat16* __restrict__ out,
-    float* __restrict__ stats, int t_in, int f_in, int c_in, int c_out) {
-  using namespace nvcuda;
+    float* __restrict__ stats, int t_in, int f_in, int c_in, int c_out,
+    int split) {
   using T = __nv_bfloat16;
-  __shared__ __align__(32) T xs[kHaloDM * kCkD];
-  // all 16 taps' weights of the chunk [tap][ci][32 co]; after the last chunk
-  // the same bytes hold the fp32 accumulator tile [128][32]
-  __shared__ __align__(32) T ws[16 * kCkD * kCoTile];
-  __shared__ float red[2 * kThreads];
-  static_assert(sizeof(ws) >= kTtD * kFtD * kCoTile * sizeof(float),
-                "accumulator tile must fit the weight buffer");
+  constexpr int kWarpsM = 8 / WN;
+  constexpr int kM = 16 * MT * kWarpsM;  // output positions per block
+  constexpr int kNB = 32 * WN;           // output channels per group
+  constexpr int kWP = kNB + 8;           // stage pitch (elements)
+  constexpr int kTap = kMmaK * kWP;      // one tap's 32 ci × NB in a stage
+  constexpr int kStage = kDownTaps * kTap;
+  constexpr int kChunks = 16 / kDownTaps;  // tap chunks (stages) a 32 ci
+  extern __shared__ __align__(16) unsigned char smem[];
 
   const int t_out = t_in / 2, f_out = f_in / 2;
-  const int b = blockIdx.y;
-  const int tiles_f = (f_out + kFtD - 1) / kFtD;
-  const int t0 = (blockIdx.x / tiles_f) * kTtD;
-  const int f0 = (blockIdx.x % tiles_f) * kFtD;
-  const int co0 = blockIdx.z * kCoTile;
+  const int ft = f_out >= 16 ? 16 : 8, tt = kM / ft;
+  const int hw = 2 * ft + 2, half = ft + 1, hn = (2 * tt + 2) * hw;
+  const int pitch = c_in + 8;
+  T* halo = reinterpret_cast<T*>(smem);  // [hn][pitch], parity-split rows
+  T* ring = halo + hn * pitch;           // [stages][taps][32 ci][kWP]
+  float* red = reinterpret_cast<float*>(ring + kDownStages * kStage);
+
+  const int b = blockIdx.y, z = blockIdx.z;
+  const int tiles_f = (f_out + ft - 1) / ft;
+  const int t0 = (blockIdx.x / tiles_f) * tt, f0 = (blockIdx.x % tiles_f) * ft;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int co = co0 + lane;
+  const int wm = warp % kWarpsM, wn = warp / kWarpsM;
+  const int gid = lane >> 2, tig = lane & 3;
   const size_t xb = (size_t)b * t_in * f_in * c_in;
+  const size_t ob = (size_t)b * t_out * f_out * c_out;
+  // step s: group z + (s / group_steps)·split, tap chunk (taps
+  // kDownTaps·chunk … of the 16, dt·4 + df), 32-channel chunk kc
+  const int kc_n = c_in / kMmaK, group_steps = kChunks * kc_n;
+  const int nsteps = (c_out / kNB - z + split - 1) / split * group_steps;
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
-  wmma::fill_fragment(acc[0], 0.f);
-  wmma::fill_fragment(acc[1], 0.f);
-
-  for (int c0 = 0; c0 < c_in; c0 += kCkD) {
-    for (int idx = threadIdx.x; idx < kHaloDM * kCkD / 8; idx += kThreads) {
-      const int q = idx % (kCkD / 8), hp = idx / (kCkD / 8);
-      const int t = 2 * t0 - 1 + hp / kHwD, f = 2 * f0 - 1 + hp % kHwD;
-      const bool inside = t >= 0 && t < t_in && f >= 0 && f < f_in;
-      copy8(xs + hp * kCkD + 8 * q,
-            x + xb + ((size_t)(inside ? t : 0) * f_in + (inside ? f : 0)) *
-                         c_in + c0 + 8 * q,
-            inside);
+  auto load_stage = [&](int s) {
+    const int rem = s % group_steps, chunk = rem / kc_n, kc = rem % kc_n;
+    const int g = z + (s / group_steps) * split;
+    T* dst = ring + (s % kDownStages) * kStage;
+    for (int i = threadIdx.x; i < kDownTaps * kMmaK * kNB / 8;
+         i += kThreads) {
+      const int q = i % (kNB / 8), r = (i / (kNB / 8)) % kMmaK;
+      const int j = i / (kMmaK * kNB / 8);  // tap of the chunk
+      const int tap = kDownTaps * chunk + j;  // dt·4 + df
+      cp_async16(dst + j * kTap + r * kWP + 8 * q,
+                 w + ((size_t)tap * c_in + kc * kMmaK + r) * c_out + g * kNB +
+                     8 * q);
     }
-    for (int idx = threadIdx.x; idx < 16 * kCkD * kCoTile / 8;
-         idx += kThreads) {
-      const int q = idx % (kCoTile / 8), r = idx / (kCoTile / 8);
-      const int ci = r % kCkD, tap = r / kCkD;
-      copy8(ws + r * kCoTile + 8 * q,
-            w + ((size_t)tap * c_in + c0 + ci) * c_out + co0 + 8 * q, true);
-    }
-    __syncthreads();
+  };
+  // the halo joins the first stage's copy group
+  const int cq = c_in / 8;
+  for (int i = threadIdx.x; i < hn * cq; i += kThreads) {
+    const int hp = i / cq, q = i % cq;
+    const int hr = hp / hw, hc = hp % hw;
+    const int t = 2 * t0 - 1 + hr, f = 2 * f0 - 1 + hc;
+    const bool inside = t >= 0 && t < t_in && f >= 0 && f < f_in;
+    const T* src = inside ? x + xb + ((size_t)t * f_in + f) * c_in + 8 * q : x;
+    cp_async16_zfill(
+        halo + (hr * hw + (hc & 1) * half + (hc >> 1)) * pitch + 8 * q, src,
+        inside);
+  }
+#pragma unroll
+  for (int s = 0; s < kDownStages - 1; ++s) {
+    if (s < nsteps) load_stage(s);
+    cp_async_commit();
+  }
 
+  uint32_t a_base[MT];  // lane's A row (output position), tap (0, 0)
 #pragma unroll
-    for (int tap = 0; tap < 16; ++tap) {
-      // output column m reads input column 2m + df: leading dimension 2·Ck
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> a;
-      wmma::load_matrix_sync(
-          a, xs + ((2 * warp + tap / 4) * kHwD + tap % 4) * kCkD, 2 * kCkD);
+  for (int mt = 0; mt < MT; ++mt) {
+    const int p = wm * 16 * MT + mt * 16 + (lane & 15);
+    a_base[mt] = smem_u32(halo + (2 * (p / ft) * hw + p % ft) * pitch +
+                          (lane >> 4) * 8);
+  }
+  const uint32_t b_base =
+      smem_u32(ring) + b_lane_offset(lane, kWP) + wn * 32 * 2;
+  float acc[MT][kNT][4];
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> bm;
-        wmma::load_matrix_sync(bm, ws + tap * kCkD * kCoTile + 16 * j,
-                               kCoTile);
-        wmma::mma_sync(acc[j], a, bm, acc[j]);
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[mt][nt][k] = 0.f;
+
+#pragma unroll 1
+  for (int s = 0; s < nsteps; ++s) {
+    cp_async_wait<kDownStages - 2>();
+    __syncthreads();  // stage s (and the halo) visible; slot s − 1 free
+    if (s + kDownStages - 1 < nsteps) load_stage(s + kDownStages - 1);
+    cp_async_commit();
+    const int rem = s % group_steps, chunk = rem / kc_n, kc = rem % kc_n;
+    const uint32_t b_stage = b_base + (s % kDownStages) * kStage * 2;
+#pragma unroll
+    for (int j = 0; j < kDownTaps; ++j) {
+      const int tap = kDownTaps * chunk + j, dt = tap >> 2, df = tap & 3;
+      const uint32_t a_off =
+          ((dt * hw + (df & 1) * half + (df >> 1)) * pitch + kc * kMmaK) * 2;
+#pragma unroll
+      for (int kk = 0; kk < kMmaK / 16; ++kk) {
+        uint32_t aa[MT];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) aa[mt] = a_base[mt] + a_off + kk * 32;
+        warp_mma_k16(acc, aa, b_stage + (j * kTap + kk * 16 * kWP) * 2, 32);
       }
     }
-    __syncthreads();
-  }
+    if (rem != group_steps - 1) continue;
 
-  float* accs = reinterpret_cast<float*>(ws);
-  wmma::store_matrix_sync(accs + warp * 16 * kCoTile, acc[0], kCoTile,
-                          wmma::mem_row_major);
-  wmma::store_matrix_sync(accs + warp * 16 * kCoTile + 16, acc[1], kCoTile,
-                          wmma::mem_row_major);
-  __syncthreads();
-
-  float s1 = 0.f, s2 = 0.f;
-  const int t = t0 + warp;
-  const size_t ob = (size_t)b * t_out * f_out * c_out;
-#pragma unroll 4
-  for (int i = 0; i < kFtD; ++i) {
-    const int f = f0 + i;
-    if (t < t_out && f < f_out) {
-      const float o = accs[(warp * 16 + i) * kCoTile + lane] + bias[co];
-      s1 += o;
-      s2 += o * o;
-      out[ob + ((size_t)t * f_out + f) * c_out + co] = from_f<T>(o);
+    // Epilogue of group g from the registers: bias, statistics, 16-byte
+    // bf16 stores.
+    const int g = z + (s / group_steps) * split;
+    const int co = g * kNB + wn * 32 + 8 * tig;
+    float bv[8], s1[8], s2[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      bv[k] = __ldg(bias + co + k);
+      s1[k] = s2[k] = 0.f;
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        Vec8 o = quad_gather(acc[mt], r, tig);
+        const int p = wm * 16 * MT + mt * 16 + gid + 8 * r;
+        const int t = t0 + p / ft, f = f0 + p % ft;
+        if (t < t_out && f < f_out) {
+#pragma unroll
+          for (int k = 0; k < 8; ++k) {
+            const float v = o.v[k] + bv[k];
+            s1[k] += v;
+            s2[k] += v * v;
+            o.v[k] = v;
+          }
+          store8(out + ob + ((size_t)t * f_out + f) * c_out + co, o);
+        }
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+          for (int k = 0; k < 2; ++k) acc[mt][nt][2 * r + k] = 0.f;
+      }
+    if (stats != nullptr) {
+      sum_over_gid(s1);
+      sum_over_gid(s2);
+      if (gid == 0) {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          red[(wm * 2) * kNB + wn * 32 + 8 * tig + k] = s1[k];
+          red[(wm * 2 + 1) * kNB + wn * 32 + 8 * tig + k] = s2[k];
+        }
+      }
+      finish_group_stats(
+          red, kWarpsM, kNB,
+          stats + ((size_t)b * gridDim.x + blockIdx.x) * 2 * c_out + g * kNB,
+          c_out);
     }
   }
-  if (stats != nullptr) {
-    float* dst = stats + ((size_t)b * gridDim.x + blockIdx.x) * 2 * c_out;
-    block_stats(s1, s2, red, dst, co, c_out);
+}
+
+template <int MT, int WN>
+cudaError_t launch_conv_down_mma(const TilePlan& p, const void* x,
+                                 const void* w, const float* bias, void* out,
+                                 float* stats, int batch, int t_in, int f_in,
+                                 int c_in, int c_out, cudaStream_t s) {
+  using T = __nv_bfloat16;
+  static bool raised = false;  // per instantiation; one card per process
+  if (!raised) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        conv_down_mma_kernel<MT, WN>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+    if (err != cudaSuccess) return err;
+    raised = true;
   }
+  conv_down_mma_kernel<MT, WN>
+      <<<dim3(p.tiles, batch, p.split), kThreads, p.smem, s>>>(
+          static_cast<const T*>(x), static_cast<const T*>(w), bias,
+          static_cast<T*>(out), stats, t_in, f_in, c_in, c_out, p.split);
+  return cudaGetLastError();
 }
 
 // Sub-pixel form of the up conv: output (2i + py, 2j + px) is a 2×2 conv of
@@ -548,30 +655,29 @@ __global__ void __launch_bounds__(kThreads, 2) conv_up_mma_kernel(
 
 extern "C" {
 
-// Spatial tiles per sample of the variant that ddim_conv_down picks for
-// these arguments (the partials' second dimension; ddim_conv_up's:
-// conv_plan.cu).
-int ddim_conv_down_tiles(int t_in, int f_in, int c_in, int c_out, int bf16) {
-  return ddim::down_tiles(t_in / 2, f_in / 2, c_in, c_out, bf16);
-}
-
-
 // x: [B, T, F, Cin]; w: [4, 4, Cin, Cout]; bias: [Cout] fp32; out:
 // [B, T/2, F/2, Cout]; stats: [B, ddim_conv_down_tiles(...), 2, Cout] fp32 or
-// null. Every pointer 16-byte aligned.
+// null (ddim_conv_down_tiles, _variant, _plan: conv_plan.cu). Every pointer
+// 16-byte aligned.
 int ddim_conv_down(const void* x, const void* w, const float* bias, void* out,
                    float* stats, int batch, int t_in, int f_in, int c_in,
                    int c_out, int bf16, void* stream) {
   using namespace ddim;
-  const dim3 grid(down_tiles(t_in / 2, f_in / 2, c_in, c_out, bf16), batch,
-                  (c_out + kCoTile - 1) / kCoTile);
+  const TilePlan p = conv_down_plan(t_in, f_in, c_in, c_out, bf16, batch);
+  const dim3 grid(p.tiles, batch, p.split);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (down_use_mma(f_in / 2, c_in, c_out, bf16)) {
-    using T = __nv_bfloat16;
-    conv_down_mma_kernel<<<grid, kThreads, 0, s>>>(
-        static_cast<const T*>(x), static_cast<const T*>(w), bias,
-        static_cast<T*>(out), stats, t_in, f_in, c_in, c_out);
-  } else if (bf16) {
+  if (p.variant == kVariantMma) {
+    // MT from the tile (16·MT·WM positions), WN from the group width
+    const int wn = c_out / p.groups / 32;
+    const int mt = p.tile_t * p.tile_f / (16 * (8 / wn));
+    const auto launch = wn == 2 ? (mt == 2 ? launch_conv_down_mma<2, 2>
+                                           : launch_conv_down_mma<1, 2>)
+                                : (mt == 2 ? launch_conv_down_mma<2, 1>
+                                           : launch_conv_down_mma<1, 1>);
+    return static_cast<int>(launch(p, x, w, bias, out, stats, batch, t_in,
+                                   f_in, c_in, c_out, s));
+  }
+  if (bf16) {
     using T = __nv_bfloat16;
     conv_down_kernel<T><<<grid, kThreads, 0, s>>>(
         static_cast<const T*>(x), static_cast<const T*>(w), bias,

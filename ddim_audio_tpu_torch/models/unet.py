@@ -41,7 +41,11 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.conv_flat import INT8_WIDTHS, quantize_conv_weights_int8
+from ..ops.conv_flat import (
+    INT8_WIDTHS,
+    int8_weights_co_ci,
+    quantize_conv_weights_int8,
+)
 from ..ops.conv_head_tail import conv_head_flat, conv_tail_flat
 from ..ops.conv_strided import (
     conv_down_flat,
@@ -230,8 +234,10 @@ def prepare_params(params, cfg: ModelConfig):
     conv weights (the 4-D leaves) cast to the compute dtype and, with
     ``cfg.tap_int8``, the resblock convs of the int8-tap stages, with
     ``cfg.strided_int8`` the int8 transitions, also quantised FROM THE FP32
-    WEIGHTS (``wq``, ``w_scale`` beside ``w``). The forwards then cast and
-    quantise nothing per call; ``apply_model`` ignores the extra entries."""
+    WEIGHTS (``wq``, ``w_scale`` beside ``w``; the resblock convs also
+    ``wq_t``, ``wq`` laid out [3, 3, C_out, C_in] as the int8-tap kernel
+    reads it). The forwards then cast, quantise and lay out nothing per
+    call; ``apply_model`` ignores the extra entries."""
     p = _cast_conv_weights(params, cfg.dtype)
     prev = None
     for c, src, dst in zip(cfg.ch, params["down_modules"]["stages"],
@@ -254,7 +260,8 @@ def prepare_params(params, cfg: ModelConfig):
             for bsrc, bdst in zip(src["blocks"], dst["blocks"]):
                 for name in ("conv1", "conv2"):
                     wq, w_scale = quantize_conv_weights_int8(bsrc[name]["w"])
-                    bdst[name].update(wq=wq, w_scale=w_scale)
+                    bdst[name].update(wq=wq, w_scale=w_scale,
+                                      wq_t=int8_weights_co_ci(wq))
     return p
 
 

@@ -37,12 +37,17 @@ _SIGNATURES = {
     # T, F, C, bf16, B, out[7] (ops/tile_plan.py)
     "ddim_conv3x3_plan": (_I,) * 5 + (_P,),
     "ddim_conv_down_tiles": (_I,) * 5,
+    "ddim_conv_down_variant": (_I,) * 5,
+    # T, F, Cin, Cout, bf16, B, out[7]
+    "ddim_conv_down_plan": (_I,) * 6 + (_P,),
     "ddim_conv_up_tiles": (_I,) * 5,
     "ddim_conv_up_variant": (_I,) * 5,
     # T, F, Cin, Cout, bf16, B, out[7]
     "ddim_conv_up_plan": (_I,) * 6 + (_P,),
     "ddim_conv3x3_int8_tiles": (_I,) * 2,
     "ddim_conv3x3_int8_geometry": (_I,),
+    # T, F, C, bf16, B, out[7]
+    "ddim_conv3x3_int8_plan": (_I,) * 5 + (_P,),
     "ddim_conv_head_tiles": (_I,) * 2,
     # mode, B, T, F, Cin, Cout, bf16
     "ddim_conv_dw_splits": (_I,) * 7,
@@ -51,7 +56,7 @@ _SIGNATURES = {
     # x, res, pre_scale, pre_shift, w, add, out, stats,
     # B, T, F, C, pre_silu, post_silu, bf16, stream
     "ddim_conv3x3": (_P,) * 8 + (_I,) * 7 + (_P,),
-    # x, res, pre_scale, pre_shift, wq, w_scale, add, out, stats,
+    # x, res, pre_scale, pre_shift, wq_t, w_scale, add, out, stats,
     # B, T, F, C, pre_silu, post_silu, bf16, stream
     "ddim_conv3x3_int8": (_P,) * 9 + (_I,) * 7 + (_P,),
     # x, w, bias, out, stats, B, T, F, Cin, C0, bf16, stream

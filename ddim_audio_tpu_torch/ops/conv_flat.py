@@ -59,7 +59,7 @@ from ._cuda import (
     twin_result,
     use_twin,
 )
-from .tile_plan import conv3x3_plan
+from .tile_plan import INT8_GROUP, conv3x3_int8_plan, conv3x3_plan
 
 
 def wide_dtype(x: torch.Tensor) -> torch.dtype:
@@ -243,9 +243,9 @@ def conv3x3_flat_plain(x, w, *, c: int, add=None, residual=None, pre=None,
 
 # ------------------------------------------------------------ int8 taps --
 
-# The quantisation group of the CUDA kernel (csrc/conv3x3_int8.cu): a block's
+# The quantisation group of the CUDA kernel (csrc/conv3x3_int8.cu): an
 # output tile (rows, columns) and the halo (rows, columns) staged around it.
-INT8_KERNEL_TILE = (8, 16)
+INT8_KERNEL_TILE = INT8_GROUP
 INT8_KERNEL_HALO = (1, 1)
 INT8_WIDTHS = (32, 64, 96)  # C of the kernel; also where int8 accumulates exactly
 
@@ -264,6 +264,13 @@ def quantize_conv_weights_int8(w):
     s_w = amax / torch.full_like(amax, 127.0)
     wq = torch.round(w32 / s_w).clamp_(-127.0, 127.0).to(torch.int8)
     return wq.contiguous(), s_w.contiguous()
+
+
+def int8_weights_co_ci(wq):
+    """The int8 conv weights [3, 3, C_in, C_out] (HWIO, as the twin takes
+    them) laid out [3, 3, C_out, C_in] for the CUDA kernel: the input
+    channels contiguous, as the B operand of its int8 MMAs wants them."""
+    return wq.permute(0, 1, 3, 2).contiguous()
 
 
 def quantize_tiles(v, q_tile, q_halo):
@@ -342,7 +349,8 @@ def _int8_lib():
 
 def conv3x3_flat_int8(x, wq, w_scale, *, c: int, add=None, residual=None,
                       pre=None, pre_silu: bool = False,
-                      post_silu: bool = False, want_stats: bool = False):
+                      post_silu: bool = False, want_stats: bool = False,
+                      wq_t=None):
     """``conv3x3_flat`` with int8 × int8 → int32 taps: the port of the
     ``mxu_i8`` branch of the TPU kernel. The prologue result is rounded to
     bf16 and requantised with one scale per quantisation group
@@ -352,7 +360,9 @@ def conv3x3_flat_int8(x, wq, w_scale, *, c: int, add=None, residual=None,
     w_scale[co])`` enters the float epilogue.
 
     x: [B, T, F·C] fp32 or bf16; wq, w_scale: ``quantize_conv_weights_int8``;
-    the other arguments as ``conv3x3_flat``. On a CUDA tensor this launches
+    wq_t: ``int8_weights_co_ci(wq)``, the layout the kernel reads (made here
+    when not given; ``models.unet.prepare_params`` makes it once); the other
+    arguments as ``conv3x3_flat``. On a CUDA tensor this launches
     ``csrc/conv3x3_int8.cu`` (C in 32, 64, 96; its group is
     INT8_KERNEL_TILE / INT8_KERNEL_HALO); on a CPU tensor the twin runs with
     the same group, or with the one set by ``ops.twin_route``."""
@@ -364,7 +374,8 @@ def conv3x3_flat_int8(x, wq, w_scale, *, c: int, add=None, residual=None,
         ref = conv3x3_flat_int8_plain(x, wq, w_scale, q_tile=q_tile,
                                       q_halo=q_halo, **kw)
         return twin_result("conv3x3_flat_int8", ref, x,
-                           lambda: conv3x3_flat_int8(x, wq, w_scale, **kw))
+                           lambda: conv3x3_flat_int8(x, wq, w_scale, wq_t=wq_t,
+                                                     **kw))
     if x.device.type != "cuda":
         raise ValueError(f"conv3x3_flat_int8: unsupported device {x.device}")
     b, t, fc = x.shape
@@ -376,6 +387,10 @@ def conv3x3_flat_int8(x, wq, w_scale, *, c: int, add=None, residual=None,
     dev = x.device
     check_operand(x, "x", device=dev)
     check_operand(wq, "wq", device=dev, dtype=torch.int8, shape=(3, 3, c, c))
+    if wq_t is None:
+        wq_t = int8_weights_co_ci(wq)
+    check_operand(wq_t, "wq_t", device=dev, dtype=torch.int8,
+                  shape=(3, 3, c, c))
     check_operand(w_scale, "w_scale", device=dev, dtype=torch.float32,
                   shape=(c,))
     check_operand(residual, "residual", device=dev, dtype=x.dtype,
@@ -392,11 +407,11 @@ def conv3x3_flat_int8(x, wq, w_scale, *, c: int, add=None, residual=None,
         lib = _int8_lib()
         stats = None
         if want_stats:
-            tiles = lib.ddim_conv3x3_int8_tiles(t, f)
+            tiles = conv3x3_int8_plan(t, f, c, bf16, b).tiles
             stats = torch.empty((b, tiles, 2, c), dtype=torch.float32,
                                 device=dev)
         err = lib.ddim_conv3x3_int8(
-            ptr(x), ptr(residual), ptr(pre_s), ptr(pre_h), ptr(wq),
+            ptr(x), ptr(residual), ptr(pre_s), ptr(pre_h), ptr(wq_t),
             ptr(w_scale), ptr(add_b), ptr(out), ptr(stats), b, t, f, c,
             int(pre_silu), int(post_silu), bf16, stream_ptr(x))
     check(err, "conv3x3_flat_int8")
@@ -509,8 +524,8 @@ def conv3x3_flat_store(x, w, *, c: int, add=None, residual=None, pre=None,
 
 def conv3x3_flat(x, w, *, c: int, add=None, residual=None, pre=None,
                  pre_silu: bool = False, post_silu: bool = False,
-                 want_stats: bool = False, w_scale=None, in_scales=None,
-                 res_scales=None, quant_out: bool = False):
+                 want_stats: bool = False, w_scale=None, wq_t=None,
+                 in_scales=None, res_scales=None, quant_out: bool = False):
     """Fused flat 3×3 conv (module docstring).
 
     x: [B, T, F·C] fp32 or bf16; w: [3, 3, C, C] HWIO in x's dtype;
@@ -518,8 +533,8 @@ def conv3x3_flat(x, w, *, c: int, add=None, residual=None, pre=None,
     (scale, shift), each [C] or [B, C] fp32; add: [C] or [B, C] fp32.
     Returns out [B, T, F·C], or (out, sum [B, C], sum² [B, C]) when
     want_stats. With w_scale (and w the int8 weights, both from
-    ``quantize_conv_weights_int8``) the taps run in int8:
-    ``conv3x3_flat_int8``. With int8 storage (an int8 x with in_scales, an
+    ``quantize_conv_weights_int8``; wq_t their kernel layout, optional) the
+    taps run in int8: ``conv3x3_flat_int8``. With int8 storage (an int8 x with in_scales, an
     int8 residual with res_scales, or quant_out): ``conv3x3_flat_store``."""
     if in_scales is not None or res_scales is not None or quant_out:
         if w_scale is not None:
@@ -532,7 +547,8 @@ def conv3x3_flat(x, w, *, c: int, add=None, residual=None, pre=None,
     if w_scale is not None:
         return conv3x3_flat_int8(
             x, w, w_scale, c=c, add=add, residual=residual, pre=pre,
-            pre_silu=pre_silu, post_silu=post_silu, want_stats=want_stats)
+            pre_silu=pre_silu, post_silu=post_silu, want_stats=want_stats,
+            wq_t=wq_t)
     if use_twin(x):
         kw = dict(c=c, add=add, residual=residual, pre=pre, pre_silu=pre_silu,
                   post_silu=post_silu, want_stats=want_stats)

@@ -23,8 +23,10 @@ On a CUDA tensor each wrapper launches its hand-written Hopper kernel
 (``csrc/conv_strided.cu``, ``csrc/conv_strided_int8.cu``); on a CPU tensor it
 runs its plain PyTorch twin (``*_plain``). No fallback from one to the
 other. bf16 transitions at the audio.yml widths run their taps on the
-tensor cores (down: WMMA; up: mma.sync in the sub-pixel form, all four
-output parity classes from one staged input tile, ``tile_plan.conv_up_plan``);
+tensor cores with mma.sync (down: one staged input halo a tile for all its
+output channels, ``tile_plan.conv_down_plan``; up: the sub-pixel form, all
+four output parity classes from one staged input tile,
+``tile_plan.conv_up_plan``);
 fp32 and the bf16 geometries those do not take run on CUDA cores (what
 bounds each: the note at the top of ``csrc/conv_strided.cu``). Statistics
 come from per-block partials finished by ``torch.sum`` (deterministic).
@@ -56,7 +58,7 @@ from .conv_flat import (
     untile,
     wide_dtype,
 )
-from .tile_plan import conv_up_plan
+from .tile_plan import conv_down_plan, conv_up_plan
 
 # The quantisation group of the int8 strided kernels
 # (csrc/conv_strided_int8.cu): a block's output tile (rows, columns) and the
@@ -309,7 +311,7 @@ def conv_down_flat(x, w, bias, *, c_in: int, c_out: int,
         lib = kernels()
         stats = None
         if want_stats:
-            tiles = lib.ddim_conv_down_tiles(t, f, c_in, c_out, bf16)
+            tiles = conv_down_plan(t, f, c_in, c_out, bf16, b).tiles
             stats = torch.empty((b, tiles, 2, c_out), dtype=torch.float32,
                                 device=dev)
         err = lib.ddim_conv_down(

@@ -80,6 +80,29 @@ def conv_taps(conv, dtype, int8: bool):
     return quantize_conv_weights_int8(conv["w"])
 
 
+def conv3x3_taps(conv, dtype, int8: bool):
+    """``conv_taps`` of a resblock conv as ``conv3x3_flat`` takes it: (w,
+    {"w_scale": …, "wq_t": …}), wq_t the int8 kernel's [3, 3, C_out, C_in]
+    copy of the int8 weights where ``prepare_params`` made one (else the
+    wrapper makes it per call)."""
+    w, w_scale = conv_taps(conv, dtype, int8)
+    wq_t = conv.get("wq_t") if w_scale is not None and "wq" in conv else None
+    return w, {"w_scale": w_scale, "wq_t": wq_t}
+
+
+def resblock_tail(x_flat, s, scale3, shift3, *, f: int, c: int):
+    """The float block's tail ``x + GN3(s)`` = ``x + s·scale3 + shift3``
+    (scale3, shift3 [B, C] fp32), in fp32 and in the JAX package's order:
+    ``s·scale3`` is added to x first (addcmul, which promotes x and s to
+    fp32 and fuses the product into the sum as XLA does), then shift3, in
+    place; three passes, rounded once to x's dtype."""
+    b, t, fc = x_flat.shape
+    out = torch.addcmul(x_flat.view(b, t, f, c), s.view(b, t, f, c),
+                        scale3[:, None, None, :])
+    out.add_(shift3[:, None, None, :])
+    return out.to(x_flat.dtype).view(b, t, fc)
+
+
 def resblock_flat(p, x_flat, temb, *, f: int, c: int, in_stats=None,
                   want_out_stats: bool = False, tap_int8: bool = False):
     """p: resblock params; x_flat [B, T, F·C] in the compute dtype; temb
@@ -93,20 +116,16 @@ def resblock_flat(p, x_flat, temb, *, f: int, c: int, in_stats=None,
     n = t * f * (c // GROUPS)
     if in_stats is None:
         in_stats = channel_sums(x_flat, c)
-    w1, ws1 = conv_taps(p["conv1"], dtype, tap_int8)
-    w2, ws2 = conv_taps(p["conv2"], dtype, tap_int8)
+    w1, kw1 = conv3x3_taps(p["conv1"], dtype, tap_int8)
+    w2, kw2 = conv3x3_taps(p["conv2"], dtype, tap_int8)
     h, h1, h2 = conv3x3_flat(
         x_flat, w1, c=c, pre=gn_affine_from_sums(*in_stats, n, p["norm1"], c),
-        pre_silu=True, add=temb, post_silu=True, want_stats=True, w_scale=ws1)
+        pre_silu=True, add=temb, post_silu=True, want_stats=True, **kw1)
     s, s1, s2 = conv3x3_flat(
         h, w2, c=c, pre=gn_affine_from_sums(h1, h2, n, p["norm2"], c),
-        add=p["conv2"]["b"], post_silu=True, want_stats=True, w_scale=ws2)
+        add=p["conv2"]["b"], post_silu=True, want_stats=True, **kw2)
     scale3, shift3 = gn_affine_from_sums(s1, s2, n, p["norm3"], c)
-    # x + GN3(s) in fp32 in three passes (add promotes x to fp32, addcmul_
-    # runs in place), rounded once to the storage dtype
-    out = torch.add(x_flat.view(b, t, f, c), shift3[:, None, None, :])
-    out.addcmul_(s.view(b, t, f, c), scale3[:, None, None, :])
-    out = out.to(dtype).view(b, t, fc)
+    out = resblock_tail(x_flat, s, scale3, shift3, f=f, c=c)
     if want_out_stats:
         return out, channel_sums(out, c)
     return out

@@ -1,13 +1,15 @@
-"""Tile plans of the conv3x3 and up-conv kernels, in Python.
+"""Tile plans of the conv3x3, up-conv, down-conv and int8-tap conv3x3
+kernels, in Python.
 
 A model of ``csrc/conv_plan.h``: which variant a call takes (0: CUDA cores,
-1: tensor cores), the block's spatial tile, the spatial tiles per sample
-(the second dimension of the statistics partials, which the wrappers size
-from here), the output-channel groups, how many blocks share a tile's groups
-(``split``, grid.z) and the dynamic shared memory. ``tests/
-test_torch_conv_redesign.py`` holds the model against the C functions
-(``ddim_conv3x3_plan``, ``ddim_conv_up_plan``) built by the host compiler;
-``chip_smoke.py`` against the kernel library on the card.
+1: tensor cores, -1: no kernel takes the shape), the block's spatial tile,
+the spatial tiles per sample (the second dimension of the statistics
+partials, which the wrappers size from here), the output-channel groups, how
+many blocks share a tile's groups (``split``, grid.z) and the dynamic shared
+memory. ``tests/test_torch_conv_redesign.py`` holds the model against the C
+functions (``ddim_conv3x3_plan``, ``ddim_conv_up_plan``,
+``ddim_conv_down_plan``, ``ddim_conv3x3_int8_plan``) built by the host
+compiler; ``chip_smoke.py`` against the kernel library on the card.
 """
 
 from __future__ import annotations
@@ -15,12 +17,15 @@ from __future__ import annotations
 import ctypes
 from typing import NamedTuple
 
-VARIANT_FMA, VARIANT_MMA = 0, 1
+VARIANT_NONE, VARIANT_FMA, VARIANT_MMA = -1, 0, 1
 MMA_K = 32               # input channels per weight stage
 CONV_STAGES = 3          # conv3x3 weight ring: stages of a tap row each
 UP_STAGES = 3            # up weight ring: stages of one tap per class
+DOWN_STAGES = 3          # down weight ring: stages of DOWN_TAPS taps
+DOWN_TAPS = 4            # (a tap row)
 MMA_RED = 2048           # bytes of the statistics scratch
 SMEM_LIMIT = 232_448     # dynamic shared memory a block may ask for
+INT8_GROUP = (8, 16)     # int8 taps: a quantisation group's output tile
 FILL_BLOCKS = 2 * 132    # two blocks on each SM of an H100
 FMA_POS = 64             # positions per block of the CUDA-core kernels
 
@@ -96,9 +101,56 @@ def conv_up_plan(t_in: int, f_in: int, c_in: int, c_out: int, bf16: bool,
     return _fma_plan(2 * t_in, 2 * f_in, c_out)
 
 
+def _down_smem(tt: int, ft: int, c_in: int, nb: int) -> int:
+    return 2 * ((2 * tt + 2) * (2 * ft + 2) * (c_in + 8)
+                + DOWN_STAGES * DOWN_TAPS * MMA_K * (nb + 8)) + MMA_RED
+
+
+def conv_down_plan(t_in: int, f_in: int, c_in: int, c_out: int, bf16: bool,
+                   batch: int = 1) -> TilePlan:
+    """The plan of ``ddim_conv_down`` for an input [batch, t_in, f_in, c_in]
+    (tile in output positions): 128 or 256 positions a block where their
+    halo fits, else half as many."""
+    t_out, f_out = t_in // 2, f_in // 2
+    if bf16 and c_in % MMA_K == 0 and c_out % 32 == 0:
+        nb = 64 if c_out % 64 == 0 else 32  # 32 output channels a warp
+        ft = 16 if f_out >= 16 else 8
+        tt = 16 * 2 * (8 // (nb // 32)) // ft
+        smem = _down_smem(tt, ft, c_in, nb)
+        if smem > SMEM_LIMIT:
+            tt //= 2
+            smem = _down_smem(tt, ft, c_in, nb)
+        if smem <= SMEM_LIMIT:
+            tiles = _cdiv(t_out, tt) * _cdiv(f_out, ft)
+            groups = c_out // nb
+            return TilePlan(VARIANT_MMA, tt, ft, tiles, groups,
+                            fill_split(tiles, batch, groups), smem)
+    return _fma_plan(t_out, f_out, c_out)
+
+
+def conv3x3_int8_plan(t: int, f: int, c: int, bf16: bool,
+                      batch: int = 1) -> TilePlan:
+    """The plan of ``ddim_conv3x3_int8`` at [batch, t, f, c]: one
+    quantisation group (an 8 × 16 output tile) a tile, all C output channels
+    in one group; the grid is persistent (as many blocks as stay resident),
+    so ``split`` is 1 and the batch does not enter."""
+    del batch, bf16  # fp32: raw x; bf16: raw x and residual, as many bytes
+    q_t, q_f = INT8_GROUP
+    tiles = _cdiv(t, q_t) * _cdiv(f, q_f)
+    if c not in (32, 64, 96):
+        return TilePlan(VARIANT_NONE, q_t, q_f, tiles, 1, 1, 0)
+    pitch = c + 16
+    wm = (384 if c == 96 else 256) // 32 // (c // 32)  # warps over positions
+    halo = (q_t + 2) * (q_f + 2)
+    smem = (9 * c * pitch + halo * pitch + halo * c * 4 + 4 * wm * 2 * c
+            + 4 * 16)
+    return TilePlan(VARIANT_MMA, q_t, q_f, tiles, 1, 1, smem)
+
+
 def library_plan(fn, *args) -> TilePlan:
-    """A plan as the C query ``fn`` (``ddim_conv3x3_plan`` or
-    ``ddim_conv_up_plan`` of a loaded library) reports it."""
+    """A plan as the C query ``fn`` (``ddim_conv3x3_plan``,
+    ``ddim_conv_up_plan``, ``ddim_conv_down_plan`` or
+    ``ddim_conv3x3_int8_plan`` of a loaded library) reports it."""
     out = (ctypes.c_int * len(TilePlan._fields))()
     fn(*args, ctypes.cast(out, ctypes.c_void_p))
     return TilePlan(*out)

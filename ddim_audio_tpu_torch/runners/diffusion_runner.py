@@ -73,6 +73,21 @@ def _device_prefetch(host_iter, device):
         yield nxt
 
 
+def check_single_device(config) -> None:
+    """Raise ValueError where ``config.parallel`` asks for more than one
+    device (dp·sp > 1): the port runs on one device and has no data or
+    sequence parallelism yet, and a run that silently took one device in
+    place of the mesh the JAX package builds would be a different run."""
+    par = getattr(config, "parallel", None)
+    dp = int(getattr(par, "dp", 1) or 1)
+    sp = int(getattr(par, "sp", 1) or 1)
+    if dp * sp > 1:
+        raise ValueError(
+            f"config.parallel asks for dp={dp}, sp={sp} ({dp * sp} devices): "
+            "the PyTorch port runs on one device until parallelism is ported "
+            "(ROADMAP.md A3); set parallel.dp and parallel.sp to 1")
+
+
 class Diffusion:
     """args: namespace with seed, timesteps, skip_type, eta, sample_type,
     sequence, image_folder and log_path (the JAX CLI's names); config: the
@@ -80,6 +95,7 @@ class Diffusion:
     CPU."""
 
     def __init__(self, args, config, device="cuda"):
+        check_single_device(config)
         self.args = args
         self.config = config
         self.device = resolve_device(device)

@@ -1,0 +1,117 @@
+"""Time the bf16 down conv and the int8-tap conv3x3 of a checkout, on the card,
+at the audio.yml shapes, B = 1 and 2, against one cuDNN call of the bare
+conv; for comparing two checkouts of this package in one machine, in turns.
+
+    python3 -m ddim_audio_tpu_torch.tools.kernel_pair LABEL
+    (cd <other checkout> && python3 <this checkout>/ddim_audio_tpu_torch/tools/kernel_pair.py LABEL)
+
+The package is imported from the current directory, so the same file times
+whichever checkout it is run in (one that predates the ``wq_t`` argument of
+``conv3x3_flat_int8`` gets the HWIO weights alone). The calls are the
+wrappers' own, with the operands of chip_smoke.py's ``[kernels]`` phase:
+down with statistics, the int8 taps with every fusion on, with and without
+the fused residual. Times are CUDA-event means over 20 calls after 3 warm-up
+calls. Prints one line per shape, then the sums, then the card's name and
+power limit.
+"""
+
+from __future__ import annotations
+
+import inspect
+import os
+import subprocess
+import sys
+
+DOWNS = [(8192, 256, 32, 64), (4096, 128, 64, 96), (2048, 64, 96, 128),
+         (1024, 32, 128, 192), (512, 16, 192, 256)]
+INT8_STAGES = [(8192, 256, 32), (4096, 128, 64), (2048, 64, 96)]
+
+
+def cuda_ms(torch, fn, n: int = 20, warmup: int = 3) -> float:
+    for _ in range(warmup):
+        fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    label = argv[0] if argv else "this"
+    sys.path.insert(0, os.getcwd())
+    import torch
+    import torch.nn.functional as F
+
+    if not torch.cuda.is_available():
+        print("kernel_pair: needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    from ddim_audio_tpu_torch.ops import conv_flat, conv_strided
+
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def rnd(*s, scale=1.0):
+        return torch.randn(*s, generator=g, device="cuda") * scale
+
+    takes_t = "wq_t" in inspect.signature(
+        conv_flat.conv3x3_flat_int8).parameters
+    sums: dict = {}
+
+    def add(key, v):
+        sums[key] = sums.get(key, 0.0) + v
+
+    for bsz in (1, 2):
+        for t, f, ci, co in DOWNS:
+            x = rnd(bsz, t, f * ci).bfloat16()
+            w = rnd(4, 4, ci, co, scale=(16 * ci) ** -0.5).bfloat16()
+            b = rnd(co)
+            k = cuda_ms(torch, lambda: conv_strided.conv_down_flat(
+                x, w, b, c_in=ci, c_out=co, want_stats=True))
+            wl = w.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            xn = x.view(bsz, t, f, ci).permute(0, 3, 1, 2)
+            lib = cuda_ms(torch, lambda: F.conv2d(xn, wl, stride=2, padding=1))
+            add(("down", bsz), k)
+            add(("down cudnn", bsz), lib)
+            print(f"{label} down B{bsz} {ci}->{co} kernel {k:.4f} cudnn "
+                  f"{lib:.4f} ratio {k / lib:.2f}", flush=True)
+        for t, f, c in INT8_STAGES:
+            x, res = rnd(bsz, t, f * c).bfloat16(), rnd(bsz, t, f * c).bfloat16()
+            w = rnd(3, 3, c, c, scale=(9 * c) ** -0.5)
+            wq, s_w = conv_flat.quantize_conv_weights_int8(w)
+            extra = ({"wq_t": conv_flat.int8_weights_co_ci(wq)} if takes_t
+                     else {})
+            kw = dict(c=c, pre=(1 + 0.1 * rnd(bsz, c), 0.1 * rnd(bsz, c)),
+                      add=rnd(bsz, c), pre_silu=True, post_silu=True,
+                      want_stats=True, **extra)
+            k_res = cuda_ms(torch, lambda: conv_flat.conv3x3_flat_int8(
+                x, wq, s_w, residual=res, **kw))
+            k = cuda_ms(torch, lambda: conv_flat.conv3x3_flat_int8(
+                x, wq, s_w, **kw))
+            wl = w.bfloat16().permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            xn = x.view(bsz, t, f, c).permute(0, 3, 1, 2)
+            lib = cuda_ms(torch, lambda: F.conv2d(xn, wl, padding=1))
+            add(("int8 residual", bsz), k_res)
+            add(("int8", bsz), k)
+            add(("int8 cudnn", bsz), lib)
+            print(f"{label} int8 B{bsz} C{c} kernel(residual) {k_res:.4f} "
+                  f"kernel {k:.4f} cudnn {lib:.4f} ratio(residual) "
+                  f"{k_res / lib:.2f}", flush=True)
+    for (name, bsz), v in sorted(sums.items()):
+        print(f"{label} sum {name} B{bsz} {v:.4f}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    print(label, smi.stdout.strip())
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

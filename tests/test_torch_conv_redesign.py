@@ -1,12 +1,14 @@
-"""Index math of the bf16 tensor-core conv3x3 and up-conv kernels, on the CPU.
+"""Index math of the bf16 tensor-core conv3x3 and up-conv kernels, on the CPU
+(the down conv and the int8-tap conv3x3: tests/test_torch_down_int8_redesign.py).
 
 The CUDA kernels (``csrc/conv3x3.cu`` ``conv3x3_mma_kernel``,
 ``csrc/conv_strided.cu`` ``conv_up_mma_kernel``) run only on the card. What
 surrounds their arithmetic is checked here:
 
-- the tile plans: the Python model (``ops/tile_plan.py``, which the wrappers
-  use to size the statistics partials) against the C functions of
-  ``csrc/conv_plan.cu``, built by the host compiler;
+- the tile plans of the four redesigned kernels: the Python model
+  (``ops/tile_plan.py``, which the wrappers use to size the statistics
+  partials) against the C functions of ``csrc/conv_plan.cu``, built by the
+  host compiler;
 - numpy models of the two kernels' blocks, walking the grid of the plan as
   the kernels do (halo offsets, tap choice, parity classes, output-channel
   groups over grid.z, ragged edges, per-tile statistics partials), against
@@ -35,8 +37,11 @@ from ddim_audio_tpu_torch.ops.conv_strided import conv_up_flat_plain
 from ddim_audio_tpu_torch.ops.tile_plan import (
     VARIANT_FMA,
     VARIANT_MMA,
+    VARIANT_NONE,
     TilePlan,
+    conv3x3_int8_plan,
     conv3x3_plan,
+    conv_down_plan,
     conv_up_plan,
     library_plan,
 )
@@ -49,6 +54,10 @@ STAGES = [(8192, 256, 32), (4096, 128, 64), (2048, 64, 96), (1024, 32, 128),
           (512, 16, 192), (256, 8, 256)]
 UPS = [(4096, 128, 64, 32), (2048, 64, 96, 64), (1024, 32, 128, 96),
        (512, 16, 192, 128), (256, 8, 256, 192)]
+# down transitions (T_in, F_in, C_in, C_out) and the int8-tap stages (T, F, C)
+DOWNS = [(8192, 256, 32, 64), (4096, 128, 64, 96), (2048, 64, 96, 128),
+         (1024, 32, 128, 192), (512, 16, 192, 256)]
+INT8_STAGES = STAGES[:3]
 
 
 @pytest.fixture(scope="module")
@@ -61,7 +70,8 @@ def plan_lib(tmp_path_factory):
                     "-o", str(lib_path), str(CSRC / "conv_plan.cu")],
                    check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(lib_path))
-    for name, n in (("ddim_conv3x3_plan", 5), ("ddim_conv_up_plan", 6)):
+    for name, n in (("ddim_conv3x3_plan", 5), ("ddim_conv_up_plan", 6),
+                    ("ddim_conv_down_plan", 6), ("ddim_conv3x3_int8_plan", 5)):
         getattr(lib, name).argtypes = [ctypes.c_int] * n + [ctypes.c_void_p]
     return lib
 
@@ -95,7 +105,42 @@ def test_tile_plans_match_the_c_plans(plan_lib):
                     want.tiles
                 assert plan_lib.ddim_conv_up_variant(t, f, ci, co, bf16) == \
                     want.variant
+    downs = [(t, f, ci, co) for t in (2, 6, 18, 34) for f in (2, 16, 18, 34)
+             for ci, co in ((32, 64), (64, 96), (96, 128), (128, 192),
+                            (192, 256), (32, 96), (48, 64), (64, 48),
+                            (512, 512))] + DOWNS
+    for t, f, ci, co in downs:
+        for bf16 in (0, 1):
+            for b in (1, 2, 3):
+                want = library_plan(plan_lib.ddim_conv_down_plan, t, f, ci, co,
+                                    bf16, b)
+                assert conv_down_plan(t, f, ci, co, bool(bf16), b) == want
+                assert plan_lib.ddim_conv_down_tiles(t, f, ci, co, bf16) == \
+                    want.tiles
+                assert plan_lib.ddim_conv_down_variant(t, f, ci, co, bf16) == \
+                    want.variant
+    i8 = [(t, f, c) for t in (1, 8, 9, 33) for f in (1, 16, 17, 40)
+          for c in (16, 32, 64, 96, 128)] + INT8_STAGES
+    for t, f, c in i8:
+        for bf16 in (0, 1):
+            for b in (1, 2):
+                want = library_plan(plan_lib.ddim_conv3x3_int8_plan, t, f, c,
+                                    bf16, b)
+                assert conv3x3_int8_plan(t, f, c, bool(bf16), b) == want
+                assert want.variant == (VARIANT_MMA if c in (32, 64, 96)
+                                        else VARIANT_NONE)
     for b in (1, 2):
+        # the tensor-core down conv at every transition, f_out = 8 included;
+        # the int8 kernel's group is the 8 × 16 tile at every int8 stage
+        assert all(conv_down_plan(*s, True, b).variant == VARIANT_MMA
+                   for s in DOWNS)
+        assert all(conv_down_plan(*s, False, b).variant == VARIANT_FMA
+                   for s in DOWNS)
+        assert all(conv3x3_int8_plan(*s, bf16, b)[:3] == (VARIANT_MMA, 8, 16)
+                   for s in INT8_STAGES for bf16 in (True, False))
+        # the narrow grids share their groups over grid.z, 32→64 does not
+        assert [conv_down_plan(*s, True, b).split for s in DOWNS] == \
+            [1, 1, 3 - b, 3, 4]
         assert all(conv3x3_plan(*s, True, b).variant == VARIANT_MMA
                    for s in STAGES)
         assert all(conv_up_plan(*s, True, b).variant == VARIANT_MMA

@@ -395,3 +395,85 @@ def test_redesigned_kernels_match_twins_on_gpu(cuda, dtype, tol, B, case):
         assert torch.equal(a, b)
         err = (a.float() - c.float()).abs().max() / c.float().abs().max()
         assert err <= (tol if a.ndim == 3 else 1e-3), (case, float(err))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("case", ["down 192->256 f_out 8", "down ragged 32->64",
+                                  "down ragged 64->96", "down ragged 128->96",
+                                  "int8 C32 ragged",
+                                  "int8 C64 residual", "int8 C96 ragged"])
+def test_down_and_int8_redesign_match_twins_on_gpu(cuda, dtype, B, case):
+    """The redesigned down conv (tensor cores in bf16 at every transition,
+    f_out = 8 included; CUDA cores in fp32) and int8-tap conv3x3 (persistent
+    blocks, the [3, 3, C_out, C_in] weights) at ragged T and F: the plan the
+    library reports equals the Python model, the same call twice gives the
+    same bits, and each agrees with its twin (down: relative error as
+    above; int8 taps: 78 dB and statistics within 1e-4, chip_smoke.py's
+    floors, against the twin with the kernel's own group)."""
+    from ddim_audio_tpu_torch.ops import tile_plan
+    from ddim_audio_tpu_torch.ops._cuda import kernels
+    from ddim_audio_tpu_torch.ops.conv_flat import (
+        conv3x3_flat_int8, conv3x3_flat_int8_plain, int8_weights_co_ci,
+        quantize_conv_weights_int8)
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+
+    def rnd(*s):
+        return torch.randn(*s, generator=g, device=cuda)
+
+    bf16 = int(dtype == torch.bfloat16)
+    lib = kernels()
+    if case.startswith("down"):
+        shape = {"down 192->256 f_out 8": (18, 16, 192, 256),
+                 "down ragged 32->64": (22, 42, 32, 64),
+                 "down ragged 64->96": (14, 26, 64, 96),
+                 "down ragged 128->96": (18, 34, 128, 96)}[case]
+        T, F, C_in, C_out = shape
+        want = tile_plan.VARIANT_MMA if bf16 else tile_plan.VARIANT_FMA
+        assert lib.ddim_conv_down_variant(*shape, bf16) == want
+        assert tile_plan.library_plan(lib.ddim_conv_down_plan, *shape, bf16,
+                                      B) == tile_plan.conv_down_plan(
+                                          *shape, bool(bf16), B)
+        args = (rnd(B, T, F * C_in).to(dtype),
+                (rnd(4, 4, C_in, C_out) / (4 * C_in ** 0.5)).to(dtype),
+                rnd(C_out))
+        kw = dict(c_in=C_in, c_out=C_out, want_stats=True)
+        kern, twin = conv_down_flat, conv_down_flat_plain
+    else:
+        C = int(case.split()[1][1:])
+        T, F = (21, 37) if "ragged" in case else (16, 32)
+        assert tuple(lib.ddim_conv3x3_int8_geometry(i) for i in range(4)) == \
+            (8, 16, 1, 1)
+        assert tile_plan.library_plan(lib.ddim_conv3x3_int8_plan, T, F, C,
+                                      bf16, B) == tile_plan.conv3x3_int8_plan(
+                                          T, F, C, bool(bf16), B)
+        wq, s_w = quantize_conv_weights_int8(rnd(3, 3, C, C) / (3 * C ** 0.5))
+        args = (rnd(B, T, F * C).to(dtype), wq, s_w)
+        kw = dict(c=C, pre=(1 + 0.1 * rnd(B, C), 0.1 * rnd(B, C)),
+                  pre_silu=True, add=rnd(B, C), post_silu=True,
+                  want_stats=True)
+        if "residual" in case:
+            kw["residual"] = rnd(B, T, F * C).to(dtype)
+        kern, twin = conv3x3_flat_int8, conv3x3_flat_int8_plain
+    before = kern.launches
+    if kern is conv3x3_flat_int8:
+        wq_t = int8_weights_co_ci(args[1])
+        got, again = kern(*args, **kw), kern(*args, wq_t=wq_t, **kw)
+    else:
+        got, again = kern(*args, **kw), kern(*args, **kw)
+    assert kern.launches == before + 2
+    ref = twin(*args, **kw)
+    for i, (a, b, c) in enumerate(zip(got, again, ref)):
+        assert torch.equal(a, b)
+        err = (a.float() - c.float()).abs().max() / c.float().abs().max()
+        if kern is conv_down_flat:
+            tol = 1e-3 if i else (2e-2 if bf16 else 1e-4)
+            assert err <= tol, (case, i, float(err))
+        elif i == 0:
+            d = (a.double() - c.double()).pow(2).mean()
+            snr = 10 * torch.log10(c.double().pow(2).mean() / d.clamp_min(1e-300))
+            assert snr >= 78.0, (case, float(snr))
+        else:
+            assert err <= 1e-4, (case, i, float(err))
