@@ -39,10 +39,13 @@ phase on its own lines:
    (down 32->64, up 64->32, up 256->192) against their twins with the
    kernels' own groups, fp32 and bf16, B = 1 and 2: the share of int8
    outputs that differ (never by more than 1), scales, float outputs and
-   statistics relative, the same call twice bit-equal, and for bf16 the
-   kernel's, the twin's, the bound's and the one PyTorch call's time
+   statistics relative, the same call twice bit-equal, the storage conv's
+   tile plan (the library's equal to the Python model, the tensor-core
+   variant in bf16 at every storage shape and the CUDA-core one in fp32,
+   tiles of whole 8 x 16 storage groups), and for bf16 the kernel's, the
+   twin's, the bound's and the one PyTorch call's time with kernel / cuDNN
    (``residual_affine_flat`` has none: no single call dequantises, adds and
-   requantises per group);
+   requantises per group), then each kernel's B = 2 sum;
 4. full-width forward of the audio.yml model (47,155,266 params, seed-made
    weights with non-zero final GroupNorm weights) at [1, 2, 8192, 256]: the
    production forward (bf16, int8 taps, as audio.yml ships it) and the
@@ -84,6 +87,10 @@ phase on its own lines:
    [2, 1024, 256]), fp32 and bf16: agreement, the same kernel twice bit for
    bit, the kernel's and the plain version's time, the bound, and the one
    PyTorch call (``torch.nn.grad.conv2d_weight``; fp32 with TF32 off);
+   then the float-tap conv3x3, down and up kernels in fp32 at the same
+   shapes (``[train-kernels]``: their CUDA-core variants, which training
+   runs): agreement with the twin, the kernel's, twin's and bound's time and
+   one ``F.conv2d`` / ``F.conv_transpose2d`` call's (fp32, TF32 off);
 8. grad: one microbatch forward + backward of the full audio.yml model
    (fp32, remat) on the non-zero-GN3 weights: the kernel route, the same
    through the plain twins with every wrapper call shadowed by its kernel,
@@ -143,9 +150,9 @@ TOL_INT8_STATS = 1e-4
 # arithmetic operation for operation (an H100 read them bit-equal at every
 # shape); the storage conv sums its taps in another order, so an output on a
 # rounding boundary may land on the next integer: at least this share of
-# int8 outputs equal (an H100 read 0.999945 at the worst shape), none more
+# int8 outputs equal (an H100 read 0.999942 at the worst shape), none more
 # than 1 apart, scales (a group's max|out| / 127) within 1e-4 relative (an
-# H100 read 1.5e-5 at C = 128, where each output sums 1,152 products).
+# H100 read 1.25e-5 at C = 128, where each output sums 1,152 products).
 INT8_EQUAL_SHARE = 0.999
 TOL_INT8_SCALES = 1e-4
 SNR_FWD_FP32_DB = 90.0
@@ -199,7 +206,7 @@ SNR_FWD_I8_GN3_DB = 28.8
 SNR_FWD_I8_INIT_DB = 41.8
 SNR_FWD_I8_TWIN_DB = 30.2
 SNR_I8_CLI_TWIN_DB = 32.4
-# Every call of that forward vs its twin: the storage conv read 77.2 dB at
+# Every call of that forward vs its twin: the storage conv read 76.9 dB at
 # its worst call; the three kernels that repeat their twin's arithmetic read
 # identical bits in every call (snr_db gives ~3000 dB for equal tensors), so
 # their floor asks for the last bit.
@@ -241,6 +248,8 @@ HEAD_TAIL = [(8192, 256, True), (40, 24, False)]  # (T, F, production shape)
 # Training geometry: stage shapes (T, F, C) of one microbatch [1, 2, 1024, 256]
 TRAIN_STAGES = [(1024, 256, 32), (512, 128, 64), (256, 64, 96), (128, 32, 128),
                 (64, 16, 192), (32, 8, 256)]
+TRAIN_DOWNS = [(t, f, c, c2) for (t, f, c), (_, _, c2)
+               in zip(TRAIN_STAGES, TRAIN_STAGES[1:])]
 # launches of one training microbatch (forward, remat recompute, backward):
 # 64 resblock convs + padded head + tail forward, 64 recomputed, dx for all
 # but the head (its input is data); dx of a down conv is the up kernel and
@@ -458,8 +467,11 @@ def _oihw(w):
     return w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
 
 
-def _kernel_cases(torch, bsz):
-    """One dict per case at batch bsz with every fusion of the main path on:
+def _kernel_cases(torch, bsz, stages=STAGES, downs=DOWNS,
+                  head_tail=HEAD_TAIL):
+    """One dict per case at batch bsz with every fusion of the main path on
+    (at the sampling shapes unless ``stages``, ``downs`` and ``head_tail``
+    say otherwise):
     name, label, prod (a production shape: timed and summed), kernel, twin,
     make(dtype) -> (args, kwargs), lib(args, kwargs) -> the one-PyTorch-call
     conv on the same operands, io(args, kwargs, outs) -> the tensors the
@@ -487,7 +499,7 @@ def _kernel_cases(torch, bsz):
                 kw.get("add"), *outs]
 
     cases = []
-    for t, f, c in STAGES:
+    for t, f, c in stages:
         x, w, res = rnd(bsz, t, f * c), rnd(3, 3, c, c, scale=(9 * c) ** -0.5), \
             rnd(bsz, t, f * c)
         pre, add = (1 + 0.1 * rnd(bsz, c), 0.1 * rnd(bsz, c)), rnd(bsz, c)
@@ -522,7 +534,7 @@ def _kernel_cases(torch, bsz):
                           prod=True, kernel=conv3x3_flat_int8, twin=twin8,
                           make=make8, lib=lib, io=io_conv, ops=ops, int8=True,
                           plan=("conv3x3_int8", (t, f, c))))
-    for t, f, ci, co in DOWNS:
+    for t, f, ci, co in downs:
         x, w, b = (rnd(bsz, t, f * ci), rnd(4, 4, ci, co, scale=(16 * ci) ** -0.5),
                    rnd(co))
 
@@ -538,7 +550,7 @@ def _kernel_cases(torch, bsz):
                           twin=conv_down_flat_plain, make=make, lib=lib,
                           io=io_conv, ops=2.0 * 16 * ci * co * (t // 2) * (f // 2) * bsz,
                           int8=False, plan=("conv_down", (t, f, ci, co))))
-    for t, f, co, ci in DOWNS:  # up runs each transition in reverse
+    for t, f, co, ci in downs:  # up runs each transition in reverse
         x, w, b, res = (rnd(bsz, t // 2, (f // 2) * ci),
                         rnd(4, 4, ci, co, scale=(4 * ci) ** -0.5), rnd(co),
                         rnd(bsz, t, f * co))
@@ -558,7 +570,7 @@ def _kernel_cases(torch, bsz):
                           make=make, lib=lib, io=io_conv,
                           ops=2.0 * 4 * ci * co * t * f * bsz, int8=False,
                           plan=("conv_up", (t // 2, f // 2, ci, co))))
-    for t, f, prod in HEAD_TAIL:
+    for t, f, prod in head_tail:
         cin, c0 = 2, 32
         x, wh, bh = rnd(bsz, t, f * cin), rnd(3, 3, cin, c0, scale=0.2), rnd(c0)
         h, res = rnd(bsz, t, f * c0), rnd(bsz, t, f * c0)
@@ -751,6 +763,8 @@ def _int8_cases(torch, bsz):
              ("out", "stats", "stats"), False),
         ]
         for label, xin, extra, layout, timed in modes:
+            scaled = int(xin is not None) + int("res_scales" in extra)
+
             def make(dt, x=x, xin=xin, w=w, fused=fused, extra=extra):
                 return ((x.to(dt) if xin is None else xin, w.to(dt)),
                         dict(fused, **extra))
@@ -762,7 +776,8 @@ def _int8_cases(torch, bsz):
                 name="conv3x3_flat_store", label=f"T{t} F{f} C{c} {label}",
                 kernel=conv3x3_flat_store, twin=conv3x3_flat_plain, make=make,
                 layout=layout, io=io_of, lib=lib, kind="bf16", timed=timed,
-                ops=2.0 * 9 * c * c * t * f * bsz))
+                ops=2.0 * 9 * c * c * t * f * bsz,
+                store_plan=(t, f, c, scaled)))
         s8, ssc = quantize_store(rnd(bsz, t, f, c))
         aff = (1 + 0.1 * rnd(bsz, c), 0.1 * rnd(bsz, c))
         for xk in ("int8", "float"):
@@ -834,6 +849,31 @@ def _compare(layout, outs, refs):
     return eq, mx, frel, srel, strel
 
 
+def check_store_plan(case, bsz, bf16) -> str:
+    """The storage conv: the library's tile plan equals the Python model
+    the wrapper sizes its partials from, the variant is the tensor-core
+    kernel in bf16 (the CUDA-core one in fp32), every tile is a whole number
+    of storage groups and the storage group is 8 × 16
+    (``ddim_store_geometry``). Returns the plan's note for the line."""
+    from ddim_audio_tpu_torch.ops import _cuda, tile_plan
+
+    t, f, c, scaled = case["store_plan"]
+    lib = _cuda.kernels()
+    model = tile_plan.conv3x3_store_plan(t, f, c, bool(bf16), bsz, scaled)
+    got = tile_plan.library_plan(lib.ddim_conv3x3_store_plan, t, f, c, bf16,
+                                 bsz, scaled)
+    tag = f"{case['name']} B{bsz} {case['label']} bf16={bf16}"
+    require(got == model, f"{tag}: library plan {got} != Python model {model}")
+    group = tuple(lib.ddim_store_geometry(i) for i in range(2))
+    require(group == (8, 16), f"{tag}: storage group {group}")
+    want = tile_plan.VARIANT_MMA if bf16 else tile_plan.VARIANT_FMA
+    require(got.variant == want, f"{tag}: variant {got.variant}, want {want}")
+    require(got.tile_t % 8 == 0 and got.tile_f == 16,
+            f"{tag}: tile {got.tile_t}x{got.tile_f} is no union of groups")
+    return (f" | {'mma' if got.variant else 'fma'} tile {got.tile_t}x"
+            f"{got.tile_f} split {got.split}/{got.groups}")
+
+
 def phase_int8_kernels(summary):
     """The int8-storage kernels (conv3x3 storage modes, residual_affine) and
     the int8 strided taps against their twins (the kernels' own groups) at
@@ -869,6 +909,8 @@ def phase_int8_kernels(summary):
                         f"{eq:.6f} (differ {1 - eq:.2e}, max {mx}) | out rel "
                         f"{frel:.2e} | scales rel {srel:.2e} | stats rel "
                         f"{strel:.2e} | twice bit-equal {same}")
+                if "store_plan" in case:
+                    line += check_store_plan(case, bsz, int(dt == "bf16"))
                 require(same, f"{name} {label} {dt}: two runs differ")
                 require(mx <= 1 and eq >= INT8_EQUAL_SHARE,
                         f"{name} {label} {dt}: int8 outputs equal {eq:.6f}, "
@@ -891,7 +933,8 @@ def phase_int8_kernels(summary):
                 lib_ms = None
                 if case["lib"] is not None:
                     lib_ms = cuda_time(case["lib"](pos, kw))
-                    line += f", cuDNN bf16 conv {lib_ms:.3f} ms"
+                    line += (f", cuDNN bf16 conv {lib_ms:.3f} ms: kernel / "
+                             f"cuDNN {ms / lib_ms:.2f}x")
                 else:
                     line += (", library — (no single PyTorch call dequantises, "
                              "adds and requantises per group)")
@@ -909,6 +952,12 @@ def phase_int8_kernels(summary):
         entry = summary[name]
         entry["bound_by"] = ("bytes" if entry.pop("_bytes") >= entry.pop("_ops")
                              else "operations")
+        lib = entry["library_ms"]
+        log(f"[int8] sum B2 bf16 {name:20s} kernel {entry['ms']:.3f} ms"
+            + (f", cuDNN {lib:.3f} ms: {entry['ms'] / lib:.2f}x" if lib
+               else ", library —")
+            + f"; bound / kernel {entry['bound_ms'] / entry['ms']:.1%} "
+            f"({entry['bound_by']})")
 
 
 def _audio_params():
@@ -1344,6 +1393,44 @@ def _dw_cases(torch):
                 _nchw(g, c), (c2, c, 4, 4), _nchw(x, c2), stride=2, padding=1),
             fb=f2, c_in=c2, c_out=c, ops=2.0 * 16 * c * c2 * t2 * f2))
     return cases
+
+
+def phase_train_kernels():
+    """The float-tap conv3x3, down and up kernels in fp32 (their CUDA-core
+    variants, which training runs 2,730 / 140 / 140 times an optimizer
+    step) at the stage shapes of one training microbatch [1, 2, 1024, 256],
+    every fusion on: agreement with the twin, then the kernel's, the twin's,
+    the bound's (fp32 at 67 TFLOP/s outside the tensor cores) and the one
+    PyTorch call's time (``F.conv2d`` / ``F.conv_transpose2d`` in fp32, TF32
+    off), kernel / library; then each kernel's sum over its shapes."""
+    import torch
+
+    sums = {}
+    for case in _kernel_cases(torch, 1, stages=TRAIN_STAGES,
+                              downs=TRAIN_DOWNS, head_tail=()):
+        name = case["name"]
+        pos, kw = case["make"](torch.float32)
+        outs = case["kernel"](*pos, **kw)
+        refs = case["twin"](*pos, **kw)
+        torch.cuda.synchronize()
+        err, rel = rel_err(outs[0], refs[0])
+        require(rel <= TOL_FP32, f"{name} {case['label']} fp32 (training "
+                f"shape): rel err {rel:.3e} > {TOL_FP32}")
+        ms = cuda_time(lambda: case["kernel"](*pos, **kw))
+        plain_ms = cuda_time(lambda: case["twin"](*pos, **kw), n=5, warmup=1)
+        lib_ms = cuda_time(case["lib"](pos, kw))
+        bnd, by = bound_ms(case["io"](pos, kw, outs), case["ops"], "fp32")
+        log(f"[train-kernels] {name:14s} B1 {case['label']:18s} fp32 rel "
+            f"{rel:.2e} | kernel {ms:.3f} ms, twin {plain_ms:.3f} ms, bound "
+            f"{bnd:.3f} ms ({by}), cuDNN fp32 (TF32 off) {lib_ms:.3f} ms: "
+            f"kernel / cuDNN {ms / lib_ms:.2f}x, bound / kernel {bnd / ms:.1%}")
+        acc = sums.setdefault(name, [0.0, 0.0, 0.0, 0.0])
+        for i, v in enumerate((ms, bnd, lib_ms, plain_ms)):
+            acc[i] += v
+    for name, (ms, bnd, lib_ms, plain_ms) in sums.items():
+        log(f"[train-kernels] sum B1 fp32 {name:14s} kernel {ms:.3f} / bound "
+            f"{bnd:.3f} / cuDNN {lib_ms:.3f} / twin {plain_ms:.3f} ms: kernel "
+            f"/ cuDNN {ms / lib_ms:.2f}x")
 
 
 def _int8_store_config(path):
@@ -1892,6 +1979,7 @@ def main() -> int:
         phase_kernels(summary)
         phase_int8_kernels(summary)
         phase_dw_kernels(summary)
+        phase_train_kernels()
         config, cfg, params = _audio_params()
         phase_forward(config, cfg, params)
         phase_slice(summary, params)

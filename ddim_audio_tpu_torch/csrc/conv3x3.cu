@@ -183,19 +183,16 @@ __global__ void __launch_bounds__(kThreads, MINB) conv3x3_mma_kernel(
     __nv_bfloat16* __restrict__ out, float* __restrict__ stats, int t_len,
     int f_len, int c, int pre_silu, int post_silu, int split) {
   using T = __nv_bfloat16;
-  constexpr int kWarpsM = 8 / WN;
-  constexpr int kM = 32 * kWarpsM;     // positions per block
-  constexpr int kNB = 32 * WN;         // output channels per group
-  constexpr int kWP = kNB + 8;         // stage pitch (elements)
-  constexpr int kTap = kMmaK * kWP;    // one tap's 32 ci × NB in a stage
-  constexpr int kStage = 3 * kTap;     // a tap row (dt, df = 0 … 2)
+  using Blk = Conv3x3Mma<WN>;
+  constexpr int kWarpsM = Blk::kWarpsM;
+  constexpr int kNB = Blk::kNB;
   extern __shared__ __align__(16) unsigned char smem[];
 
-  const int ft = f_len >= 16 ? 16 : 8, tt = kM / ft;
+  const int ft = f_len >= 16 ? 16 : 8, tt = Blk::kM / ft;
   const int hw = ft + 2, hn = (tt + 2) * hw, pitch = c + 8;
   T* halo = reinterpret_cast<T*>(smem);         // [hn][pitch]
   T* ring = halo + hn * pitch;             // [stages][3 df][32 ci][kWP]
-  float* red = reinterpret_cast<float*>(ring + kConvStages * kStage);
+  float* red = reinterpret_cast<float*>(ring + kConvStages * Blk::kStage);
 
   const int b = blockIdx.y, z = blockIdx.z;
   const int tiles_f = (f_len + ft - 1) / ft;
@@ -204,26 +201,12 @@ __global__ void __launch_bounds__(kThreads, MINB) conv3x3_mma_kernel(
   const int wm = warp % kWarpsM, wn = warp / kWarpsM;
   const int gid = lane >> 2, tig = lane & 3;
   const size_t xb = (size_t)b * t_len * f_len * c;
-  const int kc_n = c / kMmaK, group_steps = 3 * kc_n;
-  const int nsteps = (c / kNB - z + split - 1) / split * group_steps;
+  const int group_steps = 3 * (c / kMmaK);
+  const int nsteps = Blk::steps(c, z, split);
 
-  // step s: group z + (s / group_steps)·split, tap row dt, 32-channel
-  // chunk kc
-  auto load_stage = [&](int s) {
-    const int rem = s % group_steps, dt = rem / kc_n, kc = rem % kc_n;
-    const int g = z + (s / group_steps) * split;
-    T* dst = ring + (s % kConvStages) * kStage;
-    for (int i = threadIdx.x; i < 3 * kMmaK * kNB / 8; i += kThreads) {
-      const int q = i % (kNB / 8), r = (i / (kNB / 8)) % kMmaK;
-      const int df = i / (kMmaK * kNB / 8);
-      cp_async16(dst + df * kTap + r * kWP + 8 * q,
-                 w + ((size_t)(dt * 3 + df) * c + kc * kMmaK + r) * c +
-                     g * kNB + 8 * q);
-    }
-  };
 #pragma unroll
   for (int s = 0; s < kConvStages - 1; ++s) {
-    if (s < nsteps) load_stage(s);
+    if (s < nsteps) Blk::load_stage(ring, w, s, z, split, c);
     cp_async_commit();
   }
 
@@ -274,15 +257,8 @@ __global__ void __launch_bounds__(kThreads, MINB) conv3x3_mma_kernel(
     }
   }
 
-  uint32_t a_base[kMT];  // lane's A row (position) in the halo, tap (0, 0)
-#pragma unroll
-  for (int mt = 0; mt < kMT; ++mt) {
-    const int p = wm * 32 + mt * 16 + (lane & 15);
-    a_base[mt] =
-        smem_u32(halo + ((p / ft) * hw + p % ft) * pitch + (lane >> 4) * 8);
-  }
-  const uint32_t b_base =
-      smem_u32(ring) + b_lane_offset(lane, kWP) + wn * 32 * 2;
+  uint32_t a_base[kMT], b_base;  // lane's A rows (tap (0, 0)), B offset
+  Blk::bases(a_base, b_base, halo, ring, ft, hw, pitch);
   float acc[kMT][kNT][4];
 #pragma unroll
   for (int mt = 0; mt < kMT; ++mt)
@@ -295,21 +271,11 @@ __global__ void __launch_bounds__(kThreads, MINB) conv3x3_mma_kernel(
   for (int s = 0; s < nsteps; ++s) {
     cp_async_wait<kConvStages - 2>();
     __syncthreads();  // stage s (and the halo) visible; slot s − 1 free
-    if (s + kConvStages - 1 < nsteps) load_stage(s + kConvStages - 1);
+    if (s + kConvStages - 1 < nsteps)
+      Blk::load_stage(ring, w, s + kConvStages - 1, z, split, c);
     cp_async_commit();
-    const int rem = s % group_steps, dt = rem / kc_n, kc = rem % kc_n;
-    const uint32_t a_row = ((dt * hw) * pitch + kc * kMmaK) * 2;
-    const uint32_t b_stage = b_base + (s % kConvStages) * kStage * 2;
-#pragma unroll
-    for (int df = 0; df < 3; ++df)
-#pragma unroll
-      for (int kk = 0; kk < kMmaK / 16; ++kk) {
-        uint32_t aa[kMT];
-#pragma unroll
-        for (int mt = 0; mt < kMT; ++mt)
-          aa[mt] = a_base[mt] + a_row + df * pitch * 2 + kk * 32;
-        warp_mma_k16(acc, aa, b_stage + (df * kTap + kk * 16 * kWP) * 2, 32);
-      }
+    Blk::step(acc, a_base, b_base, s, c, hw, pitch);
+    const int rem = s % group_steps;
     if (rem != group_steps - 1) continue;
 
     // Epilogue of group g from the registers.

@@ -145,14 +145,7 @@ __device__ __forceinline__ float fma4(float acc, float4 v, float w0, float w1,
 }
 
 // int8 activation storage (conv3x3_store.cu, residual_affine.cu): one fp32
-// scale per storage group of kTtS time rows × kFtS frequency columns × one
-// channel, scales laid out [B, ceil(T/kTtS), ceil(F/kFtS), C].
-constexpr int kTtS = 8, kFtS = 16;
-
-__host__ __device__ __forceinline__ int store_tiles(int t_len, int f_len) {
-  return ((t_len + kTtS - 1) / kTtS) * ((f_len + kFtS - 1) / kFtS);
-}
-
+// scale per storage group (kTtS × kFtS × one channel, conv_plan.h).
 // Offset into the scales of the group that owns (t, f), channel ch.
 __device__ __forceinline__ size_t group_offset(int b, int t, int f, int ch,
                                                int t_len, int f_len, int c) {

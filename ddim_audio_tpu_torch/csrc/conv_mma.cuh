@@ -1,7 +1,9 @@
-// Pieces of the tensor-core conv kernels (conv3x3.cu, conv_strided.cu up
-// and down; conv3x3_int8.cu takes the copies, ldmatrix and statistics):
-// cp.async staging, ldmatrix fragment loads, mma.sync.m16n8k16 bf16 →
-// fp32, and the register epilogue's quad transpose and statistics.
+// Pieces of the tensor-core conv kernels (conv3x3.cu, conv3x3_store.cu,
+// conv_strided.cu up and down; conv3x3_int8.cu takes the copies, ldmatrix
+// and statistics): cp.async staging, ldmatrix fragment loads,
+// mma.sync.m16n8k16 bf16 → fp32, the register epilogue's quad transpose and
+// statistics, and the conv3x3 block's weight ring and tap steps
+// (Conv3x3Mma), which the float-tap and the int8-storage conv3x3 share.
 //
 // Warp tile: MT m16 tiles (16·MT positions, one per A-fragment row) × 4 n8
 // tiles (32 output channels). A rows are positions of the staged halo, read
@@ -181,5 +183,84 @@ __device__ __forceinline__ void finish_group_stats(const float* red,
     dst[which * c + ch] = s;
   }
 }
+
+// The conv3x3 tensor-core block (conv3x3.cu, conv3x3_store.cu): WN warps
+// share a tile's positions across NB = 32·WN output channels, each warp
+// owning 32 positions (kMT m16 tiles); the prologue-applied halo [hn][C + 8]
+// (bf16) and a kConvStages-deep ring of weight stages sit in dynamic shared
+// memory. A block walks steps s = 0 … nsteps − 1: output-channel group
+// z + (s / group_steps)·split, tap row dt, 32-channel chunk kc, with
+// group_steps = 3·C/32; a stage holds the tap row's three taps × 32 input
+// channels × NB output channels, HWIO rows as they lie in the weights.
+template <int WN>
+struct Conv3x3Mma {
+  static constexpr int kWarpsM = 8 / WN;
+  static constexpr int kM = 32 * kWarpsM;     // positions per block
+  static constexpr int kNB = 32 * WN;         // output channels per group
+  static constexpr int kWP = kNB + 8;         // stage pitch (elements)
+  static constexpr int kTap = kMmaK * kWP;    // one tap's 32 ci × NB
+  static constexpr int kStage = 3 * kTap;     // a tap row (df = 0 … 2)
+
+  // Steps of the block in grid.z slice z of split.
+  static __device__ __forceinline__ int steps(int c, int z, int split) {
+    return (c / kNB - z + split - 1) / split * 3 * (c / kMmaK);
+  }
+
+  // cp.async of step s's weight stage into its ring slot.
+  static __device__ __forceinline__ void load_stage(
+      __nv_bfloat16* ring, const __nv_bfloat16* __restrict__ w, int s,
+      int z, int split, int c) {
+    const int kc_n = c / kMmaK, group_steps = 3 * kc_n;
+    const int rem = s % group_steps, dt = rem / kc_n, kc = rem % kc_n;
+    const int g = z + (s / group_steps) * split;
+    __nv_bfloat16* dst = ring + (s % kConvStages) * kStage;
+    for (int i = threadIdx.x; i < 3 * kMmaK * kNB / 8; i += kThreads) {
+      const int q = i % (kNB / 8), r = (i / (kNB / 8)) % kMmaK;
+      const int df = i / (kMmaK * kNB / 8);
+      cp_async16(dst + df * kTap + r * kWP + 8 * q,
+                 w + ((size_t)(dt * 3 + df) * c + kc * kMmaK + r) * c +
+                     g * kNB + 8 * q);
+    }
+  }
+
+  // The lane's A rows (its positions in the halo at tap (0, 0), tiles of
+  // ft columns) and its B offset in the ring.
+  static __device__ __forceinline__ void bases(uint32_t (&a_base)[kMT],
+                                               uint32_t& b_base,
+                                               const __nv_bfloat16* halo,
+                                               const __nv_bfloat16* ring,
+                                               int ft, int hw, int pitch) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int wm = warp % kWarpsM, wn = warp / kWarpsM;
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) {
+      const int p = wm * 32 + mt * 16 + (lane & 15);
+      a_base[mt] =
+          smem_u32(halo + ((p / ft) * hw + p % ft) * pitch + (lane >> 4) * 8);
+    }
+    b_base = smem_u32(ring) + b_lane_offset(lane, kWP) + wn * 32 * 2;
+  }
+
+  // The MMAs of step s: tap row dt's three taps over chunk kc.
+  static __device__ __forceinline__ void step(float (&acc)[kMT][kNT][4],
+                                              const uint32_t (&a_base)[kMT],
+                                              uint32_t b_base, int s, int c,
+                                              int hw, int pitch) {
+    const int kc_n = c / kMmaK, rem = s % (3 * kc_n);
+    const int dt = rem / kc_n, kc = rem % kc_n;
+    const uint32_t a_row = ((dt * hw) * pitch + kc * kMmaK) * 2;
+    const uint32_t b_stage = b_base + (s % kConvStages) * kStage * 2;
+#pragma unroll
+    for (int df = 0; df < 3; ++df)
+#pragma unroll
+      for (int kk = 0; kk < kMmaK / 16; ++kk) {
+        uint32_t aa[kMT];
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt)
+          aa[mt] = a_base[mt] + a_row + df * pitch * 2 + kk * 32;
+        warp_mma_k16(acc, aa, b_stage + (df * kTap + kk * 16 * kWP) * 2, 32);
+      }
+  }
+};
 
 }  // namespace ddim

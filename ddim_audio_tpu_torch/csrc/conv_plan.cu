@@ -1,5 +1,6 @@
-// The tile-plan queries of ddim_conv3x3, ddim_conv_up, ddim_conv_down and
-// ddim_conv3x3_int8 (conv_plan.h).
+// The tile-plan queries of ddim_conv3x3, ddim_conv_up, ddim_conv_down,
+// ddim_conv3x3_int8, ddim_conv3x3_store and ddim_residual_affine, and the
+// storage group of int8 activations (conv_plan.h).
 // Plain C++: nvcc builds it into the kernel library, and a host compiler
 // builds it alone for the CPU tests of the port's Python model of the plans.
 #include "conv_plan.h"
@@ -70,6 +71,27 @@ int ddim_conv3x3_int8_plan(int t_len, int f_len, int c, int bf16, int batch,
                            int* out) {
   return write_plan(ddim::conv3x3_int8_plan(t_len, f_len, c, bf16, batch),
                     out);
+}
+
+// The same for ddim_conv3x3_store (T, F, C, bf16 storage, B, and how many
+// of x and the residual are int8: their scales are staged).
+int ddim_conv3x3_store_plan(int t_len, int f_len, int c, int bf16, int batch,
+                            int scaled, int* out) {
+  return write_plan(
+      ddim::conv3x3_store_plan(t_len, f_len, c, bf16, batch, scaled), out);
+}
+
+// Spatial tiles per sample of ddim_residual_affine (its partials' second
+// dimension).
+int ddim_residual_affine_tiles(int t_len, int f_len) {
+  return ddim::residual_affine_tiles(t_len, f_len);
+}
+
+// The storage group of int8 activations: i = 0 → time rows, i = 1 →
+// frequency columns.
+int ddim_store_geometry(int i) {
+  const int g[2] = {ddim::kTtS, ddim::kFtS};
+  return i >= 0 && i < 2 ? g[i] : -1;
 }
 
 }  // extern "C"

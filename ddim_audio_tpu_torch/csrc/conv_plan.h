@@ -215,4 +215,65 @@ DDIM_HD TilePlan conv3x3_int8_plan(int t, int f, int c, int bf16, int batch) {
   return p;
 }
 
+// ----------------------------------------------- int8 activation storage --
+//
+// One fp32 scale per storage group of kTtS time rows × kFtS frequency
+// columns × one channel, scales laid out [B, ceil(T/kTtS), ceil(F/kFtS), C]
+// (conv3x3_store.cu, residual_affine.cu, and the twins' STORE_GROUP).
+constexpr int kTtS = 8, kFtS = 16;
+
+DDIM_HD int store_tiles(int t_len, int f_len) {
+  return cdiv(t_len, kTtS) * cdiv(f_len, kFtS);
+}
+
+// residual_affine.cu: one block a storage group × 32 channels, so its
+// statistics partials are one a group.
+DDIM_HD int residual_affine_tiles(int t_len, int f_len) {
+  return store_tiles(t_len, f_len);
+}
+
+// Storage groups whose scales a conv3x3 tile of tile_t × kFtS positions
+// stages for its halo: group rows t0/kTtS − 1 … t0/kTtS + tile_t/kTtS and
+// columns f0/kFtS − 1 … f0/kFtS + 1.
+DDIM_HD int store_halo_groups(int tile_t) { return (tile_t / kTtS + 2) * 3; }
+
+// conv3x3 with int8 activation storage: the conv3x3 tensor-core block
+// (conv3x3_plan's warps, groups and weight ring) with its tile always
+// kFtS = 16 columns wide, so that every tile is a union of whole storage
+// groups (16 × 16 at C <= 96, 8 × 16 from C = 128 on, where two warps share
+// the positions) and each group's amax is reduced inside one block; the
+// 32 × 8 tile conv3x3_plan takes at F < 16 is refused (such a tile is
+// 16 columns wide here, half of them masked). Its shared memory adds the
+// staged scale rows of the `scaled` int8 operands (x, residual: 0 … 2).
+// fp32 takes the CUDA-core kernel (one storage group × 32 output channels
+// a block, kThreads threads); bf16 whose halo does not fit has no kernel.
+DDIM_HD TilePlan conv3x3_store_plan(int t, int f, int c, int bf16, int batch,
+                                    int scaled) {
+  TilePlan p;
+  p.tile_f = kFtS;
+  if (bf16) {
+    const int wn = conv3x3_warps_n(c), nb = 32 * wn;
+    p.variant = c % 32 == 0 ? kVariantMma : kVariantNone;
+    p.tile_t = 32 * (8 / wn) / kFtS;
+    p.tiles = cdiv(t, p.tile_t) * cdiv(f, kFtS);
+    p.groups = c / nb;
+    p.split = fill_split(p.tiles, batch, p.groups);
+    p.smem = 2 * ((p.tile_t + 2) * (kFtS + 2) * (c + 8) +
+                  kConvStages * 3 * kMmaK * (nb + 8)) +
+             kMmaRed + 4 * scaled * store_halo_groups(p.tile_t) * c;
+    if (p.variant == kVariantMma && p.smem <= kSmemLimit) return p;
+    p.variant = kVariantNone;
+    p.smem = 0;
+    return p;
+  }
+  p.variant = c % 32 == 0 ? kVariantFma : kVariantNone;
+  p.tile_t = kTtS;
+  p.tiles = store_tiles(t, f);
+  p.groups = cdiv(c, 32);
+  p.split = p.groups;
+  p.smem = 0;
+  (void)batch;
+  return p;
+}
+
 }  // namespace ddim

@@ -13,7 +13,7 @@
 // amax · (1/127).
 //
 // Design. An elementwise pass with a per-group reduction: one block owns one
-// storage group tile (kTtS × kFtS positions × 32 channels, conv_common.cuh),
+// storage group tile (kTtS × kFtS positions × 32 channels, conv_plan.h),
 // warp w its time row w and lane l channel c0 + l; each thread keeps its 16
 // results in registers, the group amax is one shared-memory reduction, and
 // the statistics are per-block partials that the wrapper finishes with
@@ -113,7 +113,7 @@ extern "C" {
 // x, s, out: [B, T, F, C] of kind x_kind / s_kind / out_kind (0 fp32, 1 bf16,
 // 2 int8); an int8 x or s comes with its scales [B, ceil(T/8), ceil(F/16), C]
 // fp32, an int8 out (quantised) writes out_scales of that shape; scale,
-// shift: [B, C] fp32 or both null; stats: [B, ddim_conv3x3_store_tiles(...),
+// shift: [B, C] fp32 or both null; stats: [B, ddim_residual_affine_tiles(...),
 // 2, C] fp32 or null. C % 32 == 0.
 int ddim_residual_affine(const void* x, const float* x_scales, const void* s,
                          const float* s_scales, const float* scale,
@@ -122,7 +122,7 @@ int ddim_residual_affine(const void* x, const float* x_scales, const void* s,
                          int x_kind, int s_kind, int out_kind, void* stream) {
   using namespace ddim;
   if (c % kCoTile) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(store_tiles(t_len, f_len), batch, c / kCoTile);
+  const dim3 grid(residual_affine_tiles(t_len, f_len), batch, c / kCoTile);
   residual_affine_kernel<<<grid, kThreads, 0,
                            reinterpret_cast<cudaStream_t>(stream)>>>(
       x, x_scales, s, s_scales, scale, shift, out, out_scales, stats, t_len,

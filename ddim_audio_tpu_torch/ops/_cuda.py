@@ -68,7 +68,9 @@ _SIGNATURES = {
     # x, w, bias, res, out, stats, B, T, F, Cin, Cout, bf16, stream
     "ddim_conv_up": (_P,) * 6 + (_I,) * 6 + (_P,),
     "ddim_store_geometry": (_I,),
-    "ddim_conv3x3_store_tiles": (_I,) * 2,
+    # T, F, C, bf16, B, int8 operands (x, residual), out[7]
+    "ddim_conv3x3_store_plan": (_I,) * 6 + (_P,),
+    "ddim_residual_affine_tiles": (_I,) * 2,
     # x, x_scales, res, res_scales, pre_scale, pre_shift, w, add, out,
     # out_scales, stats, B, T, F, C, x_q, res_q, pre_silu, post_silu, bf16,
     # stream

@@ -59,7 +59,14 @@ from ._cuda import (
     twin_result,
     use_twin,
 )
-from .tile_plan import INT8_GROUP, conv3x3_int8_plan, conv3x3_plan
+from .tile_plan import (
+    INT8_GROUP,
+    STORE_GROUP,
+    VARIANT_NONE,
+    conv3x3_int8_plan,
+    conv3x3_plan,
+    conv3x3_store_plan,
+)
 
 
 def wide_dtype(x: torch.Tensor) -> torch.dtype:
@@ -132,10 +139,9 @@ def _epilogue(out32, add, post_silu: bool, dtype, want_stats: bool):
 
 
 # ------------------------------------------------------ int8 storage --
-
-# The storage group of the CUDA kernels (csrc/conv3x3_store.cu,
-# csrc/residual_affine.cu): time rows × frequency columns, per channel.
-STORE_GROUP = (8, 16)
+# STORE_GROUP (ops/tile_plan.py) is the CUDA kernels' storage group
+# (csrc/conv3x3_store.cu, csrc/residual_affine.cu): time rows × frequency
+# columns, per channel.
 
 
 def _store_index(t: int, f: int, c: int, group, device):
@@ -454,9 +460,10 @@ def conv3x3_flat_store(x, w, *, c: int, add=None, residual=None, pre=None,
     fp32 output is quantised per storage group and the result is (int8 out,
     scales[, sum, sum²]); the statistics are those of the fp32 output before
     quantisation. On a CUDA tensor this launches ``csrc/conv3x3_store.cu``
-    (C % 32 == 0; its group is STORE_GROUP); on a CPU tensor the twin
-    ``conv3x3_flat_plain`` runs with the same group, or with the one set by
-    ``ops.twin_route``."""
+    (C % 32 == 0; its group is STORE_GROUP; bf16 on the tensor cores, fp32
+    on CUDA cores: ``tile_plan.conv3x3_store_plan``); on a CPU tensor the
+    twin ``conv3x3_flat_plain`` runs with the same group, or with the one
+    set by ``ops.twin_route``."""
     kw = dict(c=c, add=add, residual=residual, pre=pre, pre_silu=pre_silu,
               post_silu=post_silu, want_stats=want_stats, in_scales=in_scales,
               res_scales=res_scales, quant_out=quant_out)
@@ -501,12 +508,15 @@ def conv3x3_flat_store(x, w, *, c: int, add=None, residual=None, pre=None,
         out_scales = torch.empty((b, -(-t // STORE_GROUP[0]),
                                   -(-f // STORE_GROUP[1]), c),
                                  dtype=torch.float32, device=dev)
+    plan = conv3x3_store_plan(t, f, c, bool(bf16), b, int(x_q) + int(res_q))
+    if plan.variant == VARIANT_NONE:
+        raise ValueError(f"conv3x3_flat_store kernel: no variant takes "
+                         f"C={c} in {w.dtype} (its halo does not fit)")
     with torch.cuda.device(dev):
         lib = _store_lib()
         stats = None
         if want_stats:
-            tiles = lib.ddim_conv3x3_store_tiles(t, f)
-            stats = torch.empty((b, tiles, 2, c), dtype=torch.float32,
+            stats = torch.empty((b, plan.tiles, 2, c), dtype=torch.float32,
                                 device=dev)
         err = lib.ddim_conv3x3_store(
             ptr(x), ptr(in_scales), ptr(residual), ptr(res_scales),

@@ -38,6 +38,7 @@ from .conv_flat import (
     per_sample,
     quantize_store,
 )
+from .tile_plan import residual_affine_tiles
 
 
 def _out_dtype(x, s, out_dtype):
@@ -130,9 +131,8 @@ def residual_affine_flat(x, s, affine=None, *, c: int, x_scales=None,
         lib = _store_lib()
         stats = None
         if want_stats:
-            tiles = lib.ddim_conv3x3_store_tiles(t, f)
-            stats = torch.empty((b, tiles, 2, c), dtype=torch.float32,
-                                device=dev)
+            stats = torch.empty((b, residual_affine_tiles(t, f), 2, c),
+                                dtype=torch.float32, device=dev)
         err = lib.ddim_residual_affine(
             ptr(x), ptr(x_scales), ptr(s), ptr(s_scales), ptr(scale),
             ptr(shift), ptr(out), ptr(out_scales), ptr(stats), b, t, f, c,

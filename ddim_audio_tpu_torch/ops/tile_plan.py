@@ -1,5 +1,5 @@
-"""Tile plans of the conv3x3, up-conv, down-conv and int8-tap conv3x3
-kernels, in Python.
+"""Tile plans of the conv3x3, up-conv, down-conv, int8-tap conv3x3 and
+int8-storage conv3x3 kernels, in Python.
 
 A model of ``csrc/conv_plan.h``: which variant a call takes (0: CUDA cores,
 1: tensor cores, -1: no kernel takes the shape), the block's spatial tile,
@@ -8,8 +8,9 @@ partials, which the wrappers size from here), the output-channel groups, how
 many blocks share a tile's groups (``split``, grid.z) and the dynamic shared
 memory. ``tests/test_torch_conv_redesign.py`` holds the model against the C
 functions (``ddim_conv3x3_plan``, ``ddim_conv_up_plan``,
-``ddim_conv_down_plan``, ``ddim_conv3x3_int8_plan``) built by the host
-compiler; ``chip_smoke.py`` against the kernel library on the card.
+``ddim_conv_down_plan``, ``ddim_conv3x3_int8_plan``,
+``ddim_conv3x3_store_plan``, ``ddim_residual_affine_tiles``) built by the
+host compiler; ``chip_smoke.py`` against the kernel library on the card.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ DOWN_TAPS = 4            # (a tap row)
 MMA_RED = 2048           # bytes of the statistics scratch
 SMEM_LIMIT = 232_448     # dynamic shared memory a block may ask for
 INT8_GROUP = (8, 16)     # int8 taps: a quantisation group's output tile
+STORE_GROUP = (8, 16)    # int8 storage: a scale's time rows × columns
 FILL_BLOCKS = 2 * 132    # two blocks on each SM of an H100
 FMA_POS = 64             # positions per block of the CUDA-core kernels
 
@@ -147,10 +149,50 @@ def conv3x3_int8_plan(t: int, f: int, c: int, bf16: bool,
     return TilePlan(VARIANT_MMA, q_t, q_f, tiles, 1, 1, smem)
 
 
+def store_tiles(t: int, f: int) -> int:
+    """Storage groups per sample: ceil(T/8) · ceil(F/16)."""
+    return _cdiv(t, STORE_GROUP[0]) * _cdiv(f, STORE_GROUP[1])
+
+
+def residual_affine_tiles(t: int, f: int) -> int:
+    """Statistics partials per sample of ``ddim_residual_affine``: one a
+    storage group (its block is a group × 32 channels)."""
+    return store_tiles(t, f)
+
+
+def conv3x3_store_plan(t: int, f: int, c: int, bf16: bool, batch: int = 1,
+                       scaled: int = 1) -> TilePlan:
+    """The plan of ``ddim_conv3x3_store`` at [batch, t, f, c] with
+    ``scaled`` int8 operands (x, residual: 0-2), whose halo scale rows the
+    block stages. bf16: conv3x3's tensor-core block with a tile always 16
+    columns wide (16 × 16 at C <= 96, 8 × 16 from C = 128 on), so that each
+    tile is a union of whole storage groups; fp32: the CUDA-core kernel, one
+    storage group × 32 channels a block."""
+    q_t, q_f = STORE_GROUP
+    if not bf16:
+        groups = _cdiv(c, 32)
+        return TilePlan(VARIANT_FMA if c % 32 == 0 else VARIANT_NONE, q_t,
+                        q_f, store_tiles(t, f), groups, groups, 0)
+    wn = 2 if c >= 128 and c % 64 == 0 else 1  # as conv3x3_plan
+    nb = 32 * wn
+    tt = 32 * (8 // wn) // q_f
+    tiles = _cdiv(t, tt) * _cdiv(f, q_f)
+    groups = c // nb
+    split = fill_split(tiles, batch, groups)
+    halo_groups = (tt // q_t + 2) * 3
+    smem = (2 * ((tt + 2) * (q_f + 2) * (c + 8)
+                 + CONV_STAGES * 3 * MMA_K * (nb + 8)) + MMA_RED
+            + 4 * scaled * halo_groups * c)
+    if c % 32 or smem > SMEM_LIMIT:
+        return TilePlan(VARIANT_NONE, tt, q_f, tiles, groups, split, 0)
+    return TilePlan(VARIANT_MMA, tt, q_f, tiles, groups, split, smem)
+
+
 def library_plan(fn, *args) -> TilePlan:
     """A plan as the C query ``fn`` (``ddim_conv3x3_plan``,
-    ``ddim_conv_up_plan``, ``ddim_conv_down_plan`` or
-    ``ddim_conv3x3_int8_plan`` of a loaded library) reports it."""
+    ``ddim_conv_up_plan``, ``ddim_conv_down_plan``,
+    ``ddim_conv3x3_int8_plan`` or ``ddim_conv3x3_store_plan`` of a loaded
+    library) reports it."""
     out = (ctypes.c_int * len(TilePlan._fields))()
     fn(*args, ctypes.cast(out, ctypes.c_void_p))
     return TilePlan(*out)

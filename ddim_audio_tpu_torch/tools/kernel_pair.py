@@ -1,17 +1,22 @@
-"""Time the bf16 down conv and the int8-tap conv3x3 of a checkout, on the card,
-at the audio.yml shapes, B = 1 and 2, against one cuDNN call of the bare
-conv; for comparing two checkouts of this package in one machine, in turns.
+"""Time the bf16 down conv, the int8-tap conv3x3 and the int8-storage conv3x3
+of a checkout, on the card, at the audio.yml shapes, B = 1 and 2, against
+one cuDNN call of the bare conv; for comparing two checkouts of this package
+in one machine, in turns.
 
-    python3 -m ddim_audio_tpu_torch.tools.kernel_pair LABEL
-    (cd <other checkout> && python3 <this checkout>/ddim_audio_tpu_torch/tools/kernel_pair.py LABEL)
+    python3 -m ddim_audio_tpu_torch.tools.kernel_pair LABEL [KINDS]
+    (cd <other checkout> && python3 <this checkout>/ddim_audio_tpu_torch/tools/kernel_pair.py LABEL [KINDS])
+
+KINDS is a comma-separated subset of down,int8,store (default: all three).
 
 The package is imported from the current directory, so the same file times
 whichever checkout it is run in (one that predates the ``wq_t`` argument of
 ``conv3x3_flat_int8`` gets the HWIO weights alone). The calls are the
 wrappers' own, with the operands of chip_smoke.py's ``[kernels]`` phase:
 down with statistics, the int8 taps with every fusion on, with and without
-the fused residual. Times are CUDA-event means over 20 calls after 3 warm-up
-calls. Prints one line per shape, then the sums, then the card's name and
+the fused residual, the storage conv in the mode of the int8-storage
+forward's interior convs (int8 x with its scales, GroupNorm affine + SiLU
+prologue, + add, SiLU, statistics, ``quant_out``) at s0-s3. Times are
+CUDA-event means over 20 calls after 3 warm-up calls. Prints one line per shape, then the sums, then the card's name and
 power limit.
 """
 
@@ -25,6 +30,8 @@ import sys
 DOWNS = [(8192, 256, 32, 64), (4096, 128, 64, 96), (2048, 64, 96, 128),
          (1024, 32, 128, 192), (512, 16, 192, 256)]
 INT8_STAGES = [(8192, 256, 32), (4096, 128, 64), (2048, 64, 96)]
+STORE_STAGES = INT8_STAGES + [(1024, 32, 128)]
+KINDS = ("down", "int8", "store")
 
 
 def cuda_ms(torch, fn, n: int = 20, warmup: int = 3) -> float:
@@ -44,6 +51,11 @@ def cuda_ms(torch, fn, n: int = 20, warmup: int = 3) -> float:
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     label = argv[0] if argv else "this"
+    kinds = set(argv[1].split(",")) if len(argv) > 1 else set(KINDS)
+    if not kinds <= set(KINDS):
+        print(f"kernel_pair: KINDS is a subset of {','.join(KINDS)}",
+              file=sys.stderr)
+        return 2
     sys.path.insert(0, os.getcwd())
     import torch
     import torch.nn.functional as F
@@ -67,7 +79,7 @@ def main(argv=None) -> int:
         sums[key] = sums.get(key, 0.0) + v
 
     for bsz in (1, 2):
-        for t, f, ci, co in DOWNS:
+        for t, f, ci, co in DOWNS if "down" in kinds else ():
             x = rnd(bsz, t, f * ci).bfloat16()
             w = rnd(4, 4, ci, co, scale=(16 * ci) ** -0.5).bfloat16()
             b = rnd(co)
@@ -81,7 +93,7 @@ def main(argv=None) -> int:
             add(("down cudnn", bsz), lib)
             print(f"{label} down B{bsz} {ci}->{co} kernel {k:.4f} cudnn "
                   f"{lib:.4f} ratio {k / lib:.2f}", flush=True)
-        for t, f, c in INT8_STAGES:
+        for t, f, c in INT8_STAGES if "int8" in kinds else ():
             x, res = rnd(bsz, t, f * c).bfloat16(), rnd(bsz, t, f * c).bfloat16()
             w = rnd(3, 3, c, c, scale=(9 * c) ** -0.5)
             wq, s_w = conv_flat.quantize_conv_weights_int8(w)
@@ -104,6 +116,23 @@ def main(argv=None) -> int:
             print(f"{label} int8 B{bsz} C{c} kernel(residual) {k_res:.4f} "
                   f"kernel {k:.4f} cudnn {lib:.4f} ratio(residual) "
                   f"{k_res / lib:.2f}", flush=True)
+        for t, f, c in STORE_STAGES if "store" in kinds else ():
+            x = rnd(bsz, t, f, c)
+            q, sc = conv_flat.quantize_store(x)
+            w = rnd(3, 3, c, c, scale=(9 * c) ** -0.5).bfloat16()
+            kw = dict(c=c, in_scales=sc, pre=(1 + 0.1 * rnd(bsz, c),
+                                              0.1 * rnd(bsz, c)),
+                      add=rnd(bsz, c), pre_silu=True, post_silu=True,
+                      want_stats=True, quant_out=True)
+            k = cuda_ms(torch, lambda: conv_flat.conv3x3_flat_store(q, w, **kw))
+            wl = w.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            xn = x.bfloat16().permute(0, 3, 1, 2)
+            lib = cuda_ms(torch, lambda: F.conv2d(xn, wl, padding=1))
+            add(("store", bsz), k)
+            add(("store cudnn", bsz), lib)
+            print(f"{label} store B{bsz} C{c} kernel {k:.4f} cudnn {lib:.4f} "
+                  f"ratio {k / lib:.2f}", flush=True)
     for (name, bsz), v in sorted(sums.items()):
         print(f"{label} sum {name} B{bsz} {v:.4f}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

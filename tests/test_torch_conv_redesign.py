@@ -41,6 +41,7 @@ from ddim_audio_tpu_torch.ops.tile_plan import (
     TilePlan,
     conv3x3_int8_plan,
     conv3x3_plan,
+    conv3x3_store_plan,
     conv_down_plan,
     conv_up_plan,
     library_plan,
@@ -58,6 +59,7 @@ UPS = [(4096, 128, 64, 32), (2048, 64, 96, 64), (1024, 32, 128, 96),
 DOWNS = [(8192, 256, 32, 64), (4096, 128, 64, 96), (2048, 64, 96, 128),
          (1024, 32, 128, 192), (512, 16, 192, 256)]
 INT8_STAGES = STAGES[:3]
+STORE_STAGES = STAGES[:4]  # the stages that store int8 activations
 
 
 @pytest.fixture(scope="module")
@@ -71,7 +73,8 @@ def plan_lib(tmp_path_factory):
                    check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(lib_path))
     for name, n in (("ddim_conv3x3_plan", 5), ("ddim_conv_up_plan", 6),
-                    ("ddim_conv_down_plan", 6), ("ddim_conv3x3_int8_plan", 5)):
+                    ("ddim_conv_down_plan", 6), ("ddim_conv3x3_int8_plan", 5),
+                    ("ddim_conv3x3_store_plan", 6)):
         getattr(lib, name).argtypes = [ctypes.c_int] * n + [ctypes.c_void_p]
     return lib
 
@@ -129,7 +132,23 @@ def test_tile_plans_match_the_c_plans(plan_lib):
                 assert conv3x3_int8_plan(t, f, c, bool(bf16), b) == want
                 assert want.variant == (VARIANT_MMA if c in (32, 64, 96)
                                         else VARIANT_NONE)
+    st = [(t, f, c) for t in (1, 8, 9, 17, 33) for f in (1, 8, 16, 17, 40)
+          for c in (16, 32, 48, 64, 96, 128, 192, 256, 480, 512)] + STORE_STAGES
+    for t, f, c in st:
+        for bf16 in (0, 1):
+            for b in (1, 2, 5):
+                for scaled in (0, 1, 2):
+                    want = library_plan(plan_lib.ddim_conv3x3_store_plan, t, f,
+                                        c, bf16, b, scaled)
+                    assert conv3x3_store_plan(t, f, c, bool(bf16), b,
+                                              scaled) == want, (t, f, c)
     for b in (1, 2):
+        # the storage conv: the tensor cores at every storage stage in bf16
+        # (one int8 operand, as the model runs it), CUDA cores in fp32
+        assert all(conv3x3_store_plan(*s, True, b, 1).variant == VARIANT_MMA
+                   for s in STORE_STAGES)
+        assert all(conv3x3_store_plan(*s, False, b, 1).variant == VARIANT_FMA
+                   for s in STORE_STAGES)
         # the tensor-core down conv at every transition, f_out = 8 included;
         # the int8 kernel's group is the 8 × 16 tile at every int8 stage
         assert all(conv_down_plan(*s, True, b).variant == VARIANT_MMA
