@@ -19,18 +19,21 @@ phase on its own lines:
    run them, against the twin with the kernel's own quantisation group), the
    down and up transitions, the head and the tail (also at one small ragged
    shape). Each bf16 case prints the kernel's and the twin's time from CUDA
-   events, its bound (the larger of bytes moved / 3.35 TB/s and operations /
-   the peak rate of the operand type), the time of the one PyTorch call
-   that computes the bare conv (bf16, channels-last, cuDNN), the kernel /
-   cuDNN ratio and the share of the bound; the redesigned conv3x3, up, down
-   and int8-tap kernels also show that the library's tile plan equals the
-   Python model their wrappers size the statistics partials from, that bf16
-   takes the tensor-core variant at every production shape
-   (``ddim_conv3x3_variant``, ``ddim_conv_up_variant``,
-   ``ddim_conv_down_variant``; 192->256 at f_out = 8 included) and fp32 the
-   CUDA-core one, that the int8 taps keep their 8 x 16 quantisation group
-   (``ddim_conv3x3_int8_geometry``), and that the same call twice gives the
-   same bits. Each kernel's sums at B = 2 in bf16 close the phase: kernel /
+   events (the card held busy while the host queues the timed calls, so
+   they are the card's time, not the wrappers' Python), its bound (the
+   larger of bytes moved / 3.35 TB/s and operations / the peak rate of the
+   operand type), the time of the one PyTorch call that computes the bare
+   conv (bf16, channels-last, cuDNN), the kernel / cuDNN ratio and the share
+   of the bound; the redesigned conv3x3, up, down, int8-tap, head and tail
+   kernels also show that the library's tile plan equals the Python model
+   their wrappers size the statistics partials from, that bf16 takes the
+   tensor-core variant at every production shape and at the head's and
+   tail's small ragged one (``ddim_conv3x3_variant``,
+   ``ddim_conv_up_variant``, ``ddim_conv_down_variant``,
+   ``ddim_conv_head_variant``, ``ddim_conv_tail_variant``; 192->256 at
+   f_out = 8 included) and fp32 the CUDA-core one, that the int8 taps keep
+   their 8 x 16 quantisation group (``ddim_conv3x3_int8_geometry``), and
+   that the same call twice gives the same bits. Each kernel's sums at B = 2 in bf16 close the phase: kernel /
    cuDNN and the share of the bound;
    Then the int8-storage kernels (the storage modes of conv3x3, int8 input
    and residual with their scales and ``quant_out`` with and without
@@ -174,8 +177,9 @@ SNR_FWD_PROD_GN3_DB = 25.3
 # each kernel is held against its twin on the activations the model really
 # gives it, call by call. An H100 read, as the worst call of the bf16
 # forwards at B = 1 and of a 10-step chain at B = 2: conv3x3 float 67.3 dB,
-# int8 68.4 dB (79.6 dB in the forward), down 79.8, up 89.1, tail 92.1, head
-# 106.0 dB; statistics within 2.3e-5 relative.
+# int8 68.4 dB (79.6 dB in the forward), down 79.8, up 89.1; the tensor-core
+# tail 92.0 and head 95.1 dB (NVIDIA H100 80GB HBM3 at 700 W; the CUDA-core
+# ones before them read 92.1 and 106.0); statistics within 2.3e-5 relative.
 SHADOW_FLOAT_DB = 65.3
 SHADOW_INT8_DB = 66.4
 SHADOW_STATS = 1e-4
@@ -328,8 +332,19 @@ def require(cond: bool, msg: str) -> None:
         raise Fail(msg)
 
 
-def cuda_time(fn, n: int = 10, warmup: int = 2) -> float:
-    """Mean ms per call from CUDA events over n calls after warmup."""
+# Cycles the card sleeps before a kernel's timed calls (~25-35 ms): the host
+# queues the calls meanwhile, so the events time the card alone, not a
+# wrapper's Python (40-100 us a call for the head and tail, more than their
+# kernels take).
+PREFILL_CYCLES = 50_000_000
+
+
+def cuda_time(fn, n: int = 10, warmup: int = 2, prefill: bool = False) -> float:
+    """Mean ms per call from CUDA events over n calls after warmup; with
+    ``prefill`` the card first sleeps while the host queues the calls, so
+    the mean is the card's time per call (the kernels' tables), else the
+    pace at which the host and the card together get through them (the
+    forwards and microbatches)."""
     import torch
 
     for _ in range(warmup):
@@ -337,6 +352,8 @@ def cuda_time(fn, n: int = 10, warmup: int = 2) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    if prefill:
+        torch.cuda._sleep(PREFILL_CYCLES)
     start.record()
     for _ in range(n):
         fn()
@@ -595,22 +612,24 @@ def _kernel_cases(torch, bsz, stages=STAGES, downs=DOWNS,
         cases.append(dict(name="conv_head_flat", label=f"T{t} F{f} 2->32",
                           prod=prod, kernel=conv_head_flat,
                           twin=conv_head_flat_plain, make=make_h, lib=lib_h,
-                          io=io_conv, ops=ops, int8=False))
+                          io=io_conv, ops=ops, int8=False,
+                          plan=("conv_head", (t, f, cin, c0))))
         cases.append(dict(name="conv_tail_flat", label=f"T{t} F{f} 32->2",
                           prod=prod, kernel=conv_tail_flat,
                           twin=conv_tail_flat_plain, make=make_t, lib=lib_t,
-                          io=io_conv, ops=ops, int8=False))
+                          io=io_conv, ops=ops, int8=False,
+                          plan=("conv_tail", (t, f, c0, cin))))
     return cases
 
 
 def check_plan(case, bsz, bf16) -> str:
     """The redesigned kernels (conv3x3_flat, conv_up_flat, conv_down_flat,
-    conv3x3_flat_int8): the library's tile plan equals the Python model the
-    wrapper sizes its partials from, and the variant is the tensor-core
-    kernel in bf16 (the CUDA-core one in fp32; the int8 taps run on the
-    tensor cores in both, over the quantisation group the geometry query
-    reports, 8 × 16 with a 1-position halo). Returns the plan's note for
-    the kernel's line."""
+    conv3x3_flat_int8, conv_head_flat, conv_tail_flat): the library's tile
+    plan equals the Python model the wrapper sizes its partials from, and
+    the variant is the tensor-core kernel in bf16 (the CUDA-core one in
+    fp32; the int8 taps run on the tensor cores in both, over the
+    quantisation group the geometry query reports, 8 × 16 with a 1-position
+    halo). Returns the plan's note for the kernel's line."""
     from ddim_audio_tpu_torch.ops import _cuda, tile_plan
 
     kind, shape = case["plan"]
@@ -680,14 +699,15 @@ def phase_kernels(summary):
                 if not case["prod"]:
                     log(line)
                     continue
-                ms = cuda_time(lambda: kern(*pos, **kw))
-                plain_ms = cuda_time(lambda: twin(*pos, **kw), n=5, warmup=1)
+                ms = cuda_time(lambda: kern(*pos, **kw), prefill=True)
+                plain_ms = cuda_time(lambda: twin(*pos, **kw), n=5, warmup=1,
+                                      prefill=True)
                 kind = "int8" if case["int8"] else dt
                 bnd, by = bound_ms(case["io"](pos, kw, outs), case["ops"], kind)
                 line += (f" | kernel {ms:.3f} ms, twin {plain_ms:.3f} ms, bound "
                          f"{bnd:.3f} ms ({by})")
                 if dtype == torch.bfloat16:
-                    lib_ms = cuda_time(case["lib"](pos, kw))
+                    lib_ms = cuda_time(case["lib"](pos, kw), prefill=True)
                     line += (f", cuDNN bf16 conv {lib_ms:.3f} ms: kernel / "
                              f"cuDNN {ms / lib_ms:.2f}x, bound / kernel "
                              f"{bnd / ms:.1%} ({by})")
@@ -924,15 +944,16 @@ def phase_int8_kernels(summary):
                 if dtype != torch.bfloat16 or not (case["timed"] or bsz == 1):
                     log(line)
                     continue
-                ms = cuda_time(lambda: kern(*pos, **kw))
-                plain_ms = cuda_time(lambda: twin(*pos, **kw), n=5, warmup=1)
+                ms = cuda_time(lambda: kern(*pos, **kw), prefill=True)
+                plain_ms = cuda_time(lambda: twin(*pos, **kw), n=5, warmup=1,
+                                      prefill=True)
                 bnd, by = bound_ms(case["io"](pos, kw, outs), case["ops"],
                                    case["kind"])
                 line += (f" | kernel {ms:.3f} ms, twin {plain_ms:.3f} ms, bound "
                          f"{bnd:.3f} ms ({by})")
                 lib_ms = None
                 if case["lib"] is not None:
-                    lib_ms = cuda_time(case["lib"](pos, kw))
+                    lib_ms = cuda_time(case["lib"](pos, kw), prefill=True)
                     line += (f", cuDNN bf16 conv {lib_ms:.3f} ms: kernel / "
                              f"cuDNN {ms / lib_ms:.2f}x")
                 else:
@@ -1416,9 +1437,10 @@ def phase_train_kernels():
         err, rel = rel_err(outs[0], refs[0])
         require(rel <= TOL_FP32, f"{name} {case['label']} fp32 (training "
                 f"shape): rel err {rel:.3e} > {TOL_FP32}")
-        ms = cuda_time(lambda: case["kernel"](*pos, **kw))
-        plain_ms = cuda_time(lambda: case["twin"](*pos, **kw), n=5, warmup=1)
-        lib_ms = cuda_time(case["lib"](pos, kw))
+        ms = cuda_time(lambda: case["kernel"](*pos, **kw), prefill=True)
+        plain_ms = cuda_time(lambda: case["twin"](*pos, **kw), n=5, warmup=1,
+                              prefill=True)
+        lib_ms = cuda_time(case["lib"](pos, kw), prefill=True)
         bnd, by = bound_ms(case["io"](pos, kw, outs), case["ops"], "fp32")
         log(f"[train-kernels] {name:14s} B1 {case['label']:18s} fp32 rel "
             f"{rel:.2e} | kernel {ms:.3f} ms, twin {plain_ms:.3f} ms, bound "
@@ -1630,10 +1652,10 @@ def phase_dw_kernels(summary):
                     f"{name} {label} {dt}: two runs differ")
             require(rel <= TOL_DW, f"{name} {label} {dt}: rel err {rel:.3e} > "
                     f"{TOL_DW}")
-            ms = cuda_time(lambda: case["kernel"](x, g, **kw))
+            ms = cuda_time(lambda: case["kernel"](x, g, **kw), prefill=True)
             plain_ms = cuda_time(lambda: case["plain"](x, g, **kw), n=5,
-                                 warmup=1)
-            lib_ms = cuda_time(case["lib"](x, g))
+                                 warmup=1, prefill=True)
+            lib_ms = cuda_time(case["lib"](x, g), prefill=True)
             # the unit the kernel uses: tensor cores for bf16 where the
             # variant with them applies, CUDA cores otherwise
             mma = (dtype == torch.bfloat16 and case["fb"] >= 16

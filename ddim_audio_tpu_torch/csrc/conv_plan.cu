@@ -1,5 +1,6 @@
 // The tile-plan queries of ddim_conv3x3, ddim_conv_up, ddim_conv_down,
-// ddim_conv3x3_int8, ddim_conv3x3_store and ddim_residual_affine, and the
+// ddim_conv3x3_int8, ddim_conv3x3_store, ddim_conv_head, ddim_conv_tail and
+// ddim_residual_affine, and the
 // storage group of int8 activations (conv_plan.h).
 // Plain C++: nvcc builds it into the kernel library, and a host compiler
 // builds it alone for the CPU tests of the port's Python model of the plans.
@@ -79,6 +80,30 @@ int ddim_conv3x3_store_plan(int t_len, int f_len, int c, int bf16, int batch,
                             int scaled, int* out) {
   return write_plan(
       ddim::conv3x3_store_plan(t_len, f_len, c, bf16, batch, scaled), out);
+}
+
+// The same for ddim_conv_head (T, F, Cin, C0, bf16, B): `tiles` is the
+// statistics partials' second dimension.
+int ddim_conv_head_plan(int t_len, int f_len, int c_in, int c0, int bf16,
+                        int batch, int* out) {
+  return write_plan(
+      ddim::conv_head_plan(t_len, f_len, c_in, c0, bf16, batch), out);
+}
+
+int ddim_conv_head_variant(int t_len, int f_len, int c_in, int c0, int bf16) {
+  return ddim::conv_head_plan(t_len, f_len, c_in, c0, bf16, 1).variant;
+}
+
+// The same for ddim_conv_tail (T, F, C0, Cout, bf16, B).
+int ddim_conv_tail_plan(int t_len, int f_len, int c0, int c_out, int bf16,
+                        int batch, int* out) {
+  return write_plan(
+      ddim::conv_tail_plan(t_len, f_len, c0, c_out, bf16, batch), out);
+}
+
+int ddim_conv_tail_variant(int t_len, int f_len, int c0, int c_out,
+                           int bf16) {
+  return ddim::conv_tail_plan(t_len, f_len, c0, c_out, bf16, 1).variant;
 }
 
 // Spatial tiles per sample of ddim_residual_affine (its partials' second

@@ -215,6 +215,108 @@ DDIM_HD TilePlan conv3x3_int8_plan(int t, int f, int c, int bf16, int batch) {
   return p;
 }
 
+// ------------------------------------------------------- head and tail --
+//
+// conv_head_tail.cu. The head (Cin -> C0, 3x3) is a persistent tensor-core
+// kernel in bf16 at C0 = 32: a tile is TT = kHeadPos / F whole time rows
+// (at least one, at most kHeadRows), grid.x = min(tiles, kFillBlocks / B)
+// blocks a sample, each walking tiles blockIdx.x, + gridDim.x, ...; a block
+// keeps its statistics in registers across its tiles and writes one
+// partial, so `tiles` is the partials' second dimension. Shared memory:
+// kHeadStages output staging tiles (M positions, TT x F rounded up to
+// kHeadMU m16 tiles, x C0 bf16, stored by the bulk-copy engine), two
+// Cin-wide halos of TT + 2 rows and the statistics scratch.
+// The tail (C0 -> Cout) in bf16: a block owns a band of `tile_t` whole
+// output rows and slides down it, one input row at a time (h and residual
+// staged kTailStages rows ahead by cp.async); `tiles` is grid.x. fp32 (and
+// the head in bf16 at another C0) runs the CUDA-core kernels; a bf16 shape
+// whose rows do not fit in shared memory has no kernel.
+constexpr int kHeadMaxCin = 4;   // input channels of the head kernels, at most
+constexpr int kHeadPos = 512;    // positions a head tile aims at,
+constexpr int kHeadRows = 64;    // in at most this many rows
+constexpr int kHeadC0 = 32;      // output channels of the tensor-core head
+constexpr int kHeadMU = 2;       // m16 tiles a head warp computes at once
+constexpr int kHeadStages = 2;   // head: output staging tiles
+constexpr int kTailStages = 1;   // tail: input rows in flight
+constexpr int kTailTt = 8, kTailFt = 16;  // CUDA-core tail block: 8 x 16
+constexpr int kSMs = 132;        // an H100's SMs
+constexpr int kSmemPerSm = 233472;  // shared memory of an SM, bytes
+
+// Elements of a head halo row: Cin-wide positions -1 ... F with 8 elements
+// of pad before position 0 (16-byte aligned copies) and a pitch of 32 mod 64
+// elements (16 mod 32 words), so that rows dt and dt + 1 of an im2col read
+// fall in distinct banks.
+DDIM_HD int head_halo_pitch(int f, int c_in) {
+  return (f * c_in + 16 + 63) / 64 * 64 + 32;
+}
+
+DDIM_HD TilePlan conv_head_plan(int t, int f, int c_in, int c0, int bf16,
+                                int batch) {
+  TilePlan p;
+  const bool ok = c_in >= 1 && c_in <= kHeadMaxCin;
+  if (ok && bf16 && c0 == kHeadC0) {
+    const int tt = f >= kHeadPos                ? 1
+                   : f * kHeadRows >= kHeadPos ? kHeadPos / f
+                                               : kHeadRows;
+    const int m = cdiv(tt * f, 16 * kHeadMU) * 16 * kHeadMU;
+    p.variant = kVariantMma;
+    p.tile_t = tt;
+    p.tile_f = f;
+    const int tiles = cdiv(t, tt), cap = cdiv(kFillBlocks, batch);
+    p.tiles = tiles < cap ? tiles : cap;
+    p.groups = 1;
+    p.split = 1;
+    p.smem = kHeadStages * m * c0 * 2 +
+             2 * (tt + 2) * head_halo_pitch(f, c_in) * 2 + kMmaRed;
+    if (p.smem > kSmemLimit) p.variant = kVariantNone;  // rows too wide
+    return p;
+  }
+  p.variant = ok ? kVariantFma : kVariantNone;
+  p.tile_f = tile_f(f);
+  p.tile_t = tile_t(f);
+  p.tiles = num_tiles(t, f);
+  p.groups = cdiv(c0, 32);
+  p.split = p.groups;
+  p.smem = 0;
+  return p;
+}
+
+// Tail: P columns (df, co) padded to whole n8 tiles.
+DDIM_HD int tail_n_tiles(int c_out) { return cdiv(3 * c_out, 8); }
+
+DDIM_HD int conv_tail_smem(int f, int c0, int c_out) {
+  const int fp = cdiv(f, 16) * 16, np = 8 * tail_n_tiles(c_out);
+  return 2 * 3 * fp * (c0 + 8)                 // v rows t-1, t, t+1
+         + 2 * kTailStages * 2 * f * c0        // raw h and residual rows
+         + 4 * np * (fp + 4)                   // partials P[(df, co)][f]
+         + 2 * np * (3 * c0 + 8);              // weights [(df, co)][(dt, ci)]
+}
+
+DDIM_HD TilePlan conv_tail_plan(int t, int f, int c0, int c_out, int bf16,
+                                int batch) {
+  TilePlan p;
+  const bool ok = c0 > 0 && c0 % 32 == 0 &&
+                  (c_out == 1 || c_out == 2 || c_out == 4);
+  p.groups = 1;
+  p.split = 1;
+  if (ok && bf16) {
+    p.smem = conv_tail_smem(f, c0, c_out);
+    const int per_sm = 2 * (p.smem + 1024) <= kSmemPerSm ? 2 : 1;
+    const int band = cdiv(t, cdiv(kSMs * per_sm, batch));
+    p.variant = p.smem <= kSmemLimit ? kVariantMma : kVariantNone;
+    p.tile_t = band;
+    p.tile_f = f;
+    p.tiles = cdiv(t, band);
+    return p;
+  }
+  p.variant = ok ? kVariantFma : kVariantNone;
+  p.tile_t = kTailTt;
+  p.tile_f = kTailFt;
+  p.tiles = cdiv(t, kTailTt) * cdiv(f, kTailFt);
+  p.smem = 0;
+  return p;
+}
+
 // ----------------------------------------------- int8 activation storage --
 //
 // One fp32 scale per storage group of kTtS time rows × kFtS frequency

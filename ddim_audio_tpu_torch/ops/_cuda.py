@@ -48,7 +48,12 @@ _SIGNATURES = {
     "ddim_conv3x3_int8_geometry": (_I,),
     # T, F, C, bf16, B, out[7]
     "ddim_conv3x3_int8_plan": (_I,) * 5 + (_P,),
-    "ddim_conv_head_tiles": (_I,) * 2,
+    # T, F, Cin, C0, bf16, B, out[7]
+    "ddim_conv_head_plan": (_I,) * 6 + (_P,),
+    "ddim_conv_head_variant": (_I,) * 5,
+    # T, F, C0, Cout, bf16, B, out[7]
+    "ddim_conv_tail_plan": (_I,) * 6 + (_P,),
+    "ddim_conv_tail_variant": (_I,) * 5,
     # mode, B, T, F, Cin, Cout, bf16
     "ddim_conv_dw_splits": (_I,) * 7,
     # x, g, part, mode, B, T, F, Cin, Cout, bf16, stream

@@ -13,10 +13,18 @@ state.
 
 On a CUDA tensor each wrapper launches its hand-written Hopper kernel
 (``csrc/conv_head_tail.cu``); on a CPU tensor it runs its plain PyTorch twin
-(``*_plain``). No fallback from one to the other. Both are bound by bytes
-(the note at the top of the CUDA source). Statistics are per-(sample,
-channel) [B, C0] sums from per-block partials finished by ``torch.sum``
-(deterministic); the TPU kernel's per-lane sums fold to the same thing.
+(``*_plain``). No fallback from one to the other. Both are bound by bytes.
+bf16 takes the tensor-core kernels wherever their plan
+(``ops/tile_plan.py`` ``conv_head_plan`` / ``conv_tail_plan``, the model of
+``csrc/conv_plan.h``) does, which is every shape of audio.yml: the head's
+576 FMAs an output position would hold CUDA cores at 85% of its byte bound
+(1.2 G FMA a sample at 8192 × 256), so its products run as an im2col MMA
+(K = 9·C_in, N = C0 = 32), and the tail moves its three column taps into N
+(K = 3·C0, N = 3·C_out). fp32 keeps the CUDA-core kernels. The head's
+statistics are per-(sample, channel) [B, C0] sums of per-block partials
+(one a persistent block on the tensor cores, one a 64-position tile on CUDA
+cores) finished by ``torch.sum`` (deterministic); the TPU kernel's per-lane
+sums fold to the same thing.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ from ._cuda import (
 )
 from .conv_flat import _finish, _nchw
 from .conv_strided import _bias
+from .tile_plan import VARIANT_NONE, conv_head_plan, conv_tail_plan
 
 
 def _conv3x3_plain(v_flat, w, bias, c_in: int):
@@ -69,6 +78,14 @@ def _flat_geometry(x, c: int, name: str):
     return b, t, fc // c
 
 
+def _require_kernel(plan, name: str, shape: str) -> None:
+    """A shape no kernel takes raises, among them a bf16 one too wide for
+    the tensor-core kernel: the CUDA-core kernel never runs in its place."""
+    if plan.variant == VARIANT_NONE:
+        raise ValueError(f"{name} kernel: no variant takes {shape} (plan "
+                         f"{plan})")
+
+
 def conv_head_flat(x, w, bias, *, c_in: int, c0: int,
                    want_stats: bool = False):
     """x: [B, T, F·C_in] fp32 or bf16 → [B, T, F·C0]; w: [3, 3, C_in, C0]
@@ -84,21 +101,22 @@ def conv_head_flat(x, w, bias, *, c_in: int, c0: int,
         raise ValueError(f"conv_head_flat kernel: needs 1 <= C_in <= 4, got "
                          f"{c_in}")
     bf16 = require_cuda_dtype(x, "conv_head_flat")
+    plan = conv_head_plan(t, f, c_in, c0, bool(bf16), b)
+    _require_kernel(plan, "conv_head_flat",
+                    f"T={t} F={f} C_in={c_in} C0={c0} {x.dtype}")
     dev = x.device
     check_operand(x, "x", device=dev)
     check_operand(w, "w", device=dev, dtype=x.dtype, shape=(3, 3, c_in, c0))
     bias = _bias(bias, c0, dev)
     out = torch.empty((b, t, f * c0), dtype=x.dtype, device=dev)
+    stats = None
+    if want_stats:  # one partial a block (or CUDA-core tile): the plan's
+        stats = torch.empty((b, plan.tiles, 2, c0), dtype=torch.float32,
+                            device=dev)
     with torch.cuda.device(dev):
-        lib = kernels()
-        stats = None
-        if want_stats:
-            tiles = lib.ddim_conv_head_tiles(t, f)
-            stats = torch.empty((b, tiles, 2, c0), dtype=torch.float32,
-                                device=dev)
-        err = lib.ddim_conv_head(ptr(x), ptr(w), ptr(bias), ptr(out),
-                                 ptr(stats), b, t, f, c_in, c0, bf16,
-                                 stream_ptr(x))
+        err = kernels().ddim_conv_head(ptr(x), ptr(w), ptr(bias), ptr(out),
+                                       ptr(stats), b, t, f, c_in, c0, bf16,
+                                       stream_ptr(x))
     check(err, "conv_head_flat")
     conv_head_flat.launches += 1
     if not want_stats:
@@ -121,6 +139,8 @@ def conv_tail_flat(h, w, bias, *, c0: int, c_out: int, residual=None):
         raise ValueError(f"conv_tail_flat kernel: needs C0 % 32 == 0 and "
                          f"C_out in (1, 2, 4), got C0={c0}, C_out={c_out}")
     bf16 = require_cuda_dtype(h, "conv_tail_flat")
+    _require_kernel(conv_tail_plan(t, f, c0, c_out, bool(bf16), b),
+                    "conv_tail_flat", f"T={t} F={f} C0={c0} {h.dtype}")
     dev = h.device
     check_operand(h, "h", device=dev)
     check_operand(w, "w", device=dev, dtype=h.dtype, shape=(3, 3, c0, c_out))

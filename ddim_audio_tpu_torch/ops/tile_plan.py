@@ -1,5 +1,5 @@
-"""Tile plans of the conv3x3, up-conv, down-conv, int8-tap conv3x3 and
-int8-storage conv3x3 kernels, in Python.
+"""Tile plans of the conv3x3, up-conv, down-conv, int8-tap conv3x3,
+int8-storage conv3x3, head and tail kernels, in Python.
 
 A model of ``csrc/conv_plan.h``: which variant a call takes (0: CUDA cores,
 1: tensor cores, -1: no kernel takes the shape), the block's spatial tile,
@@ -9,8 +9,9 @@ many blocks share a tile's groups (``split``, grid.z) and the dynamic shared
 memory. ``tests/test_torch_conv_redesign.py`` holds the model against the C
 functions (``ddim_conv3x3_plan``, ``ddim_conv_up_plan``,
 ``ddim_conv_down_plan``, ``ddim_conv3x3_int8_plan``,
-``ddim_conv3x3_store_plan``, ``ddim_residual_affine_tiles``) built by the
-host compiler; ``chip_smoke.py`` against the kernel library on the card.
+``ddim_conv3x3_store_plan``, ``ddim_conv_head_plan``,
+``ddim_conv_tail_plan``, ``ddim_residual_affine_tiles``) built by the host
+compiler; ``chip_smoke.py`` against the kernel library on the card.
 """
 
 from __future__ import annotations
@@ -30,6 +31,16 @@ INT8_GROUP = (8, 16)     # int8 taps: a quantisation group's output tile
 STORE_GROUP = (8, 16)    # int8 storage: a scale's time rows × columns
 FILL_BLOCKS = 2 * 132    # two blocks on each SM of an H100
 FMA_POS = 64             # positions per block of the CUDA-core kernels
+HEAD_MAX_CIN = 4         # input channels of the head kernels, at most
+HEAD_POS = 512           # positions a tensor-core head tile aims at,
+HEAD_ROWS = 64           # in at most this many rows
+HEAD_C0 = 32             # output channels of the tensor-core head
+HEAD_MU = 2              # m16 tiles a head warp computes at once
+HEAD_STAGES = 2          # head: output staging tiles
+TAIL_STAGES = 1          # tail: input rows in flight
+TAIL_FMA_TILE = (8, 16)  # the CUDA-core tail block's output tile
+SMS = 132                # an H100's SMs
+SMEM_PER_SM = 233_472    # shared memory of an SM
 
 
 class TilePlan(NamedTuple):
@@ -188,10 +199,61 @@ def conv3x3_store_plan(t: int, f: int, c: int, bf16: bool, batch: int = 1,
     return TilePlan(VARIANT_MMA, tt, q_f, tiles, groups, split, smem)
 
 
+def head_halo_pitch(f: int, c_in: int) -> int:
+    """Elements of a head halo row (16 words mod 32, 8 elements of pad)."""
+    return _cdiv(f * c_in + 16, 64) * 64 + 32
+
+
+def conv_head_plan(t: int, f: int, c_in: int, c0: int, bf16: bool,
+                   batch: int = 1) -> TilePlan:
+    """The plan of ``ddim_conv_head`` at [batch, t, f, c_in] → c0. bf16 at
+    C0 = 32: the persistent tensor-core kernel, tiles of ``tile_t`` whole
+    rows (HEAD_POS positions, at least one row and at most HEAD_ROWS),
+    ``tiles`` = blocks a sample = statistics partials a sample (one a
+    block), no kernel where its rows do not fit in shared memory; else the
+    CUDA-core kernel, one partial a 64-position tile."""
+    cin_ok = 1 <= c_in <= HEAD_MAX_CIN
+    if cin_ok and bf16 and c0 == HEAD_C0:
+        tt = 1 if f >= HEAD_POS else min(HEAD_POS // f, HEAD_ROWS)
+        m = _cdiv(tt * f, 16 * HEAD_MU) * 16 * HEAD_MU
+        smem = (HEAD_STAGES * m * c0 * 2
+                + 2 * (tt + 2) * head_halo_pitch(f, c_in) * 2 + MMA_RED)
+        blocks = min(_cdiv(t, tt), _cdiv(FILL_BLOCKS, batch))
+        return TilePlan(VARIANT_MMA if smem <= SMEM_LIMIT else VARIANT_NONE,
+                        tt, f, blocks, 1, 1, smem)
+    plan = _fma_plan(t, f, c0)
+    return plan if cin_ok else plan._replace(variant=VARIANT_NONE)
+
+
+def tail_smem(f: int, c0: int, c_out: int) -> int:
+    """Shared memory of the tensor-core tail: three v rows, TAIL_STAGES raw
+    h and residual rows, the partials P and the weights."""
+    fp, np_ = _cdiv(f, 16) * 16, 8 * _cdiv(3 * c_out, 8)
+    return (2 * 3 * fp * (c0 + 8) + 2 * TAIL_STAGES * 2 * f * c0
+            + 4 * np_ * (fp + 4) + 2 * np_ * (3 * c0 + 8))
+
+
+def conv_tail_plan(t: int, f: int, c0: int, c_out: int, bf16: bool,
+                   batch: int = 1) -> TilePlan:
+    """The plan of ``ddim_conv_tail`` at [batch, t, f, c0] → c_out. bf16:
+    the tensor-core kernel, a block a band of ``tile_t`` whole rows,
+    ``tiles`` bands a sample (as many blocks as stay resident on the card,
+    spread over the batch), no kernel where a row does not fit in shared
+    memory; fp32: the CUDA-core kernel on 8 × 16 tiles."""
+    ok = c0 > 0 and c0 % 32 == 0 and c_out in (1, 2, 4)
+    if ok and bf16:
+        smem = tail_smem(f, c0, c_out)
+        per_sm = 2 if 2 * (smem + 1024) <= SMEM_PER_SM else 1
+        band = _cdiv(t, _cdiv(SMS * per_sm, batch))
+        return TilePlan(VARIANT_MMA if smem <= SMEM_LIMIT else VARIANT_NONE,
+                        band, f, _cdiv(t, band), 1, 1, smem)
+    tt, ft = TAIL_FMA_TILE
+    return TilePlan(VARIANT_FMA if ok else VARIANT_NONE, tt, ft,
+                    _cdiv(t, tt) * _cdiv(f, ft), 1, 1, 0)
+
+
 def library_plan(fn, *args) -> TilePlan:
-    """A plan as the C query ``fn`` (``ddim_conv3x3_plan``,
-    ``ddim_conv_up_plan``, ``ddim_conv_down_plan``,
-    ``ddim_conv3x3_int8_plan`` or ``ddim_conv3x3_store_plan`` of a loaded
+    """A plan as the C query ``fn`` (``ddim_<kernel>_plan`` of a loaded
     library) reports it."""
     out = (ctypes.c_int * len(TilePlan._fields))()
     fn(*args, ctypes.cast(out, ctypes.c_void_p))

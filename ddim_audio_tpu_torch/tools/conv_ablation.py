@@ -1,31 +1,45 @@
 """Where the time of the bf16 tensor-core conv3x3, up and down kernels, of
-the int8-tap conv3x3 and of the int8-storage conv3x3 goes, on the card: each
-kernel built again with one piece of its work taken out.
+the int8-tap conv3x3, of the int8-storage conv3x3 and of the head and tail
+convs goes, on the card: each kernel built again with one piece of its work
+taken out.
 
     python -m ddim_audio_tpu_torch.tools.conv_ablation [--out FILE]
-        [--kernels conv3x3,up,down,int8,store]
+        [--kernels conv3x3,up,down,int8,store,head,tail] [--csrc DIR]
 
-Copies ``csrc`` into a temporary folder once per variant, edits the sources
-there (``no_mma``: the tap products; ``no_weights``: the weight stream after
-the first stages, for the int8 kernel its one staging of the nine taps;
-``no_epilogue``: the epilogue, the MMAs kept (the int8 kernel keeps its
-quad transpose and statistics and drops its SiLU and stores); ``no_halo``:
-the down conv's input-halo copy, the int8 kernel's prefetch of the next
-group's raw input, the storage conv's whole prologue pass (its halo left as
-it is); ``no_requant``: the int8 kernel's requantisation pass),
-builds ``conv3x3.cu``, ``conv_strided.cu``, ``conv3x3_int8.cu``,
-``conv3x3_store.cu`` and ``conv_plan.cu`` of each copy with nvcc, all at
+Copies ``csrc`` (or ``--csrc``, another checkout's kernel sources, e.g. a
+parent's unpacked under ``exp/parent/``) into a temporary folder once per
+variant, edits the sources there (``no_mma``: the tap products, for the
+head and tail on CUDA cores their FMAs; ``no_weights``: the weight stream
+after the first stages, for the int8 kernel its one staging of the nine
+taps, for the head and tail their weight loads; ``no_epilogue``: the
+epilogue, the MMAs kept (the int8 kernel keeps its quad transpose and
+statistics and drops its SiLU and stores; the tensor-core head drops its
+bulk stores, the tensor-core tail its shifted sum and stores, the CUDA-core
+tail its shuffle tree and stores); ``no_halo``: the down conv's input-halo
+copy, the int8 kernel's prefetch of the next group's raw input, the
+storage conv's whole prologue pass (its halo left as it is), the
+tensor-core head's prefetch of the next tile's halo and the tensor-core
+tail's input rows after the first kTailStages (the CUDA-core head and tail:
+their halo staging); ``no_requant``: the int8 kernel's requantisation pass;
+``no_stats``: the head's statistics), builds ``conv3x3.cu``,
+``conv_strided.cu``, ``conv3x3_int8.cu``, ``conv3x3_store.cu``,
+``conv_head_tail.cu`` and ``conv_plan.cu`` of each copy with nvcc, all at
 once, and times the C entry points (``ddim_conv3x3``, ``ddim_conv_up``,
-``ddim_conv_down``, ``ddim_conv3x3_int8``, ``ddim_conv3x3_store``) with
-CUDA events at the audio.yml shapes (the storage conv at s0-s3, int8 x with
-its scales, ``quant_out``), B = 1 and 2, every fusion on, against the same
-call of the unedited build, the unedited build without its fused residual
-(``no_residual``; conv3x3, the int8 taps and the storage conv also without
-the affine and SiLU prologue: ``no_prologue``) and one cuDNN call of the
-bare conv. An edit that does not apply to a kernel
-leaves it as built, and its column repeats ``full``. The edited builds
-compute wrong results on purpose: only their times mean anything. Prints
-one line per shape.
+``ddim_conv_down``, ``ddim_conv3x3_int8``, ``ddim_conv3x3_store``,
+``ddim_conv_head``, ``ddim_conv_tail``) with CUDA events, the card held
+busy while the host queues the timed calls, at the audio.yml
+shapes (the storage conv at s0-s3, int8 x with its scales, ``quant_out``;
+the head with statistics and the tail with its residual at 8192 x 256), B =
+1 and 2, every fusion on, against the same call of the unedited build, the
+unedited build without its fused residual (``no_residual``; conv3x3, the
+int8 taps and the storage conv also without the affine and SiLU prologue:
+``no_prologue``) and one cuDNN call of the bare conv. An edit of
+``conv_head_tail.cu`` lists alternatives for the CUDA-core kernels (which
+fp32 keeps, and which bf16 ran before the tensor-core ones) and the
+tensor-core ones, so a parent's sources take the same variants. An edit
+that does not apply to a kernel leaves it as built, and its column repeats
+``full``. The edited builds compute wrong results on purpose: only their
+times mean anything. Prints one line per shape.
 """
 
 from __future__ import annotations
@@ -46,6 +60,7 @@ import torch.nn.functional as F
 from ..ops import _cuda
 from ..ops.conv_flat import quantize_store
 from ..ops.tile_plan import (
+    _fma_plan,
     conv3x3_int8_plan,
     conv3x3_plan,
     conv3x3_store_plan,
@@ -59,8 +74,9 @@ UPS = [(4096, 128, 64, 32), (2048, 64, 96, 64), (1024, 32, 128, 96),
        (512, 16, 192, 128), (256, 8, 256, 192)]
 DOWNS = [(8192, 256, 32, 64), (4096, 128, 64, 96), (2048, 64, 96, 128),
          (1024, 32, 128, 192), (512, 16, 192, 256)]
+HEAD_TAIL = [(8192, 256)]  # the head's input and the tail's output (T, F)
 SOURCES = ("conv3x3.cu", "conv_strided.cu", "conv3x3_int8.cu",
-           "conv3x3_store.cu", "conv_plan.cu")
+           "conv3x3_store.cu", "conv_head_tail.cu", "conv_plan.cu")
 _MMA = ("warp_mma_k16(acc, aa,", "if (s < 0) warp_mma_k16(acc, aa,")
 _RING3 = (r"if \(s \+ kConvStages - 1 < nsteps\)\n      Blk::load_stage",
           "if (false)\n      Blk::load_stage")
@@ -100,31 +116,107 @@ VARIANTS = {
     "no_requant": [
         ("conv3x3_int8.cu", r"if \(hp < kHaloQ\) \{\n        const Vec8 v = unpack8",
          "if (hp < 0) {\n        const Vec8 v = unpack8")],
+    "no_stats": [],
 }
-KERNELS = ("conv3x3", "up", "down", "int8", "store")
+# The head and tail (conv_head_tail.cu): each edit lists alternatives, for the
+# CUDA-core kernels and for the tensor-core ones; at least one of each
+# edit's alternatives must match, so that --csrc can take a checkout that
+# has only the CUDA-core kernels.
+HEAD_TAIL_EDITS = {
+    "no_mma": [
+        # head: the FMAs (CUDA cores); the k16 and k8 MMAs (tensor cores)
+        ((r"acc\[i\] = fmaf\(xs\[", "if (tap < 0) acc[i] = fmaf(xs["),
+         (r"\n              mma_bf16_from\(",
+          "\n              if (tile >= 0) { acc[u][nt][0] = acc[u][nt][1] = "
+          "acc[u][nt][2] = acc[u][nt][3] = bs[nt][0]; } else mma_bf16_from("),
+         (r"\n              mma_bf16\(acc\[u\]\[nt\], a, bw\[s\]",
+          "\n              if (tile < 0) mma_bf16(acc[u][nt], a, bw[s]"),
+         (r"mma_bf16_k8\(acc\[u\]\[nt\], a0, a1, bw8",
+          "if (tile < 0) mma_bf16_k8(acc[u][nt], a0, a1, bw8")),
+        # tail: the FMAs; the MMAs
+        ((r"acc\[i\]\[co\] = fmaf\(v, wr", "if (tap < 0) acc[i][co] = fmaf(v, wr"),
+         (r"mma_bf16\(acc\[nt\], a, \*reinterpret_cast",
+          "if (j < 0) mma_bf16(acc[nt], a, *reinterpret_cast")),
+    ],
+    "no_weights": [
+        # head: the 9·Cin·32 weights staged from global memory; the B
+        # fragments' loads
+        ((r"idx < 9 \* c_in \* kCoTile; idx \+= kThreads",
+          "idx < 0; idx += kThreads"),
+         (r"bf16_bits\(w\[k \* C0 \+ ch\]\)", "(uint32_t)(k + ch)")),
+        # tail: the lane's 9·Cout weights from global memory; the staged B
+        ((r"wr\[tap\]\[co\] =\s*to_f\(w\[\(\(size_t\)tap \* c0 \+ c0s \+ lane\) \* COUT \+ co\]\);",
+          "wr[tap][co] = 0.5f * (tap + co + lane);"),
+         (r"\? w\[\(\(size_t\)\(dt \* 3 \+ df\) \* c0 \+ ci\) \* COUT \+ co\]",
+          "? __float2bfloat16((float)(k + n))")),
+    ],
+    "no_halo": [
+        # head: the Cin-wide halo; the next tile's halo copy
+        ((r"idx < hn \* c_in; idx \+= kThreads", "idx < 0; idx += kThreads"),
+         (r"if \(nxt < n_tiles\) load_halo", "if (nxt < 0) load_halo")),
+        # tail: the summed, rounded 10 × 18 × 32 halo; the rows streamed in
+        # after the first kTailStages
+        ((r"idx < kTailHalo \* kTailCk / 8;", "idx < 0;"),
+         (r"\n    load_raw\(j \+ S\);", "\n    if (j < 0) load_raw(j + S);")),
+    ],
+    "no_epilogue": [
+        # head: bias, statistics and stores; the bulk store of each tile
+        ((r"if \(t < t_len && f < f_len && co < c0\) \{",
+          "if (t < t_len && f < f_len && co < c0 && c_in < 0) {"),
+         (r"if \(threadIdx.x == 0\) \{  // the tile's rows",
+          "if (threadIdx.x == 0 && t_len < 0) {  // the tile's rows")),
+        # tail: the shuffle tree over the lanes and the stores; the shifted
+        # sum of P and the stores
+        ((r"for \(int m = 16; m > 0; m >>= 1\)\n        acc\[i\]\[co\]",
+          "for (int m = 16; m > c0; m >>= 1)\n        acc[i][co]"),
+         (r"if \(j >= 3\) epilogue\(", "if (j >= 3 && c0 < 0) epilogue(")),
+        ((r"if \(e < kTailFt \* COUT && f < f_len\)",
+          "if (e < kTailFt * COUT && f < f_len && c0 < 0)"),
+         (r"\n  epilogue\(r1 - 1\);", "\n  if (c0 < 0) epilogue(r1 - 1);")),
+    ],
+    "no_stats": [
+        # head: the block's partial (its barrier and stores); the per-value
+        # (sum, sum²) in registers
+        ((r"if \(stats != nullptr\) \{\n    float\* dst",
+          "if (stats != nullptr && c_in < 0) {\n    float* dst"),
+         (r"if \(ok\[u\]\[hh\]\) \{", "if (ok[u][hh] && t_len < 0) {")),
+    ],
+}
+KERNELS = ("conv3x3", "up", "down", "int8", "store", "head", "tail")
 
 
-def build(root: Path) -> dict:
-    """One library per variant, built in parallel; each copy sets its own
-    shared-memory attribute (the template's guard is shared by every loaded
-    copy of the same symbol)."""
+def build(root: Path, csrc: Path, variants) -> dict:
+    """One library per variant, built in parallel from a copy of ``csrc``;
+    each copy sets its own shared-memory attribute (the template's guard is
+    shared by every loaded copy of the same symbol)."""
     procs = {}
-    for name, edits in VARIANTS.items():
+    for name in variants:
         d = root / name
-        shutil.copytree(_cuda.CSRC, d)
+        shutil.copytree(csrc, d)
         for fn in ("conv3x3.cu", "conv_strided.cu", "conv3x3_int8.cu",
-                   "conv3x3_store.cu"):
+                   "conv3x3_store.cu", "conv_head_tail.cu"):
             q = d / fn
             q.write_text(q.read_text()
                          .replace("static bool raised = false;",
                                   "bool raised = false;")
                          .replace("static int grid_cap = 0;",
                                   "int grid_cap = 0;"))
-        for fn, pat, rep in edits:
+        for fn, pat, rep in VARIANTS[name]:
             q = d / fn
             text, n = re.subn(pat, rep, q.read_text())
             if n == 0:
                 raise RuntimeError(f"{name}: no match for {pat} in {fn}")
+            q.write_text(text)
+        q = d / "conv_head_tail.cu"
+        for alternatives in HEAD_TAIL_EDITS.get(name, ()):
+            text, hits = q.read_text(), 0
+            for pat, rep in alternatives:
+                text, n = re.subn(pat, rep, text)
+                hits += n
+            if hits == 0:
+                raise RuntimeError(f"{name}: no match for any of "
+                                   f"{[a[0] for a in alternatives]} in "
+                                   "conv_head_tail.cu")
             q.write_text(text)
         procs[name] = subprocess.Popen(
             [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-shared", "-o",
@@ -146,8 +238,17 @@ def build(root: Path) -> dict:
             + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         lib.ddim_conv3x3_store.argtypes = [ctypes.c_void_p] * 11 \
             + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        lib.ddim_conv_head.argtypes = [ctypes.c_void_p] * 5 \
+            + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        lib.ddim_conv_tail.argtypes = [ctypes.c_void_p] * 5 \
+            + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         libs[name] = lib
     return libs
+
+
+# Cycles the card sleeps before the timed calls (~25-35 ms), so that the
+# events time the card alone and not the host's calls (chip_smoke.py).
+PREFILL_CYCLES = 50_000_000
 
 
 def cuda_ms(fn, n: int = 20, warmup: int = 3) -> float:
@@ -156,6 +257,7 @@ def cuda_ms(fn, n: int = 20, warmup: int = 3) -> float:
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(PREFILL_CYCLES)  # the host queues the calls meanwhile
     a.record()
     for _ in range(n):
         fn()
@@ -169,8 +271,21 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None, help="also write the lines here")
     ap.add_argument("--kernels", default=",".join(KERNELS),
                     help="comma-separated subset of " + ",".join(KERNELS))
+    ap.add_argument("--csrc", default=str(_cuda.CSRC),
+                    help="the kernel sources to ablate (default: this "
+                    "package's; another checkout's csrc for a parent)")
     args = ap.parse_args(argv)
     todo = set(args.kernels.split(","))
+    if not todo <= set(KERNELS):
+        print(f"conv_ablation: --kernels is a subset of {','.join(KERNELS)}",
+              file=sys.stderr)
+        return 2
+    # the variants that edit something the chosen kernels run
+    variants = ["full"]
+    if todo - {"head", "tail"}:
+        variants += [v for v, e in VARIANTS.items() if e]
+    if todo & {"head", "tail"}:
+        variants += [v for v in HEAD_TAIL_EDITS if v not in variants]
     if not torch.cuda.is_available():
         print("conv_ablation: needs an NVIDIA GPU", file=sys.stderr)
         return 1
@@ -191,7 +306,7 @@ def main(argv=None) -> int:
 
     st = torch.cuda.current_stream().cuda_stream
     with tempfile.TemporaryDirectory(dir=os.environ.get("TMPDIR")) as tmp:
-        libs = build(Path(tmp))
+        libs = build(Path(tmp), Path(args.csrc), variants)
         for bsz in (1, 2):
             for t, f, c in STAGES if "conv3x3" in todo else ():
                 x, res = rnd(bsz, t, f * c).bfloat16(), rnd(bsz, t, f * c).bfloat16()
@@ -336,6 +451,51 @@ def main(argv=None) -> int:
                 xn = x.bfloat16().permute(0, 3, 1, 2)
                 row.append(f"cudnn {cuda_ms(lambda: F.conv2d(xn, wl, padding=1)):.4f}")
                 emit(" | ".join(row))
+            for t, f in HEAD_TAIL if todo & {"head", "tail"} else ():
+                # chip_smoke.py's operands: Cin = Cout = 2, C0 = 32
+                x = rnd(bsz, t, f * 2).bfloat16()
+                wh, bh = rnd(3, 3, 2, 32, scale=0.2).bfloat16(), rnd(32)
+                h, res = (rnd(bsz, t, f * 32).bfloat16(),
+                          rnd(bsz, t, f * 32).bfloat16())
+                wt = rnd(3, 3, 32, 2, scale=(9 * 32) ** -0.5).bfloat16()
+                bt = rnd(2)
+                out_h, out_t = torch.empty_like(h), torch.empty_like(x)
+                # as many partials as either head kernel writes
+                stats = torch.empty(bsz, _fma_plan(t, f, 32).tiles, 2, 32,
+                                    device="cuda")
+                for kind in sorted(todo & {"head", "tail"}):
+                    row = [f"{kind} B{bsz} T{t} F{f}"]
+                    for name, lib in libs.items():
+                        def run(lib=lib, res_on=True, kind=kind):
+                            if kind == "head":
+                                err = lib.ddim_conv_head(
+                                    x.data_ptr(), wh.data_ptr(), bh.data_ptr(),
+                                    out_h.data_ptr(), stats.data_ptr(), bsz, t,
+                                    f, 2, 32, 1, st)
+                            else:
+                                err = lib.ddim_conv_tail(
+                                    h.data_ptr(),
+                                    res.data_ptr() if res_on else None,
+                                    wt.data_ptr(), bt.data_ptr(),
+                                    out_t.data_ptr(), bsz, t, f, 32, 2, 1, st)
+                            if err:
+                                raise RuntimeError(f"ddim_conv_{kind} {name}: "
+                                                   f"{err}")
+                        row.append(f"{name} {cuda_ms(run):.4f}")
+                        if name == "full" and kind == "tail":
+                            row.append("no_residual "
+                                       f"{cuda_ms(lambda: run(res_on=False)):.4f}")
+                    if kind == "head":
+                        wl = wh.permute(3, 2, 0, 1).contiguous(
+                            memory_format=torch.channels_last)
+                        xn = x.view(bsz, t, f, 2).permute(0, 3, 1, 2)
+                    else:
+                        wl = wt.permute(3, 2, 0, 1).contiguous(
+                            memory_format=torch.channels_last)
+                        xn = h.view(bsz, t, f, 32).permute(0, 3, 1, 2)
+                    row.append("cudnn "
+                               f"{cuda_ms(lambda: F.conv2d(xn, wl, padding=1)):.4f}")
+                    emit(" | ".join(row))
     if args.out:
         Path(args.out).write_text("\n".join(lines) + "\n")
     return 0

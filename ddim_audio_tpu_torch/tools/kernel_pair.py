@@ -1,12 +1,13 @@
-"""Time the bf16 down conv, the int8-tap conv3x3 and the int8-storage conv3x3
-of a checkout, on the card, at the audio.yml shapes, B = 1 and 2, against
-one cuDNN call of the bare conv; for comparing two checkouts of this package
-in one machine, in turns.
+"""Time the bf16 down conv, the int8-tap conv3x3, the int8-storage conv3x3
+and the head and tail convs of a checkout, on the card, at the audio.yml
+shapes, B = 1 and 2, against one cuDNN call of the bare conv; for comparing
+two checkouts of this package in one machine, in turns.
 
     python3 -m ddim_audio_tpu_torch.tools.kernel_pair LABEL [KINDS]
     (cd <other checkout> && python3 <this checkout>/ddim_audio_tpu_torch/tools/kernel_pair.py LABEL [KINDS])
 
-KINDS is a comma-separated subset of down,int8,store (default: all three).
+KINDS is a comma-separated subset of down,int8,store,head,tail (default:
+all five).
 
 The package is imported from the current directory, so the same file times
 whichever checkout it is run in (one that predates the ``wq_t`` argument of
@@ -15,9 +16,13 @@ wrappers' own, with the operands of chip_smoke.py's ``[kernels]`` phase:
 down with statistics, the int8 taps with every fusion on, with and without
 the fused residual, the storage conv in the mode of the int8-storage
 forward's interior convs (int8 x with its scales, GroupNorm affine + SiLU
-prologue, + add, SiLU, statistics, ``quant_out``) at s0-s3. Times are
-CUDA-event means over 20 calls after 3 warm-up calls. Prints one line per shape, then the sums, then the card's name and
-power limit.
+prologue, + add, SiLU, statistics, ``quant_out``) at s0-s3, the head
+(2 -> 32, with statistics) and the tail (32 -> 2, with the head skip as its
+residual) at 8192 x 256. Times are CUDA-event means over 20 calls after 3
+warm-up calls, the card held busy while the host queues them, so that they
+are the card's time; the head and tail lines also give the host's time per
+wrapper call. Prints one line per shape, then the sums, then the card's
+name and power limit.
 """
 
 from __future__ import annotations
@@ -31,7 +36,13 @@ DOWNS = [(8192, 256, 32, 64), (4096, 128, 64, 96), (2048, 64, 96, 128),
          (1024, 32, 128, 192), (512, 16, 192, 256)]
 INT8_STAGES = [(8192, 256, 32), (4096, 128, 64), (2048, 64, 96)]
 STORE_STAGES = INT8_STAGES + [(1024, 32, 128)]
-KINDS = ("down", "int8", "store")
+HEAD_TAIL = [(8192, 256)]  # the head's input and the tail's output (T, F)
+KINDS = ("down", "int8", "store", "head", "tail")
+
+
+# Cycles the card sleeps before the timed calls (~25-35 ms), so that the
+# events time the card alone and not the host's calls (chip_smoke.py).
+PREFILL_CYCLES = 50_000_000
 
 
 def cuda_ms(torch, fn, n: int = 20, warmup: int = 3) -> float:
@@ -40,12 +51,27 @@ def cuda_ms(torch, fn, n: int = 20, warmup: int = 3) -> float:
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(PREFILL_CYCLES)  # the host queues the calls meanwhile
     a.record()
     for _ in range(n):
         fn()
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / n
+
+
+def host_us(torch, fn, n: int = 20) -> float:
+    """Host microseconds per call while the card is busy (nothing waits)."""
+    import time
+
+    torch.cuda.synchronize()
+    torch.cuda._sleep(PREFILL_CYCLES)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
 
 
 def main(argv=None) -> int:
@@ -63,7 +89,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("kernel_pair: needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    from ddim_audio_tpu_torch.ops import conv_flat, conv_strided
+    from ddim_audio_tpu_torch.ops import conv_flat, conv_head_tail, conv_strided
 
     torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -133,6 +159,32 @@ def main(argv=None) -> int:
             add(("store cudnn", bsz), lib)
             print(f"{label} store B{bsz} C{c} kernel {k:.4f} cudnn {lib:.4f} "
                   f"ratio {k / lib:.2f}", flush=True)
+        for t, f in HEAD_TAIL if kinds & {"head", "tail"} else ():
+            # chip_smoke.py's operands: C_in = C_out = 2, C0 = 32
+            x = rnd(bsz, t, f * 2).bfloat16()
+            wh, bh = rnd(3, 3, 2, 32, scale=0.2).bfloat16(), rnd(32)
+            h, res = rnd(bsz, t, f * 32).bfloat16(), rnd(bsz, t, f * 32).bfloat16()
+            wt = rnd(3, 3, 32, 2, scale=(9 * 32) ** -0.5).bfloat16()
+            bt = rnd(2)
+            calls = {
+                "head": (lambda: conv_head_tail.conv_head_flat(
+                    x, wh, bh, c_in=2, c0=32, want_stats=True),
+                    x.view(bsz, t, f, 2), wh),
+                "tail": (lambda: conv_head_tail.conv_tail_flat(
+                    h, wt, bt, c0=32, c_out=2, residual=res),
+                    h.view(bsz, t, f, 32), wt)}
+            for kind in sorted(kinds & set(calls)):
+                fn, xin, w = calls[kind]
+                k = cuda_ms(torch, fn)
+                wl = w.permute(3, 2, 0, 1).contiguous(
+                    memory_format=torch.channels_last)
+                xn = xin.permute(0, 3, 1, 2)
+                lib = cuda_ms(torch, lambda: F.conv2d(xn, wl, padding=1))
+                add((kind, bsz), k)
+                add((kind + " cudnn", bsz), lib)
+                print(f"{label} {kind} B{bsz} T{t} F{f} kernel {k:.4f} cudnn "
+                      f"{lib:.4f} ratio {k / lib:.2f} host "
+                      f"{host_us(torch, fn):.1f} us/call", flush=True)
     for (name, bsz), v in sorted(sums.items()):
         print(f"{label} sum {name} B{bsz} {v:.4f}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

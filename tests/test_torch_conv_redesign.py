@@ -43,6 +43,8 @@ from ddim_audio_tpu_torch.ops.tile_plan import (
     conv3x3_plan,
     conv3x3_store_plan,
     conv_down_plan,
+    conv_head_plan,
+    conv_tail_plan,
     conv_up_plan,
     library_plan,
 )
@@ -74,7 +76,8 @@ def plan_lib(tmp_path_factory):
     lib = ctypes.CDLL(str(lib_path))
     for name, n in (("ddim_conv3x3_plan", 5), ("ddim_conv_up_plan", 6),
                     ("ddim_conv_down_plan", 6), ("ddim_conv3x3_int8_plan", 5),
-                    ("ddim_conv3x3_store_plan", 6)):
+                    ("ddim_conv3x3_store_plan", 6), ("ddim_conv_head_plan", 6),
+                    ("ddim_conv_tail_plan", 6)):
         getattr(lib, name).argtypes = [ctypes.c_int] * n + [ctypes.c_void_p]
     return lib
 
@@ -166,6 +169,37 @@ def test_tile_plans_match_the_c_plans(plan_lib):
                    for s in UPS)
         assert all(conv3x3_plan(*s, False, b).variant == VARIANT_FMA
                    for s in STAGES)
+    # the head (T, F, Cin, C0) and tail (T, F, C0, Cout): the production
+    # shape, chip_smoke.py's 40 x 24, and a ragged sweep
+    sweep = [(t, f) for t in (1, 7, 33, 300, 8192)
+             for f in (1, 5, 8, 13, 24, 40, 256, 600, 4096)]
+    heads = [(t, f, ci, c0) for t, f in sweep for ci in (0, 1, 2, 3, 4, 5)
+             for c0 in (8, 16, 32, 64)]
+    tails = [(t, f, c0, co) for t, f in sweep
+             for c0 in (16, 32, 64, 96, 128, 256) for co in (1, 2, 3, 4)]
+    for kind, shapes, model in (("head", heads, conv_head_plan),
+                                ("tail", tails, conv_tail_plan)):
+        fn = getattr(plan_lib, f"ddim_conv_{kind}_plan")
+        for shape in shapes:
+            for bf16 in (0, 1):
+                for b in (1, 2, 3):
+                    want = library_plan(fn, *shape, bf16, b)
+                    assert model(*shape, bool(bf16), b) == want, (kind, shape)
+                    assert getattr(plan_lib, f"ddim_conv_{kind}_variant")(
+                        *shape, bf16) == want.variant
+    for b in (1, 2):
+        for t, f in ((8192, 256), (40, 24)):
+            # bf16 on the tensor cores, fp32 on CUDA cores, both shapes
+            head = conv_head_plan(t, f, 2, 32, True, b)
+            tail = conv_tail_plan(t, f, 32, 2, True, b)
+            assert head.variant == tail.variant == VARIANT_MMA
+            assert conv_head_plan(t, f, 2, 32, False, b).variant == \
+                conv_tail_plan(t, f, 32, 2, False, b).variant == VARIANT_FMA
+            assert head.tile_f == tail.tile_f == f  # whole rows
+        # one statistics partial a block: about FILL_BLOCKS blocks in all
+        assert conv_head_plan(8192, 256, 2, 32, True, b).tiles * b == 264
+    # two tail blocks an SM: bands of 32 rows
+    assert conv_tail_plan(8192, 256, 32, 2, True, 1)[1:4] == (32, 256, 256)
     # s5 at B = 1 (16 tiles) shares its four groups over grid.z; s0 does not
     assert conv3x3_plan(256, 8, 256, True, 1).split == 4
     assert conv3x3_plan(8192, 256, 32, True, 1).split == 1
