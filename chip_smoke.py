@@ -31,7 +31,8 @@ phase on its own lines:
    tail's small ragged one (``ddim_conv3x3_variant``,
    ``ddim_conv_up_variant``, ``ddim_conv_down_variant``,
    ``ddim_conv_head_variant``, ``ddim_conv_tail_variant``; 192->256 at
-   f_out = 8 included) and fp32 the CUDA-core one, that the int8 taps keep
+   f_out = 8 included) and fp32 the CUDA-core one (the down conv: its
+   split-TF32 tensor-core one), that the int8 taps keep
    their 8 x 16 quantisation group (``ddim_conv3x3_int8_geometry``), and
    that the same call twice gives the same bits. Each kernel's sums at B = 2 in bf16 close the phase: kernel /
    cuDNN and the share of the bound;
@@ -45,7 +46,9 @@ phase on its own lines:
    statistics relative, the same call twice bit-equal, the storage conv's
    tile plan (the library's equal to the Python model, the tensor-core
    variant in bf16 at every storage shape and the CUDA-core one in fp32,
-   tiles of whole 8 x 16 storage groups), and for bf16 the kernel's, the
+   tiles of whole 8 x 16 storage groups), the int8 up conv's plan (the
+   library's equal to the Python model, one partial an 8 x 16 group) and
+   its output bit-equal to the twin's, and for bf16 the kernel's, the
    twin's, the bound's and the one PyTorch call's time with kernel / cuDNN
    (``residual_affine_flat`` has none: no single call dequantises, adds and
    requantises per group), then each kernel's B = 2 sum;
@@ -91,9 +94,11 @@ phase on its own lines:
    bit, the kernel's and the plain version's time, the bound, and the one
    PyTorch call (``torch.nn.grad.conv2d_weight``; fp32 with TF32 off);
    then the float-tap conv3x3, down and up kernels in fp32 at the same
-   shapes (``[train-kernels]``: their CUDA-core variants, which training
-   runs): agreement with the twin, the kernel's, twin's and bound's time and
-   one ``F.conv2d`` / ``F.conv_transpose2d`` call's (fp32, TF32 off);
+   shapes (``[train-kernels]``: the variants training runs, conv3x3 and up
+   on CUDA cores, down in split TF32 on the tensor cores, whose plan must
+   equal the Python model and whose calls must give the same bits twice):
+   agreement with the twin, the kernel's, twin's and bound's time and one
+   ``F.conv2d`` / ``F.conv_transpose2d`` call's (fp32, TF32 off);
 8. grad: one microbatch forward + backward of the full audio.yml model
    (fp32, remat) on the non-zero-GN3 weights: the kernel route, the same
    through the plain twins with every wrapper call shadowed by its kernel,
@@ -236,9 +241,12 @@ TOL_GRAD_LEAF = 1e-4
 TOL_BF16_LOSS = 2e-2
 
 # Published H100 SXM peaks: HBM bytes/s and dense operations/s by operand type
-# (fp32 outside the tensor cores).
+# (fp32 outside the tensor cores; "tf32x3": the split-TF32 fp32 down conv,
+# three TF32 tensor-core products an fp32 one, 495 / 3 TFLOP/s).
 PEAK_BYTES = 3.35e12
-PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12,
+            "tf32x3": 495e12 / 3}
+VARIANT_NAMES = {0: "fma", 1: "mma", 2: "tf32x3"}
 
 # Production stage shapes at [1, 2, 8192, 256] (T, F, C), and transitions
 # (T_in, F_in, C_in, C_out) of the down path.
@@ -626,10 +634,11 @@ def check_plan(case, bsz, bf16) -> str:
     """The redesigned kernels (conv3x3_flat, conv_up_flat, conv_down_flat,
     conv3x3_flat_int8, conv_head_flat, conv_tail_flat): the library's tile
     plan equals the Python model the wrapper sizes its partials from, and
-    the variant is the tensor-core kernel in bf16 (the CUDA-core one in
-    fp32; the int8 taps run on the tensor cores in both, over the
-    quantisation group the geometry query reports, 8 × 16 with a 1-position
-    halo). Returns the plan's note for the kernel's line."""
+    the variant is the tensor-core kernel in bf16 (in fp32 the CUDA-core
+    one, but for the down conv's split-TF32 kernel; the int8 taps run on the
+    tensor cores in both, over the quantisation group the geometry query
+    reports, 8 × 16 with a 1-position halo). Returns the plan's note for the
+    kernel's line."""
     from ddim_audio_tpu_torch.ops import _cuda, tile_plan
 
     kind, shape = case["plan"]
@@ -645,10 +654,11 @@ def check_plan(case, bsz, bf16) -> str:
         variant, want = got.variant, tile_plan.VARIANT_MMA
     else:
         variant = getattr(lib, f"ddim_{kind}_variant")(*shape, bf16)
-        want = tile_plan.VARIANT_MMA if bf16 else tile_plan.VARIANT_FMA
+        want = (tile_plan.VARIANT_MMA if bf16 else tile_plan.VARIANT_TF32
+                if kind == "conv_down" else tile_plan.VARIANT_FMA)
     require(variant == want == got.variant,
             f"{tag}: variant {variant}, want {want}")
-    return (f" | {'mma' if variant else 'fma'} tile {got.tile_t}x{got.tile_f}"
+    return (f" | {VARIANT_NAMES[variant]} tile {got.tile_t}x{got.tile_f}"
             f" split {got.split}/{got.groups}")
 
 
@@ -702,7 +712,8 @@ def phase_kernels(summary):
                 ms = cuda_time(lambda: kern(*pos, **kw), prefill=True)
                 plain_ms = cuda_time(lambda: twin(*pos, **kw), n=5, warmup=1,
                                       prefill=True)
-                kind = "int8" if case["int8"] else dt
+                kind = ("int8" if case["int8"] else "tf32x3"
+                        if dt == "fp32" and name == "conv_down_flat" else dt)
                 bnd, by = bound_ms(case["io"](pos, kw, outs), case["ops"], kind)
                 line += (f" | kernel {ms:.3f} ms, twin {plain_ms:.3f} ms, bound "
                          f"{bnd:.3f} ms ({by})")
@@ -743,7 +754,8 @@ def _int8_cases(torch, bsz):
     import torch.nn.functional as F
 
     from ddim_audio_tpu_torch.ops.conv_flat import (
-        conv3x3_flat_plain, conv3x3_flat_store, quantize_store)
+        conv3x3_flat_plain, conv3x3_flat_store, int8_weights_co_ci,
+        quantize_store)
     from ddim_audio_tpu_torch.ops.conv_strided import (
         conv_down_flat_int8, conv_down_flat_int8_plain, conv_up_flat_int8,
         conv_up_flat_int8_plain, quantize_strided_weights_int8,
@@ -824,12 +836,17 @@ def _int8_cases(torch, bsz):
             b = rnd(co)
             res = rnd(bsz, 2 * t, 2 * f * co) if up else None
 
+            wq_t = int8_weights_co_ci(wq) if up else None
+
             def make(dt, x=x, wq=wq, ws=ws, b=b, res=res, ci=ci, co=co,
-                     up=up):
+                     up=up, wq_t=wq_t):
                 kw = dict(c_in=ci, c_out=co, want_stats=True)
-                if up:
-                    kw["residual"] = res.to(dt)
+                if up:  # the weights as prepare_params lays them out
+                    kw.update(residual=res.to(dt), wq_t=wq_t)
                 return (x.to(dt), wq, ws, b), kw
+
+            def twin_up(*pos, wq_t=None, **kw):  # the twin reads HWIO wq
+                return conv_up_flat_int8_plain(*pos, **kw)
 
             def lib(pos, kw, w=w, ci=ci, up=up):
                 if up:
@@ -845,10 +862,11 @@ def _int8_cases(torch, bsz):
                 name="conv_up_flat_int8" if up else "conv_down_flat_int8",
                 label=f"T{t} F{f} {ci}->{co}",
                 kernel=conv_up_flat_int8 if up else conv_down_flat_int8,
-                twin=conv_up_flat_int8_plain if up else conv_down_flat_int8_plain,
+                twin=twin_up if up else conv_down_flat_int8_plain,
                 make=make, layout=("out", "stats", "stats"), io=io_of, lib=lib,
                 kind="int8", timed=True,
-                ops=2.0 * (4 if up else 16) * ci * co * to * fo * bsz))
+                ops=2.0 * (4 if up else 16) * ci * co * to * fo * bsz,
+                **({"up_plan": (t, f, ci, co)} if up else {})))
     return cases
 
 
@@ -894,6 +912,30 @@ def check_store_plan(case, bsz, bf16) -> str:
             f"{got.tile_f} split {got.split}/{got.groups}")
 
 
+def check_up_int8_plan(case, bsz, bf16, outs, refs) -> str:
+    """The persistent int8-tap up conv: the library's tile plan equals the
+    Python model the wrapper sizes its partials from (one a quantisation
+    group of 8 × 16 outputs), the tensor-core variant, and its output
+    equals the twin's bit for bit. Returns the note for the line."""
+    import torch
+
+    from ddim_audio_tpu_torch.ops import _cuda, tile_plan
+
+    shape = case["up_plan"]
+    lib = _cuda.kernels()
+    model = tile_plan.conv_up_int8_plan(*shape, bool(bf16), bsz)
+    got = tile_plan.library_plan(lib.ddim_conv_up_int8_plan, *shape, bf16,
+                                 bsz)
+    tag = f"{case['name']} B{bsz} {case['label']} bf16={bf16}"
+    require(got == model, f"{tag}: library plan {got} != Python model {model}")
+    require(got.variant == tile_plan.VARIANT_MMA and got[1:3] == (8, 16),
+            f"{tag}: plan {got}")
+    require(torch.equal(outs[0], refs[0]), f"{tag}: output differs from the "
+            "twin's")
+    return (f" | persistent mma group {got.tile_t}x{got.tile_f} z "
+            f"{got.split}, bit-equal to the twin")
+
+
 def phase_int8_kernels(summary):
     """The int8-storage kernels (conv3x3 storage modes, residual_affine) and
     the int8 strided taps against their twins (the kernels' own groups) at
@@ -931,6 +973,9 @@ def phase_int8_kernels(summary):
                         f"{strel:.2e} | twice bit-equal {same}")
                 if "store_plan" in case:
                     line += check_store_plan(case, bsz, int(dt == "bf16"))
+                if "up_plan" in case:
+                    line += check_up_int8_plan(case, bsz, int(dt == "bf16"),
+                                               outs, refs)
                 require(same, f"{name} {label} {dt}: two runs differ")
                 require(mx <= 1 and eq >= INT8_EQUAL_SHARE,
                         f"{name} {label} {dt}: int8 outputs equal {eq:.6f}, "
@@ -1417,13 +1462,17 @@ def _dw_cases(torch):
 
 
 def phase_train_kernels():
-    """The float-tap conv3x3, down and up kernels in fp32 (their CUDA-core
-    variants, which training runs 2,730 / 140 / 140 times an optimizer
-    step) at the stage shapes of one training microbatch [1, 2, 1024, 256],
-    every fusion on: agreement with the twin, then the kernel's, the twin's,
-    the bound's (fp32 at 67 TFLOP/s outside the tensor cores) and the one
-    PyTorch call's time (``F.conv2d`` / ``F.conv_transpose2d`` in fp32, TF32
-    off), kernel / library; then each kernel's sum over its shapes."""
+    """The float-tap conv3x3, down and up kernels in fp32 (which training
+    runs 2,730 / 140 / 140 times an optimizer step: conv3x3 and up on CUDA
+    cores, down in split TF32 on the tensor cores) at the stage shapes of
+    one training microbatch [1, 2, 1024, 256], every fusion on: agreement
+    with the twin, then the kernel's, the twin's, the bound's (fp32 at 67
+    TFLOP/s outside the tensor cores; for the down conv the larger of its
+    bytes and three TF32 products an operation at 495 TFLOP/s, the CUDA-core
+    bound beside it) and the one PyTorch call's time (``F.conv2d`` /
+    ``F.conv_transpose2d`` in fp32, TF32 off), kernel / library; then each
+    kernel's sum over its shapes. The down conv also: the library's plan =
+    the Python model, the split-TF32 variant, twice bit-equal."""
     import torch
 
     sums = {}
@@ -1437,15 +1486,27 @@ def phase_train_kernels():
         err, rel = rel_err(outs[0], refs[0])
         require(rel <= TOL_FP32, f"{name} {case['label']} fp32 (training "
                 f"shape): rel err {rel:.3e} > {TOL_FP32}")
+        note, kind, extra = "", "fp32", ""
+        if name == "conv_down_flat":
+            note = check_plan(case, 1, 0)
+            again = case["kernel"](*pos, **kw)
+            require(all(torch.equal(a, b) for a, b in zip(outs, again)),
+                    f"{name} {case['label']} fp32: two calls differ")
+            note += f", twice bit-equal, SNR {snr_db(outs[0], refs[0]):.1f} dB"
+            kind = "tf32x3"
+            fma_bnd, _ = bound_ms(case["io"](pos, kw, outs), case["ops"],
+                                  "fp32")
+            extra = f", CUDA-core bound {fma_bnd:.3f} ms"
         ms = cuda_time(lambda: case["kernel"](*pos, **kw), prefill=True)
         plain_ms = cuda_time(lambda: case["twin"](*pos, **kw), n=5, warmup=1,
                               prefill=True)
         lib_ms = cuda_time(case["lib"](pos, kw), prefill=True)
-        bnd, by = bound_ms(case["io"](pos, kw, outs), case["ops"], "fp32")
+        bnd, by = bound_ms(case["io"](pos, kw, outs), case["ops"], kind)
         log(f"[train-kernels] {name:14s} B1 {case['label']:18s} fp32 rel "
-            f"{rel:.2e} | kernel {ms:.3f} ms, twin {plain_ms:.3f} ms, bound "
-            f"{bnd:.3f} ms ({by}), cuDNN fp32 (TF32 off) {lib_ms:.3f} ms: "
-            f"kernel / cuDNN {ms / lib_ms:.2f}x, bound / kernel {bnd / ms:.1%}")
+            f"{rel:.2e}{note} | kernel {ms:.3f} ms, twin {plain_ms:.3f} ms, "
+            f"bound {bnd:.3f} ms ({by}{extra}), cuDNN fp32 (TF32 off) "
+            f"{lib_ms:.3f} ms: kernel / cuDNN {ms / lib_ms:.2f}x, bound / "
+            f"kernel {bnd / ms:.1%}")
         acc = sums.setdefault(name, [0.0, 0.0, 0.0, 0.0])
         for i, v in enumerate((ms, bnd, lib_ms, plain_ms)):
             acc[i] += v

@@ -78,68 +78,6 @@ __host__ __device__ constexpr int int8_min_blocks(int c) {
   return c == 32 ? 3 : c == 64 ? 2 : 1;
 }
 
-// Eight values of T as they sit in memory (one or two 16-byte words).
-template <typename T>
-struct Raw8;
-template <>
-struct Raw8<__nv_bfloat16> {
-  uint4 w;
-  __device__ __forceinline__ static Raw8 load(const __nv_bfloat16* p) {
-    return {*reinterpret_cast<const uint4*>(p)};
-  }
-  __device__ __forceinline__ Vec8 vec() const { return unpack8(w); }
-  // x + r rounded to bf16, as bf16x2 additions: the exact sum rounded once,
-  // which is the fp32 sum rounded to bf16 (the twin's x + residual in bf16)
-  __device__ __forceinline__ Vec8 plus(const Raw8& r) const {
-    uint4 s;
-    const uint32_t* a = &w.x;
-    const uint32_t* b = &r.w.x;
-    uint32_t* d = &s.x;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const __nv_bfloat162 t =
-          __hadd2(*reinterpret_cast<const __nv_bfloat162*>(a + k),
-                  *reinterpret_cast<const __nv_bfloat162*>(b + k));
-      d[k] = *reinterpret_cast<const uint32_t*>(&t);
-    }
-    return unpack8(s);
-  }
-};
-template <>
-struct Raw8<float> {
-  float4 a, b;
-  __device__ __forceinline__ static Raw8 load(const float* p) {
-    return {*reinterpret_cast<const float4*>(p),
-            *reinterpret_cast<const float4*>(p + 4)};
-  }
-  __device__ __forceinline__ Vec8 vec() const {
-    return {{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w}};
-  }
-  __device__ __forceinline__ Vec8 plus(const Raw8& r) const {
-    Vec8 v = vec();
-    const Vec8 u = r.vec();
-#pragma unroll
-    for (int k = 0; k < 8; ++k) v.v[k] += u.v[k];
-    return v;
-  }
-};
-
-// clip(rint(v · inv), −127, 127) of four values, packed as int8 bytes. The
-// bf16 values v never exceed amax in magnitude, so |v · inv| ≤ 127 (to
-// within two fp32 roundings) and the clip never acts; adding 1.5·2^23 to
-// the rounded product rounds it to the nearest integer, ties to even, into
-// the low mantissa bits, whose low byte is the int8 value: a full-rate add
-// in place of a float-to-int conversion, which runs at a quarter of the
-// rate on an H100, beside the SiLU's exponential and reciprocal.
-__device__ __forceinline__ uint32_t quant4(const float* v, float inv) {
-  uint32_t q[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k)
-    q[k] = __float_as_uint(__fadd_rn(__fmul_rn(v[k], inv), 12582912.0f));
-  return __byte_perm(__byte_perm(q[0], q[1], 0x0040),
-                     __byte_perm(q[2], q[3], 0x0040), 0x5410);
-}
-
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }

@@ -1,7 +1,8 @@
 // Pieces of the tensor-core conv kernels (conv3x3.cu, conv3x3_store.cu,
-// conv_strided.cu up and down; conv3x3_int8.cu takes the copies, ldmatrix
-// and statistics): cp.async staging, ldmatrix fragment loads,
-// mma.sync.m16n8k16 bf16 → fp32, the register epilogue's quad transpose and
+// conv_strided.cu up and down; conv3x3_int8.cu and conv_strided_int8.cu take
+// the copies, ldmatrix, the int8 items and requant and the statistics):
+// cp.async staging, ldmatrix fragment loads, mma.sync.m16n8k16 bf16 → fp32
+// and m16n8k8 split TF32 → fp32, the register epilogue's quad transpose and
 // statistics, and the conv3x3 block's weight ring and tap steps
 // (Conv3x3Mma), which the float-tap and the int8-storage conv3x3 share.
 //
@@ -98,6 +99,47 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// TF32 (cvt.rna: round to nearest, ties away from zero, onto 10 explicit
+// mantissa bits; the low 13 bits zero) of an fp32 value.
+__device__ __forceinline__ uint32_t to_tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// v = hi + lo to about 2^-22 of |v|: hi its TF32 rounding, lo the TF32
+// rounding of the (exact) remainder. Zero splits into two zeros.
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(v);
+  lo = to_tf32(__fsub_rn(v, __uint_as_float(hi)));
+}
+
+// D += A·B, A 16×8 (row), B 8×8 (col), TF32 operands, fp32 accumulators.
+// Fragments: a0 (row gid, k tig), a1 (gid + 8, tig), a2 (gid, tig + 4),
+// a3 (gid + 8, tig + 4); b0 (k tig, n gid), b1 (k tig + 4, n gid); D as
+// mma_bf16's.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// D += A·B in split TF32: lo·hi + hi·lo + hi·hi, the small products first
+// (lo·lo, about 2^-22 of the product, is left out).
+__device__ __forceinline__ void mma_tf32x3(float (&d)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           const uint32_t (&bh)[2],
+                                           const uint32_t (&bl)[2]) {
+  mma_tf32(d, al, bh[0], bh[1]);
+  mma_tf32(d, ah, bl[0], bl[1]);
+  mma_tf32(d, ah, bh[0], bh[1]);
+}
+
 // One k16 step of a warp tile of MT m16 tiles: A rows at a_addr[mt] (byte
 // addresses in shared memory of lane l's row l % 16, k half l / 16), B from
 // a stage at b_addr (lane l's k row and n half, see below).
@@ -158,6 +200,70 @@ __device__ __forceinline__ Vec8 quad_gather(const float (&acc)[kNT][4], int r,
       if (s == p) b[s] = got;
   }
   return {{b[0].x, b[0].y, b[1].x, b[1].y, b[2].x, b[2].y, b[3].x, b[3].y}};
+}
+
+// Eight values of T as they sit in memory (one or two 16-byte words): the
+// int8-tap kernels hold a staged item in registers across the group's amax
+// reduction and requantise it from there.
+template <typename T>
+struct Raw8;
+template <>
+struct Raw8<__nv_bfloat16> {
+  uint4 w;
+  __device__ __forceinline__ static Raw8 load(const __nv_bfloat16* p) {
+    return {*reinterpret_cast<const uint4*>(p)};
+  }
+  __device__ __forceinline__ Vec8 vec() const { return unpack8(w); }
+  // x + r rounded to bf16, as bf16x2 additions: the exact sum rounded once,
+  // which is the fp32 sum rounded to bf16 (the twin's x + residual in bf16)
+  __device__ __forceinline__ Vec8 plus(const Raw8& r) const {
+    uint4 s;
+    const uint32_t* a = &w.x;
+    const uint32_t* b = &r.w.x;
+    uint32_t* d = &s.x;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const __nv_bfloat162 t =
+          __hadd2(*reinterpret_cast<const __nv_bfloat162*>(a + k),
+                  *reinterpret_cast<const __nv_bfloat162*>(b + k));
+      d[k] = *reinterpret_cast<const uint32_t*>(&t);
+    }
+    return unpack8(s);
+  }
+};
+template <>
+struct Raw8<float> {
+  float4 a, b;
+  __device__ __forceinline__ static Raw8 load(const float* p) {
+    return {*reinterpret_cast<const float4*>(p),
+            *reinterpret_cast<const float4*>(p + 4)};
+  }
+  __device__ __forceinline__ Vec8 vec() const {
+    return {{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w}};
+  }
+  __device__ __forceinline__ Vec8 plus(const Raw8& r) const {
+    Vec8 v = vec();
+    const Vec8 u = r.vec();
+#pragma unroll
+    for (int k = 0; k < 8; ++k) v.v[k] += u.v[k];
+    return v;
+  }
+};
+
+// clip(rint(v · inv), −127, 127) of four values, packed as int8 bytes. The
+// values v never exceed amax in magnitude, so |v · inv| ≤ 127 (to within
+// two fp32 roundings) and the clip never acts; adding 1.5·2^23 to the
+// rounded product rounds it to the nearest integer, ties to even, into the
+// low mantissa bits, whose low byte is the int8 value: a full-rate add in
+// place of a float-to-int conversion, which runs at a quarter of the rate
+// on an H100.
+__device__ __forceinline__ uint32_t quant4(const float* v, float inv) {
+  uint32_t q[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    q[k] = __float_as_uint(__fadd_rn(__fmul_rn(v[k], inv), 12582912.0f));
+  return __byte_perm(__byte_perm(q[0], q[1], 0x0040),
+                     __byte_perm(q[2], q[3], 0x0040), 0x5410);
 }
 
 // Sum over the 8 lanes of one quad column (same tig, gid = 0 … 7) in a fixed

@@ -1,6 +1,6 @@
 // The tile-plan queries of ddim_conv3x3, ddim_conv_up, ddim_conv_down,
-// ddim_conv3x3_int8, ddim_conv3x3_store, ddim_conv_head, ddim_conv_tail and
-// ddim_residual_affine, and the
+// ddim_conv_up_int8, ddim_conv3x3_int8, ddim_conv3x3_store, ddim_conv_head,
+// ddim_conv_tail and ddim_residual_affine, and the
 // storage group of int8 activations (conv_plan.h).
 // Plain C++: nvcc builds it into the kernel library, and a host compiler
 // builds it alone for the CPU tests of the port's Python model of the plans.
@@ -65,6 +65,14 @@ int ddim_conv_down_plan(int t_in, int f_in, int c_in, int c_out, int bf16,
                         int batch, int* out) {
   return write_plan(
       ddim::conv_down_plan(t_in, f_in, c_in, c_out, bf16, batch), out);
+}
+
+// The same for ddim_conv_up_int8, in its input geometry (T, F, C_in, C_out,
+// bf16, B): `tiles` is the partials' second dimension, one a group.
+int ddim_conv_up_int8_plan(int t_in, int f_in, int c_in, int c_out, int bf16,
+                           int batch, int* out) {
+  return write_plan(
+      ddim::conv_up_int8_plan(t_in, f_in, c_in, c_out, bf16, batch), out);
 }
 
 // The same for ddim_conv3x3_int8 (T, F, C, bf16 storage, B).

@@ -30,10 +30,13 @@ DDIM_HD int num_tiles(int t_out, int f_out) {
 // ---------------------------------------------- tensor-core (mma.sync) --
 //
 // Variants: 0 = CUDA cores (fp32, and bf16 where channels are no multiple
-// of 32), 1 = tensor cores (mma.sync.m16n8k16 bf16, fp32 accumulation).
+// of 32), 1 = tensor cores (mma.sync.m16n8k16 bf16, fp32 accumulation),
+// 2 = tensor cores in split TF32 (fp32 operands as hi + lo TF32 pairs, three
+// mma.sync.m16n8k8 products: the fp32 down conv).
 constexpr int kVariantNone = -1;  // no kernel takes the shape (the call raises)
 constexpr int kVariantFma = 0;
 constexpr int kVariantMma = 1;
+constexpr int kVariantTf32 = 2;
 constexpr int kMmaK = 32;         // input channels per weight stage
 // cp.async ring depth; a conv3x3 stage holds a tap row (3 taps), an up
 // stage one tap of each of the four parity classes
@@ -42,11 +45,21 @@ constexpr int kUpStages = 3;
 // conv_down ring: a stage holds kDownTaps taps (a tap row) × 32 ci × NB co
 constexpr int kDownStages = 3;
 constexpr int kDownTaps = 4;
+// split-TF32 down conv: its halo streams through in chunks of kTf32K input
+// channels (two buffers, kTf32Pitch floats a position: 80 bytes, so the 8
+// rows of an ldmatrix fall in distinct banks), its weights through a
+// kTf32Stages-deep ring of tap rows (kDownTaps taps × kTf32K ci × NB co)
+constexpr int kTf32K = 16;
+constexpr int kTf32Pitch = kTf32K + 4;
+constexpr int kTf32Stages = 3;
 constexpr int kMmaRed = 2048;     // bytes of the statistics scratch
 constexpr int kSmemLimit = 232448;
 // Blocks the grid should reach before the halo is staged more than once:
 // two resident blocks on each of the H100's 132 SMs.
-constexpr int kFillBlocks = 2 * 132;
+constexpr int kSMs = 132;  // an H100's SMs
+constexpr int kFillBlocks = 2 * kSMs;
+// the split-TF32 down conv's K split, at most (blocks of a cluster)
+constexpr int kTf32MaxSplit = 8;
 
 struct TilePlan {
   int variant;
@@ -148,10 +161,48 @@ DDIM_HD int conv_down_smem(int tt, int ft, int c_in, int nb) {
          kMmaRed;
 }
 
+// The fp32 down conv in split TF32 (conv_down_tf32_kernel): the bf16
+// kernel's warps (WM × WN, MT m16 tiles × 32 channels a warp) and
+// parity-split halo, but one output-channel group a block (grid.z: the
+// halo streams through in kTf32K-channel chunks, re-read from L2 per group,
+// 0.3·C_in bytes an output against its 48·C_in tensor-core products), MT = 2
+// (128 or 256 positions) where one sample's grid reaches kFillBlocks, else
+// MT = 1 (so that the tiles, the partials' dimension, do not depend on the
+// batch; training runs microbatches of one). Where a sample's grid stays
+// under kSMs blocks, the chunks split over up to kTf32MaxSplit blocks (a
+// cluster; grid.z = split = groups · the K split).
+DDIM_HD int conv_down_tf32_smem(int tt, int ft, int nb) {
+  return 4 * (2 * (2 * tt + 2) * (2 * ft + 2) * kTf32Pitch +
+              kTf32Stages * kDownTaps * kTf32K * (nb + 8)) +
+         kMmaRed;
+}
+
 DDIM_HD TilePlan conv_down_plan(int t_in, int f_in, int c_in, int c_out,
                                 int bf16, int batch) {
   const int t_out = t_in / 2, f_out = f_in / 2;
   TilePlan p;
+  if (!bf16 && c_in % 32 == 0 && c_out % 32 == 0) {
+    const int wn = conv_down_warps_n(c_out), nb = 32 * wn;
+    p.variant = kVariantTf32;
+    p.tile_f = f_out >= 16 ? 16 : 8;
+    p.tile_t = 16 * 2 * (8 / wn) / p.tile_f;  // MT = 2
+    p.groups = c_out / nb;
+    p.tiles = cdiv(t_out, p.tile_t) * cdiv(f_out, p.tile_f);
+    if (p.tiles * p.groups < kFillBlocks) {  // MT = 1 (a sample's grid)
+      p.tile_t /= 2;
+      p.tiles = cdiv(t_out, p.tile_t) * cdiv(f_out, p.tile_f);
+    }
+    // a K split (a cluster of blocks along z) where a sample's grid does not
+    // reach one block an SM, each block two chunks at least
+    const int blocks = p.tiles * p.groups, half = c_in / kTf32K / 2;
+    int ksplit = blocks >= kSMs ? 1 : kSMs / blocks;
+    if (ksplit > half) ksplit = half;
+    if (ksplit > kTf32MaxSplit) ksplit = kTf32MaxSplit;
+    if (ksplit < 1) ksplit = 1;
+    p.split = p.groups * ksplit;
+    p.smem = conv_down_tf32_smem(p.tile_t, p.tile_f, nb);
+    return p;
+  }
   if (bf16 && c_in % kMmaK == 0 && c_out % 32 == 0) {
     const int wn = conv_down_warps_n(c_out), nb = 32 * wn;
     p.variant = kVariantMma;
@@ -202,6 +253,40 @@ DDIM_HD constexpr int conv3x3_int8_smem(int c, int bf16) {
          4 * 16;
 }
 
+// The int8-tap up conv (conv_up_int8_kernel): the quantisation group of the
+// int8 strided kernels (an 8 × 16 output tile, its 4 × 8 input tile and a
+// 1-position halo: 6 × 10 input positions, all C_in, one scale), walked by
+// persistent blocks of kUpI8Co output channels each (grid.z = C_out /
+// kUpI8Co). A block stages all 16 taps' int8 weights [tap][co][ci] once,
+// and per group the raw halo (in x's dtype), the int8 halo and the
+// statistics and amax scratch. `tiles` is the partials' second dimension
+// (one a group); grid.x is as many blocks as stay resident.
+constexpr int kUpI8Co = 32;
+constexpr int kUpI8Halo = (kTtQ / 2 + 2) * (kFtQ / 2 + 2);
+
+DDIM_HD constexpr int conv_up_int8_smem(int c_in, int bf16) {
+  return 16 * kUpI8Co * int8_pitch(c_in) +
+         (kUpI8Halo * int8_pitch(c_in) + 15) / 16 * 16 +
+         kUpI8Halo * c_in * (bf16 ? 2 : 4) + 4 * (8 * 2 * kUpI8Co + 8);
+}
+
+DDIM_HD TilePlan conv_up_int8_plan(int t_in, int f_in, int c_in, int c_out,
+                                   int bf16, int batch) {
+  TilePlan p;
+  p.tile_t = kTtQ;
+  p.tile_f = kFtQ;
+  p.tiles = cdiv(2 * t_in, kTtQ) * cdiv(2 * f_in, kFtQ);
+  p.groups = cdiv(c_out, kUpI8Co);
+  p.split = p.groups;
+  p.smem = conv_up_int8_smem(c_in, bf16);
+  const bool ok = c_in > 0 && c_in % 32 == 0 && c_in <= 256 && c_out > 0 &&
+                  c_out % kUpI8Co == 0 && p.smem <= kSmemLimit;
+  p.variant = ok ? kVariantMma : kVariantNone;
+  if (!ok) p.smem = 0;
+  (void)batch;
+  return p;
+}
+
 DDIM_HD TilePlan conv3x3_int8_plan(int t, int f, int c, int bf16, int batch) {
   TilePlan p;
   p.variant = c == 32 || c == 64 || c == 96 ? kVariantMma : kVariantNone;
@@ -239,7 +324,6 @@ constexpr int kHeadMU = 2;       // m16 tiles a head warp computes at once
 constexpr int kHeadStages = 2;   // head: output staging tiles
 constexpr int kTailStages = 1;   // tail: input rows in flight
 constexpr int kTailTt = 8, kTailFt = 16;  // CUDA-core tail block: 8 x 16
-constexpr int kSMs = 132;        // an H100's SMs
 constexpr int kSmemPerSm = 233472;  // shared memory of an SM, bytes
 
 // Elements of a head halo row: Cin-wide positions -1 ... F with 8 elements

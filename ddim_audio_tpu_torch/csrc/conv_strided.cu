@@ -19,7 +19,7 @@
 // Both can emit per-block partial (sum, sum²) of the fp32 output (for up: of
 // the summed output up(h) + residual) before the store cast.
 //
-// down, two variants picked per call (conv_down_plan, conv_plan.h;
+// down, three variants picked per call (conv_down_plan, conv_plan.h;
 // ddim_conv_down_variant reports it):
 // - conv_down_mma_kernel (bf16, C_in % 32 == 0, C_out % 32 == 0: every bf16
 //   transition of audio.yml, 192→256 at f_out = 8 included). On an H100 the
@@ -56,7 +56,31 @@
 //   still takes 64% of its time at 32→64 and 51% at 64→96 (B = 1)
 //   (tools/conv_ablation.py, PERF.md): staging, ldmatrix and the ring's
 //   barriers, not the tensor cores, hold it.
-// - conv_down_kernel (fp32, and bf16 with channels no multiple of 32): FMA
+// - conv_down_tf32_kernel (fp32, C_in % 32 == 0, C_out % 32 == 0: the
+//   training transitions and the dx of the up convs, ops/flat_grad.py): the
+//   bf16 kernel's block on the tensor cores in split TF32. Each fp32
+//   operand is split once into hi = tf32(v) and lo = tf32(v − hi), and
+//   mma.sync.m16n8k8 accumulates lo·hi + hi·lo + hi·hi into fp32: 16·C_in
+//   MACs an output at three products each, 495 / 3 TFLOP/s at best against
+//   the 67 of the CUDA cores, at fp32 accuracy (single-pass TF32 keeps ten
+//   mantissa bits and fails the training's 100 dB per-call guard). The
+//   tensor cores' fp32 accumulation is not IEEE round-to-nearest, so each
+//   ring step (a tap row × 16 channels) sums into accumulators of its own,
+//   added into the block's total by IEEE fp32 additions: each
+//   truncating sum spans 48 products, not all 48·C_in. fp32 doubles the
+//   halo's bytes, so the halo streams through two buffers in 16-channel
+//   chunks beside a 3-deep ring of tap-row weight stages, and a block owns
+//   one output-channel group (grid.z); A fragments come by ldmatrix (8
+//   rows of 16 bytes are 8 rows × 4 fp32), B by 32-bit shared-memory reads
+//   (ldmatrix.trans moves 16-bit elements); the epilogue runs from the
+//   registers as the bf16 kernel's. The kernel before this design (below,
+//   which fp32 and bf16 keep where channels are no multiple of 32) ran
+//   0.398 / 0.253 / 0.161 / 0.175 / 0.251 ms from 32→64 to 192→256 at the
+//   training shapes (B = 1, H100 80GB HBM3 at 700 W, chip_smoke.py), 16-23%
+//   of its fp32 FMA bound and 2.3 times one fp32 cuDNN call; this one
+//   0.135 / 0.116 / 0.060 / 0.044 / 0.028 ms on the same card, 0.73 times
+//   that call summed, each call 122-127 dB against it (PERF.md).
+// - conv_down_kernel (fp32 and bf16 with channels no multiple of 32): FMA
 //   implicit GEMM, 16·Cin MACs per output element, bound by FMA issue and
 //   shared-memory reads. 64 output positions × 32 output channels per block,
 //   input halo and weights staged per chunk as fp32, 8 accumulators per
@@ -96,6 +120,8 @@
 // - conv_up_kernel (fp32, and bf16 with channels no multiple of 32): the FMA
 //   implicit GEMM, 4·Cin MACs per output element; every warp owns one
 //   (row, column) parity class so each staged weight is reused 8 times.
+#include <cooperative_groups.h>
+
 #include "conv_mma.cuh"
 
 namespace ddim {
@@ -491,6 +517,280 @@ cudaError_t launch_conv_down_mma(const TilePlan& p, const void* x,
   return cudaGetLastError();
 }
 
+// The fp32 down conv on the tensor cores in split TF32. A block owns TT × FT
+// output positions (16·MT·WM) × the NB output channels of group
+// blockIdx.z / ksplit, and input channels chunks kz·C/ksplit … of them (kz
+// = blockIdx.z % ksplit). Step s = 4·kc + dt of the K loop stages tap row dt (taps
+// (dt, 0 … 3)) × input channels kTf32K·kc … +15 × NB into a kTf32Stages-deep
+// cp.async ring; the first step of chunk kc also stages that chunk's input
+// halo (rows 2·t0 − 1 … 2·t0 + 2TT, columns 2·f0 − 1 … 2·f0 + 2FT, zero
+// outside, each row's even columns before its odd ones as in
+// conv_down_mma_kernel) into halo buffer kc % 2, which chunk kc − 2 last
+// read. Warp (wm, wn) computes MT m16 tiles × 32 channels: per k8 step its A
+// fragments by ldmatrix at each position's own halo address and B by 32-bit
+// reads (pitch NB + 8 ≡ 8 mod 32 words: conflict-free), each split into
+// TF32 hi and lo, then three mma.sync.m16n8k8 a tile pair. A step sums into
+// acc_s, which IEEE additions fold into acc when the step ends. Where a
+// sample's grid is small (128→192, 192→256) the plan splits the chunks over
+// ksplit blocks of one thread block cluster (grid.z = groups · ksplit): each
+// leaves its sums in its shared memory, and rank 0 adds the ranks' sums in
+// rank order over the cluster's distributed shared memory, then runs the
+// epilogue, so the result does not depend on which block finishes first.
+template <int MT, int WN>
+__global__ void __launch_bounds__(kThreads, 1) conv_down_tf32_kernel(
+    const float* __restrict__ x, const float* __restrict__ w,
+    const float* __restrict__ bias, float* __restrict__ out,
+    float* __restrict__ stats, int t_in, int f_in, int c_in, int c_out,
+    int ksplit) {
+  constexpr int kWarpsM = 8 / WN;
+  constexpr int kM = 16 * MT * kWarpsM;   // output positions per block
+  constexpr int kNB = 32 * WN;            // output channels per block
+  constexpr int kWP = kNB + 8;            // stage pitch (floats)
+  constexpr int kTap = kTf32K * kWP;      // one tap's 16 ci × NB in a stage
+  constexpr int kStage = kDownTaps * kTap;
+  constexpr int kTf32Q = kTf32K / 4;      // 16-byte copies a halo position
+  extern __shared__ __align__(16) unsigned char smem[];
+
+  const int t_out = t_in / 2, f_out = f_in / 2;
+  const int ft = f_out >= 16 ? 16 : 8, tt = kM / ft;
+  const int hw = 2 * ft + 2, half = ft + 1, hn = (2 * tt + 2) * hw;
+  float* halo = reinterpret_cast<float*>(smem);  // [2][hn][kTf32Pitch]
+  float* ring = halo + 2 * hn * kTf32Pitch;      // [stages][taps][16 ci][kWP]
+  float* red = ring + kTf32Stages * kStage;      // [kWarpsM][2][kNB]
+
+  const int b = blockIdx.y;
+  const int g = blockIdx.z / ksplit, kz = blockIdx.z % ksplit;
+  const int tiles_f = (f_out + ft - 1) / ft;
+  const int t0 = (blockIdx.x / tiles_f) * tt, f0 = (blockIdx.x % tiles_f) * ft;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp % kWarpsM, wn = warp / kWarpsM;
+  const int gid = lane >> 2, tig = lane & 3;
+  const size_t xb = (size_t)b * t_in * f_in * c_in;
+  const size_t ob = (size_t)b * t_out * f_out * c_out;
+  // this block's steps: chunks kz·chunks/ksplit … (kz + 1)·chunks/ksplit − 1
+  const int chunks = c_in / kTf32K;
+  const int s_lo = 4 * (kz * chunks / ksplit);
+  const int s_hi = 4 * ((kz + 1) * chunks / ksplit);
+
+  auto load_stage = [&](int s) {
+    const int kc = s >> 2, dt = s & 3;
+    float* dst = ring + (s % kTf32Stages) * kStage;
+    for (int i = threadIdx.x; i < kDownTaps * kTf32K * kNB / 4;
+         i += kThreads) {
+      const int q = i % (kNB / 4), r = (i / (kNB / 4)) % kTf32K;
+      const int df = i / (kTf32K * kNB / 4);
+      cp_async16(dst + df * kTap + r * kWP + 4 * q,
+                 w + ((size_t)(dt * 4 + df) * c_in + kc * kTf32K + r) * c_out +
+                     g * kNB + 4 * q);
+    }
+    if (dt != 0) return;
+    float* hb = halo + (kc & 1) * hn * kTf32Pitch;
+    for (int i = threadIdx.x; i < hn * kTf32Q; i += kThreads) {
+      const int hp = i / kTf32Q, q = i % kTf32Q;
+      const int hr = hp / hw, hc = hp % hw;
+      const int t = 2 * t0 - 1 + hr, f = 2 * f0 - 1 + hc;
+      const bool inside = t >= 0 && t < t_in && f >= 0 && f < f_in;
+      const float* src =
+          inside ? x + xb + ((size_t)t * f_in + f) * c_in + kc * kTf32K + 4 * q
+                 : x;
+      cp_async16_zfill(
+          hb + (hr * hw + (hc & 1) * half + (hc >> 1)) * kTf32Pitch + 4 * q,
+          src, inside);
+    }
+  };
+#pragma unroll
+  for (int s = s_lo; s < s_lo + kTf32Stages - 1; ++s) {
+    if (s < s_hi) load_stage(s);
+    cp_async_commit();
+  }
+
+  uint32_t a_base[MT];  // lane's A row (output position), tap (0, 0), buffer 0
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    const int p = wm * 16 * MT + mt * 16 + (lane & 15);
+    a_base[mt] = smem_u32(halo + (2 * (p / ft) * hw + p % ft) * kTf32Pitch +
+                          (lane >> 4) * 4);
+  }
+  float acc[MT][kNT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[mt][nt][k] = 0.f;
+
+#pragma unroll 1
+  for (int s = s_lo; s < s_hi; ++s) {
+    cp_async_wait<kTf32Stages - 2>();
+    __syncthreads();  // stage s and its chunk's halo visible; slot s − 1 free
+    if (s + kTf32Stages - 1 < s_hi) load_stage(s + kTf32Stages - 1);
+    cp_async_commit();
+    const int kc = s >> 2, dt = s & 3;
+    const uint32_t a_buf = (kc & 1) * hn * kTf32Pitch * 4;
+    // lane's b0 in the stage: k row tig, column wn·32 + gid (+ 8·nt)
+    const float* bst = ring + (s % kTf32Stages) * kStage + tig * kWP +
+                       wn * 32 + gid;
+    float acc_s[MT][kNT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) acc_s[mt][nt][k] = 0.f;
+#pragma unroll
+    for (int df = 0; df < 4; ++df) {
+      const uint32_t a_off =
+          a_buf + (dt * hw + (df & 1) * half + (df >> 1)) * kTf32Pitch * 4;
+#pragma unroll
+      for (int kk = 0; kk < kTf32K / 8; ++kk) {
+        uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          uint32_t r[4];
+          ldsm_x4(r, a_base[mt] + a_off + kk * 32);
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            split_tf32(__uint_as_float(r[k]), ah[mt][k], al[mt][k]);
+        }
+        const float* bp = bst + df * kTap + kk * 8 * kWP;
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) {
+          uint32_t bh[2], bl[2];
+          split_tf32(bp[nt * 8], bh[0], bl[0]);
+          split_tf32(bp[nt * 8 + 4 * kWP], bh[1], bl[1]);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+            mma_tf32x3(acc_s[mt][nt], ah[mt], al[mt], bh, bl);
+        }
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          acc[mt][nt][k] = __fadd_rn(acc[mt][nt][k], acc_s[mt][nt][k]);
+  }
+
+  if (ksplit > 1) {
+    // Each rank's sums into its own shared memory (the halo's, now free),
+    // [fragment][thread] as float4s; rank 0 adds them in rank order.
+    namespace cg = cooperative_groups;
+    cg::cluster_group cluster = cg::this_cluster();
+    float4* part = reinterpret_cast<float4*>(smem);
+    __syncthreads();  // every warp is done with the halo
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+        part[(mt * kNT + nt) * kThreads + threadIdx.x] =
+            make_float4(acc[mt][nt][0], acc[mt][nt][1], acc[mt][nt][2],
+                        acc[mt][nt][3]);
+    cluster.sync();  // every rank's sums are visible to the cluster
+    if (cluster.block_rank() == 0) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+          for (int k = 0; k < 4; ++k) acc[mt][nt][k] = 0.f;
+      for (int r = 0; r < ksplit; ++r) {
+        const float4* src = cluster.map_shared_rank(part, r);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < kNT; ++nt) {
+            const float4 v = src[(mt * kNT + nt) * kThreads + threadIdx.x];
+            acc[mt][nt][0] = __fadd_rn(acc[mt][nt][0], v.x);
+            acc[mt][nt][1] = __fadd_rn(acc[mt][nt][1], v.y);
+            acc[mt][nt][2] = __fadd_rn(acc[mt][nt][2], v.z);
+            acc[mt][nt][3] = __fadd_rn(acc[mt][nt][3], v.w);
+          }
+      }
+    }
+    cluster.sync();  // rank 0 has read every rank's shared memory
+    if (kz != 0) return;
+  }
+
+  // Epilogue from the registers: bias, statistics, 16-byte stores.
+  const int co = g * kNB + wn * 32 + 8 * tig;
+  float bv[8], s1[8], s2[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    bv[k] = __ldg(bias + co + k);
+    s1[k] = s2[k] = 0.f;
+  }
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      Vec8 o = quad_gather(acc[mt], r, tig);
+      const int p = wm * 16 * MT + mt * 16 + gid + 8 * r;
+      const int t = t0 + p / ft, f = f0 + p % ft;
+      const bool inside = t < t_out && f < f_out;
+      if (inside) {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const float v = o.v[k] + bv[k];
+          s1[k] += v;
+          s2[k] += v * v;
+          o.v[k] = v;
+        }
+        store8(out + ob + ((size_t)t * f_out + f) * c_out + co, o);
+      }
+    }
+  if (stats != nullptr) {
+    sum_over_gid(s1);
+    sum_over_gid(s2);
+    if (gid == 0) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        red[(wm * 2) * kNB + wn * 32 + 8 * tig + k] = s1[k];
+        red[(wm * 2 + 1) * kNB + wn * 32 + 8 * tig + k] = s2[k];
+      }
+    }
+    finish_group_stats(
+        red, kWarpsM, kNB,
+        stats + ((size_t)b * gridDim.x + blockIdx.x) * 2 * c_out + g * kNB,
+        c_out);
+  }
+}
+
+template <int MT, int WN>
+cudaError_t launch_conv_down_tf32(const TilePlan& p, const void* x,
+                                  const void* w, const float* bias, void* out,
+                                  float* stats, int batch, int t_in, int f_in,
+                                  int c_in, int c_out, cudaStream_t s) {
+  static bool raised = false;  // per instantiation; one card per process
+  if (!raised) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        conv_down_tf32_kernel<MT, WN>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+    if (err != cudaSuccess) return err;
+    raised = true;
+  }
+  // the K split's blocks of a (tile, group) form one cluster along z
+  const int ksplit = p.split / p.groups;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.tiles, batch, p.split);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = p.smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = ksplit;
+  cfg.attrs = attr;
+  cfg.numAttrs = ksplit > 1 ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, conv_down_tf32_kernel<MT, WN>, static_cast<const float*>(x),
+      static_cast<const float*>(w), bias, static_cast<float*>(out), stats,
+      t_in, f_in, c_in, c_out, ksplit);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
 // Sub-pixel form of the up conv: output (2i + py, 2j + px) is a 2×2 conv of
 // the input around (i, j), one per parity class (py, px):
 //   out = Σ_{a, b ∈ {0, 1}} x[i + py − 1 + a, j + px − 1 + b] · w[py + 2a, px + 2b]
@@ -666,14 +966,23 @@ int ddim_conv_down(const void* x, const void* w, const float* bias, void* out,
   const TilePlan p = conv_down_plan(t_in, f_in, c_in, c_out, bf16, batch);
   const dim3 grid(p.tiles, batch, p.split);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (p.variant == kVariantMma) {
+  if (p.variant == kVariantMma || p.variant == kVariantTf32) {
     // MT from the tile (16·MT·WM positions), WN from the group width
     const int wn = c_out / p.groups / 32;
     const int mt = p.tile_t * p.tile_f / (16 * (8 / wn));
-    const auto launch = wn == 2 ? (mt == 2 ? launch_conv_down_mma<2, 2>
-                                           : launch_conv_down_mma<1, 2>)
-                                : (mt == 2 ? launch_conv_down_mma<2, 1>
-                                           : launch_conv_down_mma<1, 1>);
+    using Launch = cudaError_t (*)(const TilePlan&, const void*, const void*,
+                                   const float*, void*, float*, int, int, int,
+                                   int, int, cudaStream_t);
+    const Launch launch =
+        p.variant == kVariantTf32
+            ? (wn == 2 ? (mt == 2 ? launch_conv_down_tf32<2, 2>
+                                  : launch_conv_down_tf32<1, 2>)
+                       : (mt == 2 ? launch_conv_down_tf32<2, 1>
+                                  : launch_conv_down_tf32<1, 1>))
+            : (wn == 2 ? (mt == 2 ? launch_conv_down_mma<2, 2>
+                                  : launch_conv_down_mma<1, 2>)
+                       : (mt == 2 ? launch_conv_down_mma<2, 1>
+                                  : launch_conv_down_mma<1, 1>));
     return static_cast<int>(launch(p, x, w, bias, out, stats, batch, t_in,
                                    f_in, c_in, c_out, s));
   }

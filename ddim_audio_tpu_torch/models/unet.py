@@ -58,7 +58,8 @@ from ..ops.flat_grad import (
     conv_up_flat_t,
     resblock_flat_train,
 )
-from ..ops.flat_resblock import conv_taps, resblock_flat, resblock_flat_int8
+from ..ops.flat_resblock import (conv3x3_taps, conv_taps, resblock_flat,
+                                  resblock_flat_int8)
 from ..utils.device import resolve_device
 from .embeddings import beta_embedding_apply, beta_embedding_init
 from .fnet import transformer_module_apply, transformer_module_init
@@ -234,10 +235,10 @@ def prepare_params(params, cfg: ModelConfig):
     conv weights (the 4-D leaves) cast to the compute dtype and, with
     ``cfg.tap_int8``, the resblock convs of the int8-tap stages, with
     ``cfg.strided_int8`` the int8 transitions, also quantised FROM THE FP32
-    WEIGHTS (``wq``, ``w_scale`` beside ``w``; the resblock convs also
-    ``wq_t``, ``wq`` laid out [3, 3, C_out, C_in] as the int8-tap kernel
-    reads it). The forwards then cast, quantise and lay out nothing per
-    call; ``apply_model`` ignores the extra entries."""
+    WEIGHTS (``wq``, ``w_scale`` beside ``w``; the resblock convs and the
+    int8 up transitions also ``wq_t``, ``wq`` laid out [kh, kw, C_out, C_in]
+    as their int8-tap kernels read it). The forwards then cast, quantise and
+    lay out nothing per call; ``apply_model`` ignores the extra entries."""
     p = _cast_conv_weights(params, cfg.dtype)
     prev = None
     for c, src, dst in zip(cfg.ch, params["down_modules"]["stages"],
@@ -251,7 +252,8 @@ def prepare_params(params, cfg: ModelConfig):
         if "up" in src and strided_int8_transition(cfg, c, cfg.ch[i - 1],
                                                    up=True):
             wq, w_scale = quantize_strided_weights_int8(src["up"]["w"])
-            dst["up"].update(wq=wq, w_scale=w_scale)
+            dst["up"].update(wq=wq, w_scale=w_scale,
+                             wq_t=int8_weights_co_ci(wq))
     for mod in ("down_modules", "up_modules"):
         for c, src, dst in zip(cfg.ch, params[mod]["stages"],
                                p[mod]["stages"]):
@@ -520,12 +522,12 @@ def _apply_model_flat_core(params, xf, temb_chunks, cfg: ModelConfig):
             hf = hf + hidden.pop()
         hf = run_blocks(stage, hf, f, c, stats)
         if "up" in stage:
-            w, w_scale = conv_taps(
+            w, taps = conv3x3_taps(
                 stage["up"], dtype,
                 strided_int8_transition(cfg, c, chs[idx - 1], up=True))
             hf, s1, s2 = conv_up_flat(
                 hf, w, stage["up"]["b"], c_in=c, c_out=chs[idx - 1],
-                residual=hidden.pop(), want_stats=True, w_scale=w_scale)
+                residual=hidden.pop(), want_stats=True, **taps)
             stats = (s1, s2)
             t *= 2
             f *= 2

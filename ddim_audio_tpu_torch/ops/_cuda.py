@@ -85,9 +85,13 @@ _SIGNATURES = {
     "ddim_residual_affine": (_P,) * 9 + (_I,) * 7 + (_P,),
     "ddim_strided_int8_geometry": (_I,),
     "ddim_strided_int8_tiles": (_I,) * 2,
-    # x, wq, w_scale, bias, res, out, stats, up, B, T, F, Cin, Cout, bf16,
+    # x, wq, w_scale, bias, out, stats, B, T, F, Cin, Cout, bf16, stream
+    "ddim_conv_down_int8": (_P,) * 6 + (_I,) * 6 + (_P,),
+    # x, wq_t, w_scale, bias, res, out, stats, B, T, F, Cin, Cout, bf16,
     # stream
-    "ddim_conv_strided_int8": (_P,) * 7 + (_I,) * 7 + (_P,),
+    "ddim_conv_up_int8": (_P,) * 7 + (_I,) * 6 + (_P,),
+    # T, F, Cin, Cout, bf16, B, out[7]
+    "ddim_conv_up_int8_plan": (_I,) * 6 + (_P,),
 }
 
 

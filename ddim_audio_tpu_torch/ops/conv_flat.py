@@ -273,9 +273,10 @@ def quantize_conv_weights_int8(w):
 
 
 def int8_weights_co_ci(wq):
-    """The int8 conv weights [3, 3, C_in, C_out] (HWIO, as the twin takes
-    them) laid out [3, 3, C_out, C_in] for the CUDA kernel: the input
-    channels contiguous, as the B operand of its int8 MMAs wants them."""
+    """The int8 conv weights [kh, kw, C_in, C_out] (HWIO, as the twins take
+    them: the 3 × 3 conv's, or the 4 × 4 up conv's equivalent-forward
+    kernel) laid out [kh, kw, C_out, C_in] for the CUDA kernels: the input
+    channels contiguous, as the B operand of their int8 MMAs wants them."""
     return wq.permute(0, 1, 3, 2).contiguous()
 
 

@@ -14,10 +14,12 @@
 With ``w_scale`` (int8 weights from ``quantize_strided_weights_int8``) both
 run int8 × int8 → int32 taps (``conv_down_flat_int8``, ``conv_up_flat_int8``:
 the TPU kernels' ``mxu_i8`` branches, ``sampling.strided_int8``): the input
-is requantised with one scale per quantisation group (a block's staged input
-tile, halo included; for the down conv both time-parity streams of the TPU
-kernel share it), and ``out32 = float(acc) · (s_q · w_scale[co]) + bias``
-enters the float epilogue.
+is requantised with one scale per quantisation group (an 8 × 16 output
+tile's input tile, halo included; for the down conv both time-parity
+streams of the TPU kernel share it), and ``out32 = float(acc) · (s_q ·
+w_scale[co]) + bias`` enters the float epilogue. The up kernel reads its
+weights laid out [4, 4, C_out, C_in] (``wq_t``: ``prepare_params`` makes
+it once, else the wrapper per call).
 
 On a CUDA tensor each wrapper launches its hand-written Hopper kernel
 (``csrc/conv_strided.cu``, ``csrc/conv_strided_int8.cu``); on a CPU tensor it
@@ -26,10 +28,12 @@ other. bf16 transitions at the audio.yml widths run their taps on the
 tensor cores with mma.sync (down: one staged input halo a tile for all its
 output channels, ``tile_plan.conv_down_plan``; up: the sub-pixel form, all
 four output parity classes from one staged input tile,
-``tile_plan.conv_up_plan``);
-fp32 and the bf16 geometries those do not take run on CUDA cores (what
-bounds each: the note at the top of ``csrc/conv_strided.cu``). Statistics
-come from per-block partials finished by ``torch.sum`` (deterministic).
+``tile_plan.conv_up_plan``); the fp32 down conv (training's) runs them in
+split TF32 (three TF32 products a tap, fp32 accuracy); fp32 up and the
+geometries those do not take run on CUDA cores (what bounds each: the note
+at the top of ``csrc/conv_strided.cu``). The int8-tap up conv is a
+persistent kernel (``tile_plan.conv_up_int8_plan``). Statistics come from
+per-block partials finished by ``torch.sum`` (deterministic).
 """
 
 from __future__ import annotations
@@ -53,12 +57,18 @@ from ._cuda import (
 from .conv_flat import (
     _finish,
     _nchw,
+    int8_weights_co_ci,
     quantize_conv_weights_int8,
     quantize_tiles,
     untile,
     wide_dtype,
 )
-from .tile_plan import conv_down_plan, conv_up_plan
+from .tile_plan import (
+    VARIANT_MMA,
+    conv_down_plan,
+    conv_up_int8_plan,
+    conv_up_plan,
+)
 
 # The quantisation group of the int8 strided kernels
 # (csrc/conv_strided_int8.cu): a block's output tile (rows, columns) and the
@@ -191,8 +201,9 @@ def _int8_lib():
 
 
 def _strided_int8(x, wq, w_scale, bias, residual, *, c_in, c_out, up,
-                  want_stats, name):
-    """Checks, allocation and launch of csrc/conv_strided_int8.cu."""
+                  want_stats, name, wq_t=None):
+    """Checks, allocation and launch of csrc/conv_strided_int8.cu (up: wq_t
+    the [4, 4, C_out, C_in] weights, made here when not given)."""
     b, t, f = _geometry(x, c_in, name)
     if c_in % 32 or c_out % 32:
         raise ValueError(f"{name} kernel: needs C_in and C_out % 32 == 0, "
@@ -210,18 +221,34 @@ def _strided_int8(x, wq, w_scale, bias, residual, *, c_in, c_out, up,
                   shape=(c_out,))
     check_operand(residual, "residual", device=dev, dtype=x.dtype,
                   shape=out_shape)
+    if up:
+        plan = conv_up_int8_plan(t, f, c_in, c_out, bool(bf16), b)
+        if plan.variant != VARIANT_MMA:
+            raise ValueError(f"{name} kernel: no kernel takes C_in={c_in}, "
+                             f"C_out={c_out} (C_in <= 256)")
+        if wq_t is None:
+            wq_t = int8_weights_co_ci(wq)
+        check_operand(wq_t, "wq_t", device=dev, dtype=torch.int8,
+                      shape=(4, 4, c_out, c_in))
     bias = _bias(bias, c_out, dev)
     out = torch.empty(out_shape, dtype=x.dtype, device=dev)
     with torch.cuda.device(dev):
         lib = _int8_lib()
         stats = None
         if want_stats:
-            tiles = lib.ddim_strided_int8_tiles(t_out, f_out)
+            tiles = (plan.tiles if up
+                     else lib.ddim_strided_int8_tiles(t_out, f_out))
             stats = torch.empty((b, tiles, 2, c_out), dtype=torch.float32,
                                 device=dev)
-        err = lib.ddim_conv_strided_int8(
-            ptr(x), ptr(wq), ptr(w_scale), ptr(bias), ptr(residual), ptr(out),
-            ptr(stats), int(up), b, t, f, c_in, c_out, bf16, stream_ptr(x))
+        if up:
+            err = lib.ddim_conv_up_int8(
+                ptr(x), ptr(wq_t), ptr(w_scale), ptr(bias), ptr(residual),
+                ptr(out), ptr(stats), b, t, f, c_in, c_out, bf16,
+                stream_ptr(x))
+        else:
+            err = lib.ddim_conv_down_int8(
+                ptr(x), ptr(wq), ptr(w_scale), ptr(bias), ptr(out),
+                ptr(stats), b, t, f, c_in, c_out, bf16, stream_ptr(x))
     check(err, name)
     if not want_stats:
         return out
@@ -252,9 +279,14 @@ def conv_down_flat_int8(x, wq, w_scale, bias, *, c_in: int, c_out: int,
 
 
 def conv_up_flat_int8(x, wq, w_scale, bias, *, c_in: int, c_out: int,
-                      residual=None, want_stats: bool = False):
+                      residual=None, want_stats: bool = False, wq_t=None):
     """``conv_up_flat`` with int8 × int8 → int32 taps (module docstring);
-    the skip add and the statistics of the sum as ``conv_up_flat``."""
+    the skip add and the statistics of the sum as ``conv_up_flat``. wq_t:
+    ``int8_weights_co_ci(wq)``, the [4, 4, C_out, C_in] layout the kernel
+    reads (made here when not given; ``models.unet.prepare_params`` makes it
+    once); the twin reads HWIO ``wq``. On a CUDA tensor this launches the
+    persistent kernel of ``csrc/conv_strided_int8.cu`` (C_in, C_out % 32 ==
+    0, C_in <= 256)."""
     kw = dict(c_in=c_in, c_out=c_out, residual=residual,
               want_stats=want_stats)
     if use_twin(x):
@@ -264,10 +296,10 @@ def conv_up_flat_int8(x, wq, w_scale, bias, *, c_in: int, c_out: int,
                                       q_halo=q_halo, **kw)
         return twin_result("conv_up_flat_int8", ref, x,
                            lambda: conv_up_flat_int8(x, wq, w_scale, bias,
-                                                     **kw))
+                                                     wq_t=wq_t, **kw))
     res = _strided_int8(x, wq, w_scale, bias, residual, c_in=c_in,
                         c_out=c_out, up=True, want_stats=want_stats,
-                        name="conv_up_flat_int8")
+                        name="conv_up_flat_int8", wq_t=wq_t)
     conv_up_flat_int8.launches += 1
     return res
 
@@ -326,16 +358,17 @@ def conv_down_flat(x, w, bias, *, c_in: int, c_out: int,
 
 
 def conv_up_flat(x, w, bias, *, c_in: int, c_out: int, residual=None,
-                 want_stats: bool = False, w_scale=None):
+                 want_stats: bool = False, w_scale=None, wq_t=None):
     """x: [B, T, F·C_in] → [B, 2T, (2F)·C_out]; w: [4, 4, C_in, C_out]
     equivalent-forward HWIO in x's dtype; bias: [C_out] fp32; residual:
     optional [B, 2T, 2F·C_out] skip in x's dtype added in the epilogue.
     Returns out, or (out, sum, sum²) of the summed fp32 output. With
-    w_scale (w then the int8 weights) the taps run in int8:
-    ``conv_up_flat_int8``."""
+    w_scale (w then the int8 weights, wq_t optionally their kernel layout)
+    the taps run in int8: ``conv_up_flat_int8``."""
     if w_scale is not None:
         return conv_up_flat_int8(x, w, w_scale, bias, c_in=c_in, c_out=c_out,
-                                 residual=residual, want_stats=want_stats)
+                                 residual=residual, want_stats=want_stats,
+                                 wq_t=wq_t)
     if use_twin(x):
         kw = dict(c_in=c_in, c_out=c_out, residual=residual,
                   want_stats=want_stats)

@@ -81,10 +81,11 @@ def conv_taps(conv, dtype, int8: bool):
 
 
 def conv3x3_taps(conv, dtype, int8: bool):
-    """``conv_taps`` of a resblock conv as ``conv3x3_flat`` takes it: (w,
-    {"w_scale": …, "wq_t": …}), wq_t the int8 kernel's [3, 3, C_out, C_in]
-    copy of the int8 weights where ``prepare_params`` made one (else the
-    wrapper makes it per call)."""
+    """``conv_taps`` of a resblock conv as ``conv3x3_flat`` takes it, or of an
+    up transition as ``conv_up_flat`` does: (w, {"w_scale": …, "wq_t": …}),
+    wq_t the int8 kernel's [kh, kw, C_out, C_in] copy of the int8 weights
+    where ``prepare_params`` made one (else the wrapper makes it per
+    call)."""
     w, w_scale = conv_taps(conv, dtype, int8)
     wq_t = conv.get("wq_t") if w_scale is not None and "wq" in conv else None
     return w, {"w_scale": w_scale, "wq_t": wq_t}

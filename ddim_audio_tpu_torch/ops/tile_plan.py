@@ -1,14 +1,16 @@
-"""Tile plans of the conv3x3, up-conv, down-conv, int8-tap conv3x3,
-int8-storage conv3x3, head and tail kernels, in Python.
+"""Tile plans of the conv3x3, up-conv, down-conv, int8-tap conv3x3, int8-tap
+up-conv, int8-storage conv3x3, head and tail kernels, in Python.
 
 A model of ``csrc/conv_plan.h``: which variant a call takes (0: CUDA cores,
-1: tensor cores, -1: no kernel takes the shape), the block's spatial tile,
+1: tensor cores, 2: tensor cores in split TF32, -1: no kernel takes the
+shape), the block's spatial tile,
 the spatial tiles per sample (the second dimension of the statistics
 partials, which the wrappers size from here), the output-channel groups, how
 many blocks share a tile's groups (``split``, grid.z) and the dynamic shared
 memory. ``tests/test_torch_conv_redesign.py`` holds the model against the C
 functions (``ddim_conv3x3_plan``, ``ddim_conv_up_plan``,
-``ddim_conv_down_plan``, ``ddim_conv3x3_int8_plan``,
+``ddim_conv_down_plan``, ``ddim_conv_up_int8_plan``,
+``ddim_conv3x3_int8_plan``,
 ``ddim_conv3x3_store_plan``, ``ddim_conv_head_plan``,
 ``ddim_conv_tail_plan``, ``ddim_residual_affine_tiles``) built by the host
 compiler; ``chip_smoke.py`` against the kernel library on the card.
@@ -19,8 +21,13 @@ from __future__ import annotations
 import ctypes
 from typing import NamedTuple
 
-VARIANT_NONE, VARIANT_FMA, VARIANT_MMA = -1, 0, 1
+VARIANT_NONE, VARIANT_FMA, VARIANT_MMA, VARIANT_TF32 = -1, 0, 1, 2
 MMA_K = 32               # input channels per weight stage
+TF32_K = 16              # split-TF32 down: input channels a halo chunk/stage
+TF32_PITCH = TF32_K + 4  # floats a halo position
+TF32_STAGES = 3          # its weight ring: stages of a tap row each
+TF32_MAX_SPLIT = 8       # its K split over a cluster of blocks, at most
+UP_I8_CO = 32            # int8-tap up: output channels a block
 CONV_STAGES = 3          # conv3x3 weight ring: stages of a tap row each
 UP_STAGES = 3            # up weight ring: stages of one tap per class
 DOWN_STAGES = 3          # down weight ring: stages of DOWN_TAPS taps
@@ -119,12 +126,36 @@ def _down_smem(tt: int, ft: int, c_in: int, nb: int) -> int:
                 + DOWN_STAGES * DOWN_TAPS * MMA_K * (nb + 8)) + MMA_RED
 
 
+def _down_tf32_smem(tt: int, ft: int, nb: int) -> int:
+    return 4 * (2 * (2 * tt + 2) * (2 * ft + 2) * TF32_PITCH
+                + TF32_STAGES * DOWN_TAPS * TF32_K * (nb + 8)) + MMA_RED
+
+
 def conv_down_plan(t_in: int, f_in: int, c_in: int, c_out: int, bf16: bool,
                    batch: int = 1) -> TilePlan:
     """The plan of ``ddim_conv_down`` for an input [batch, t_in, f_in, c_in]
-    (tile in output positions): 128 or 256 positions a block where their
-    halo fits, else half as many."""
+    (tile in output positions). bf16: 128 or 256 positions a block where
+    their halo fits, else half as many. fp32 (split TF32): the same warps,
+    one output-channel group a block (``split`` = ``groups``), 128 or 256
+    positions where one sample's grid reaches FILL_BLOCKS, else half as
+    many; where that grid stays under SMS blocks, the input channels split
+    over a cluster of blocks (``split`` = ``groups`` · the K split)."""
     t_out, f_out = t_in // 2, f_in // 2
+    if not bf16 and c_in % 32 == 0 and c_out % 32 == 0:
+        nb = 64 if c_out % 64 == 0 else 32
+        ft = 16 if f_out >= 16 else 8
+        tt = 16 * 2 * (8 // (nb // 32)) // ft
+        groups = c_out // nb
+        if _cdiv(t_out, tt) * _cdiv(f_out, ft) * groups < FILL_BLOCKS:
+            tt //= 2  # MT = 1: one sample's grid decides
+        tiles = _cdiv(t_out, tt) * _cdiv(f_out, ft)
+        # the K split: a cluster of blocks where a sample's grid stays
+        # under one block an SM, two 16-channel chunks a block at least
+        blocks = tiles * groups
+        ksplit = 1 if blocks >= SMS else SMS // blocks
+        ksplit = max(1, min(ksplit, c_in // TF32_K // 2, TF32_MAX_SPLIT))
+        return TilePlan(VARIANT_TF32, tt, ft, tiles, groups, groups * ksplit,
+                        _down_tf32_smem(tt, ft, nb))
     if bf16 and c_in % MMA_K == 0 and c_out % 32 == 0:
         nb = 64 if c_out % 64 == 0 else 32  # 32 output channels a warp
         ft = 16 if f_out >= 16 else 8
@@ -158,6 +189,26 @@ def conv3x3_int8_plan(t: int, f: int, c: int, bf16: bool,
     smem = (9 * c * pitch + halo * pitch + halo * c * 4 + 4 * wm * 2 * c
             + 4 * 16)
     return TilePlan(VARIANT_MMA, q_t, q_f, tiles, 1, 1, smem)
+
+
+def conv_up_int8_plan(t_in: int, f_in: int, c_in: int, c_out: int,
+                      bf16: bool, batch: int = 1) -> TilePlan:
+    """The plan of ``ddim_conv_up_int8`` for an input [batch, t_in, f_in,
+    c_in]: one quantisation group (an 8 × 16 output tile) a tile and a
+    statistics partial, UP_I8_CO output channels a block (``split`` =
+    ``groups`` on grid.z); grid.x is persistent (as many blocks as stay
+    resident), so the batch does not enter."""
+    del batch
+    q_t, q_f = INT8_GROUP
+    tiles = _cdiv(2 * t_in, q_t) * _cdiv(2 * f_in, q_f)
+    groups = _cdiv(c_out, UP_I8_CO)
+    pitch, halo = c_in + 16, (q_t // 2 + 2) * (q_f // 2 + 2)
+    smem = (16 * UP_I8_CO * pitch + _cdiv(halo * pitch, 16) * 16
+            + halo * c_in * (2 if bf16 else 4) + 4 * (8 * 2 * UP_I8_CO + 8))
+    ok = (0 < c_in <= 256 and c_in % 32 == 0 and c_out > 0
+          and c_out % UP_I8_CO == 0 and smem <= SMEM_LIMIT)
+    return TilePlan(VARIANT_MMA if ok else VARIANT_NONE, q_t, q_f, tiles,
+                    groups, groups, smem if ok else 0)
 
 
 def store_tiles(t: int, f: int) -> int:

@@ -1,10 +1,11 @@
 """Where the time of the bf16 tensor-core conv3x3, up and down kernels, of
-the int8-tap conv3x3, of the int8-storage conv3x3 and of the head and tail
-convs goes, on the card: each kernel built again with one piece of its work
-taken out.
+the int8-tap conv3x3, of the int8-storage conv3x3, of the head and tail
+convs, of the fp32 down conv (training's) and of the int8-tap up conv goes,
+on the card: each kernel built again with one piece of its work taken out.
 
     python -m ddim_audio_tpu_torch.tools.conv_ablation [--out FILE]
-        [--kernels conv3x3,up,down,int8,store,head,tail] [--csrc DIR]
+        [--kernels conv3x3,up,down,int8,store,head,tail,down32,upi8]
+        [--csrc DIR]
 
 Copies ``csrc`` (or ``--csrc``, another checkout's kernel sources, e.g. a
 parent's unpacked under ``exp/parent/``) into a temporary folder once per
@@ -21,22 +22,33 @@ storage conv's whole prologue pass (its halo left as it is), the
 tensor-core head's prefetch of the next tile's halo and the tensor-core
 tail's input rows after the first kTailStages (the CUDA-core head and tail:
 their halo staging); ``no_requant``: the int8 kernel's requantisation pass;
-``no_stats``: the head's statistics), builds ``conv3x3.cu``,
-``conv_strided.cu``, ``conv3x3_int8.cu``, ``conv3x3_store.cu``,
-``conv_head_tail.cu`` and ``conv_plan.cu`` of each copy with nvcc, all at
-once, and times the C entry points (``ddim_conv3x3``, ``ddim_conv_up``,
-``ddim_conv_down``, ``ddim_conv3x3_int8``, ``ddim_conv3x3_store``,
-``ddim_conv_head``, ``ddim_conv_tail``) with CUDA events, the card held
+``no_stats``: the head's statistics). ``down32`` (the fp32 down conv at
+the training shapes of one microbatch [1, 2, 1024, 256]) and ``upi8`` (the
+int8-tap up conv in bf16 at 64->32 and 256->192) take the same variants
+with their own edits, each listed for the CUDA-core / two-pass kernels
+they had first and for their redesigned ones: ``no_mma`` the FMAs or
+MMAs, ``no_weights`` the weight staging, ``no_halo`` the input halo (down32:
+its copies; upi8: the first kernel's amax pass over global memory, the
+persistent one's prefetch of the next group's raw halo), ``no_requant``
+(upi8) the requantisation pass and ``no_epilogue`` the stores. Builds
+``conv3x3.cu``, ``conv_strided.cu``, ``conv_strided_int8.cu``,
+``conv3x3_int8.cu``, ``conv3x3_store.cu``, ``conv_head_tail.cu`` and
+``conv_plan.cu`` of each copy with nvcc, all at once, and times the C entry
+points (``ddim_conv3x3``, ``ddim_conv_up``, ``ddim_conv_down``,
+``ddim_conv3x3_int8``, ``ddim_conv3x3_store``, ``ddim_conv_head``,
+``ddim_conv_tail``, and ``ddim_conv_up_int8`` or, in a checkout that
+predates it, ``ddim_conv_strided_int8``) with CUDA events, the card held
 busy while the host queues the timed calls, at the audio.yml
 shapes (the storage conv at s0-s3, int8 x with its scales, ``quant_out``;
 the head with statistics and the tail with its residual at 8192 x 256), B =
 1 and 2, every fusion on, against the same call of the unedited build, the
 unedited build without its fused residual (``no_residual``; conv3x3, the
 int8 taps and the storage conv also without the affine and SiLU prologue:
-``no_prologue``) and one cuDNN call of the bare conv. An edit of
-``conv_head_tail.cu`` lists alternatives for the CUDA-core kernels (which
-fp32 keeps, and which bf16 ran before the tensor-core ones) and the
-tensor-core ones, so a parent's sources take the same variants. An edit
+``no_prologue``) and one cuDNN call of the bare conv (fp32 with TF32 off
+for ``down32``). An edit of ``conv_head_tail.cu``, ``conv_strided.cu``'s
+fp32 down or ``conv_strided_int8.cu``'s up lists alternatives for the
+kernels first written and for the redesigned ones, so a parent's sources
+take the same variants. An edit
 that does not apply to a kernel leaves it as built, and its column repeats
 ``full``. The edited builds compute wrong results on purpose: only their
 times mean anything. Prints one line per shape.
@@ -75,8 +87,12 @@ UPS = [(4096, 128, 64, 32), (2048, 64, 96, 64), (1024, 32, 128, 96),
 DOWNS = [(8192, 256, 32, 64), (4096, 128, 64, 96), (2048, 64, 96, 128),
          (1024, 32, 128, 192), (512, 16, 192, 256)]
 HEAD_TAIL = [(8192, 256)]  # the head's input and the tail's output (T, F)
-SOURCES = ("conv3x3.cu", "conv_strided.cu", "conv3x3_int8.cu",
-           "conv3x3_store.cu", "conv_head_tail.cu", "conv_plan.cu")
+TRAIN_DOWNS = [(1024, 256, 32, 64), (512, 128, 64, 96), (256, 64, 96, 128),
+               (128, 32, 128, 192), (64, 16, 192, 256)]
+UPS_I8 = [(4096, 128, 64, 32), (256, 8, 256, 192)]
+SOURCES = ("conv3x3.cu", "conv_strided.cu", "conv_strided_int8.cu",
+           "conv3x3_int8.cu", "conv3x3_store.cu", "conv_head_tail.cu",
+           "conv_plan.cu")
 _MMA = ("warp_mma_k16(acc, aa,", "if (s < 0) warp_mma_k16(acc, aa,")
 _RING3 = (r"if \(s \+ kConvStages - 1 < nsteps\)\n      Blk::load_stage",
           "if (false)\n      Blk::load_stage")
@@ -118,10 +134,11 @@ VARIANTS = {
          "if (hp < 0) {\n        const Vec8 v = unpack8")],
     "no_stats": [],
 }
-# The head and tail (conv_head_tail.cu): each edit lists alternatives, for the
-# CUDA-core kernels and for the tensor-core ones; at least one of each
-# edit's alternatives must match, so that --csrc can take a checkout that
-# has only the CUDA-core kernels.
+# The head and tail (conv_head_tail.cu), the fp32 down conv (conv_strided.cu)
+# and the int8-tap up conv (conv_strided_int8.cu): each edit lists
+# alternatives, for the kernels first written and for the redesigned ones;
+# at least one of each edit's alternatives must match, so that --csrc can
+# take a checkout that has only the first ones.
 HEAD_TAIL_EDITS = {
     "no_mma": [
         # head: the FMAs (CUDA cores); the k16 and k8 MMAs (tensor cores)
@@ -182,7 +199,102 @@ HEAD_TAIL_EDITS = {
          (r"if \(ok\[u\]\[hh\]\) \{", "if (ok[u][hh] && t_len < 0) {")),
     ],
 }
-KERNELS = ("conv3x3", "up", "down", "int8", "store", "head", "tail")
+DOWN32_EDITS = {
+    "no_mma": [
+        # the CUDA-core FMAs; the split-TF32 MMAs
+        ((r"acc\[i\] = fma4\(acc\[i\], v, w0, w1, w2, w3\);",
+          "if (tap < 0) acc[i] = fma4(acc[i], v, w0, w1, w2, w3);"),
+         (r"mma_tf32x3\(acc", "if (s < 0) mma_tf32x3(acc")),
+    ],
+    "no_weights": [
+        # the weights of each 8-channel chunk; the ring after its first
+        # stages
+        ((r"idx < 16 \* kCkS \* kCoTile; idx \+= kThreads",
+          "idx < 0; idx += kThreads"),
+         (r"if \(s \+ kTf32Stages - 1 < s_hi\) load_stage",
+          "if (false) load_stage")),
+    ],
+    "no_halo": [
+        # the halo of each 8-channel chunk; the 16-channel halo chunks
+        ((r"idx < hn \* kCkS; idx \+= kThreads", "idx < 0; idx += kThreads"),
+         (r"i < hn \* kTf32Q; i \+= kThreads", "i < 0; i += kThreads")),
+    ],
+    "no_epilogue": [
+        # bias, statistics and stores
+        ((r"if \(t < t_out && f < f_out && co < c_out\) \{\n"
+          r"      const float o = acc\[i\] \+ bias\[co\];",
+          "if (t < t_out && f < f_out && co < c_out && c_in < 0) {\n"
+          "      const float o = acc[i] + bias[co];"),
+         (r"const bool inside = t < t_out && f < f_out;",
+          "const bool inside = t < t_out && f < f_out && c_in < 0;")),
+    ],
+}
+UPI8_EDITS = {
+    "no_mma": [
+        # the int8 MMAs of the two-pass kernel; of the persistent one
+        ((r"mma_s8\(acc\[nt\], a,", "if (kc < 0) mma_s8(acc[nt], a,"),
+         (r"mma_s8\(acc\[2 \* np", "if (grp < 0) mma_s8(acc[2 * np")),
+    ],
+    "no_weights": [
+        # all 16 taps' weights restaged per 32-channel chunk; staged once a
+        # block
+        ((r"idx < 16 \* 8 \* \(CO / 4\); idx \+= kThreads",
+          "idx < 0; idx += kThreads"),
+         (r"i < 16 \* CO \* \(CI / 16\); i \+= kThreads",
+          "i < 0; i += kThreads")),
+    ],
+    "no_halo": [
+        # the amax pass over global memory; the next group's raw halo
+        ((r"if \(t >= 0 && t < t_in && f >= 0 && f < f_in\) \{\n"
+          r"      const Vec8 v = load8\(x \+ xb \+ \(\(size_t\)t \* f_in \+ f\) "
+          r"\* c_in \+ ch\);\n#pragma unroll\n      for \(int k = 0; k < 8; \+\+k\) am",
+          "if (t < 0 && t >= 0) {\n"
+          "      const Vec8 v = load8(x + xb + ((size_t)t * f_in + f) * c_in + ch);"
+          "\n#pragma unroll\n      for (int k = 0; k < 8; ++k) am"),
+         (r"if \(grp \+ gridDim.x < n_groups\) load_raw",
+          "if (false) load_raw")),
+    ],
+    "no_requant": [
+        # the second global pass that requantises; the requant from the
+        # registers
+        ((r"uint32_t lo = 0, hi = 0;\n    if \(t >= 0",
+          "uint32_t lo = 0, hi = 0;\n    if (t < 0 && t >= 0"),
+         (r"if \(i < kItems\) \{  // requantise",
+          "if (i < 0) {  // requantise")),
+    ],
+    "no_epilogue": [
+        # dequant, residual, statistics and stores
+        ((r"if \(t < t_out && f < f_out\) \{\n        const size_t off",
+          "if (t < t_out && f < f_out && c_in < 0) {\n        const size_t off"),
+         (r"if \(ok\[r\]\) \{  // the lane's 8 channels",
+          "if (ok[r] && c_out < 0) {  // the lane's 8 channels")),
+    ],
+}
+ALT_EDITS = {"conv_head_tail.cu": HEAD_TAIL_EDITS,
+             "conv_strided.cu": DOWN32_EDITS,
+             "conv_strided_int8.cu": UPI8_EDITS}
+KERNELS = ("conv3x3", "up", "down", "int8", "store", "head", "tail", "down32",
+           "upi8")
+
+
+def apply_alternatives(d: Path, name: str) -> dict:
+    """The edits of ALT_EDITS for variant ``name`` in the copy ``d``; each
+    edit needs at least one of its alternatives to match. Returns the
+    matches of every alternative, by file."""
+    hits_of = {}
+    for fn, edits in ALT_EDITS.items():
+        q = d / fn
+        for alternatives in edits.get(name, ()):
+            text, hits = q.read_text(), []
+            for pat, rep in alternatives:
+                text, n = re.subn(pat, rep, text)
+                hits.append(n)
+            if not any(hits):
+                raise RuntimeError(f"{name}: no match for any of "
+                                   f"{[a[0] for a in alternatives]} in {fn}")
+            hits_of.setdefault(fn, []).append(hits)
+            q.write_text(text)
+    return hits_of
 
 
 def build(root: Path, csrc: Path, variants) -> dict:
@@ -193,12 +305,14 @@ def build(root: Path, csrc: Path, variants) -> dict:
     for name in variants:
         d = root / name
         shutil.copytree(csrc, d)
-        for fn in ("conv3x3.cu", "conv_strided.cu", "conv3x3_int8.cu",
-                   "conv3x3_store.cu", "conv_head_tail.cu"):
+        for fn in ("conv3x3.cu", "conv_strided.cu", "conv_strided_int8.cu",
+                   "conv3x3_int8.cu", "conv3x3_store.cu", "conv_head_tail.cu"):
             q = d / fn
             q.write_text(q.read_text()
                          .replace("static bool raised = false;",
                                   "bool raised = false;")
+                         .replace("static int raised = 48 * 1024;",
+                                  "int raised = 48 * 1024;")
                          .replace("static int grid_cap = 0;",
                                   "int grid_cap = 0;"))
         for fn, pat, rep in VARIANTS[name]:
@@ -207,17 +321,7 @@ def build(root: Path, csrc: Path, variants) -> dict:
             if n == 0:
                 raise RuntimeError(f"{name}: no match for {pat} in {fn}")
             q.write_text(text)
-        q = d / "conv_head_tail.cu"
-        for alternatives in HEAD_TAIL_EDITS.get(name, ()):
-            text, hits = q.read_text(), 0
-            for pat, rep in alternatives:
-                text, n = re.subn(pat, rep, text)
-                hits += n
-            if hits == 0:
-                raise RuntimeError(f"{name}: no match for any of "
-                                   f"{[a[0] for a in alternatives]} in "
-                                   "conv_head_tail.cu")
-            q.write_text(text)
+        apply_alternatives(d, name)
         procs[name] = subprocess.Popen(
             [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-shared", "-o",
              str(d / "lib.so"), *[str(d / s) for s in SOURCES]],
@@ -242,6 +346,12 @@ def build(root: Path, csrc: Path, variants) -> dict:
             + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         lib.ddim_conv_tail.argtypes = [ctypes.c_void_p] * 5 \
             + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        if hasattr(lib, "ddim_conv_up_int8"):  # the persistent up kernel
+            lib.ddim_conv_up_int8.argtypes = [ctypes.c_void_p] * 7 \
+                + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        else:  # a checkout that predates it
+            lib.ddim_conv_strided_int8.argtypes = [ctypes.c_void_p] * 7 \
+                + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         libs[name] = lib
     return libs
 
@@ -249,6 +359,13 @@ def build(root: Path, csrc: Path, variants) -> dict:
 # Cycles the card sleeps before the timed calls (~25-35 ms), so that the
 # events time the card alone and not the host's calls (chip_smoke.py).
 PREFILL_CYCLES = 50_000_000
+
+
+def up_weight(w):
+    """Stored equivalent-forward HWIO [4, 4, C_in, C_out] → the
+    channels-last ConvTranspose2d weight cuDNN takes."""
+    return w.permute(2, 3, 0, 1).flip(2, 3).contiguous(
+        memory_format=torch.channels_last)
 
 
 def cuda_ms(fn, n: int = 20, warmup: int = 3) -> float:
@@ -286,6 +403,9 @@ def main(argv=None) -> int:
         variants += [v for v, e in VARIANTS.items() if e]
     if todo & {"head", "tail"}:
         variants += [v for v in HEAD_TAIL_EDITS if v not in variants]
+    for kind, edits in (("down32", DOWN32_EDITS), ("upi8", UPI8_EDITS)):
+        if kind in todo:
+            variants += [v for v in edits if v not in variants]
     if not torch.cuda.is_available():
         print("conv_ablation: needs an NVIDIA GPU", file=sys.stderr)
         return 1
@@ -304,6 +424,8 @@ def main(argv=None) -> int:
     def rnd(*shape, scale=1.0):
         return (torch.randn(*shape, generator=g, device="cuda") * scale)
 
+    # the fp32 reference conv in true fp32 (cuDNN defaults to TF32)
+    torch.backends.cudnn.allow_tf32 = False
     st = torch.cuda.current_stream().cuda_stream
     with tempfile.TemporaryDirectory(dir=os.environ.get("TMPDIR")) as tmp:
         libs = build(Path(tmp), Path(args.csrc), variants)
@@ -356,8 +478,7 @@ def main(argv=None) -> int:
                     if name == "full":
                         row.append("no_residual "
                                    f"{cuda_ms(lambda: run(res_on=False)):.4f}")
-                wl = w.permute(2, 3, 0, 1).flip(2, 3).contiguous(
-                    memory_format=torch.channels_last)
+                wl = up_weight(w)
                 xn = x.view(bsz, t, f, ci).permute(0, 3, 1, 2)
                 lib_ms = cuda_ms(lambda: F.conv_transpose2d(xn, wl, stride=2,
                                                             padding=1))
@@ -385,6 +506,68 @@ def main(argv=None) -> int:
                 wl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
                 xn = x.view(bsz, t, f, ci).permute(0, 3, 1, 2)
                 lib_ms = cuda_ms(lambda: F.conv2d(xn, wl, stride=2, padding=1))
+                row.append(f"cudnn {lib_ms:.4f}")
+                emit(" | ".join(row))
+            for t, f, ci, co in TRAIN_DOWNS if "down32" in todo else ():
+                x = rnd(bsz, t, f * ci)
+                w = rnd(4, 4, ci, co, scale=(16 * ci) ** -0.5)
+                bias = rnd(co)
+                out = torch.empty(bsz, t // 2, (f // 2) * co, device="cuda")
+                # as many partials as either kernel writes (the CUDA-core
+                # one's 64-position tiles are the smallest)
+                stats = torch.empty(bsz, _fma_plan(t // 2, f // 2, co).tiles,
+                                    2, co, device="cuda")
+                row = [f"down32 B{bsz} T{t} F{f} {ci}->{co}"]
+                for name, lib in libs.items():
+                    def run(lib=lib):
+                        err = lib.ddim_conv_down(
+                            x.data_ptr(), w.data_ptr(), bias.data_ptr(),
+                            out.data_ptr(), stats.data_ptr(), bsz, t, f, ci,
+                            co, 0, st)
+                        if err:
+                            raise RuntimeError(f"ddim_conv_down fp32 {name}: "
+                                               f"{err}")
+                    row.append(f"{name} {cuda_ms(run):.4f}")
+                wl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+                xn = x.view(bsz, t, f, ci).permute(0, 3, 1, 2)
+                lib_ms = cuda_ms(lambda: F.conv2d(xn, wl, stride=2, padding=1))
+                row.append(f"cudnn_fp32 {lib_ms:.4f}")
+                emit(" | ".join(row))
+            for t, f, ci, co in UPS_I8 if "upi8" in todo else ():
+                x = rnd(bsz, t, f * ci).bfloat16()
+                w = rnd(4, 4, ci, co, scale=(4 * ci) ** -0.5)
+                wq = torch.randint(-127, 128, (4, 4, ci, co), generator=g,
+                                   device="cuda").to(torch.int8)
+                wq_t = wq.permute(0, 1, 3, 2).contiguous()
+                s_w = w.abs().amax(dim=(0, 1, 2)) / 127
+                bias, res = rnd(co), rnd(bsz, 2 * t, 2 * f * co).bfloat16()
+                out = torch.empty_like(res)
+                stats = torch.empty(bsz, -(-2 * t // 8) * -(-2 * f // 16), 2,
+                                    co, device="cuda")
+                row = [f"upi8 B{bsz} T{t} F{f} {ci}->{co}"]
+                for name, lib in libs.items():
+                    def run(lib=lib, res_on=True):
+                        rp = res.data_ptr() if res_on else None
+                        if hasattr(lib, "ddim_conv_up_int8"):
+                            err = lib.ddim_conv_up_int8(
+                                x.data_ptr(), wq_t.data_ptr(), s_w.data_ptr(),
+                                bias.data_ptr(), rp, out.data_ptr(),
+                                stats.data_ptr(), bsz, t, f, ci, co, 1, st)
+                        else:
+                            err = lib.ddim_conv_strided_int8(
+                                x.data_ptr(), wq.data_ptr(), s_w.data_ptr(),
+                                bias.data_ptr(), rp, out.data_ptr(),
+                                stats.data_ptr(), 1, bsz, t, f, ci, co, 1, st)
+                        if err:
+                            raise RuntimeError(f"int8 up {name}: {err}")
+                    row.append(f"{name} {cuda_ms(run):.4f}")
+                    if name == "full":
+                        row.append("no_residual "
+                                   f"{cuda_ms(lambda: run(res_on=False)):.4f}")
+                wl = up_weight(w.bfloat16())
+                xn = x.view(bsz, t, f, ci).permute(0, 3, 1, 2)
+                lib_ms = cuda_ms(lambda: F.conv_transpose2d(xn, wl, stride=2,
+                                                            padding=1))
                 row.append(f"cudnn {lib_ms:.4f}")
                 emit(" | ".join(row))
             for t, f, c in STAGES[:3] if "int8" in todo else ():

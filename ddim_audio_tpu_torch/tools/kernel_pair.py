@@ -1,13 +1,19 @@
-"""Time the bf16 down conv, the int8-tap conv3x3, the int8-storage conv3x3
-and the head and tail convs of a checkout, on the card, at the audio.yml
-shapes, B = 1 and 2, against one cuDNN call of the bare conv; for comparing
-two checkouts of this package in one machine, in turns.
+"""Time the bf16 down conv, the int8-tap conv3x3, the int8-storage conv3x3,
+the head and tail convs, the fp32 down conv (training's) and the int8-tap
+up conv of a checkout, on the card, at the audio.yml shapes, B = 1 and 2,
+against one cuDNN call of the bare conv; for comparing two checkouts of
+this package in one machine, in turns.
 
     python3 -m ddim_audio_tpu_torch.tools.kernel_pair LABEL [KINDS]
     (cd <other checkout> && python3 <this checkout>/ddim_audio_tpu_torch/tools/kernel_pair.py LABEL [KINDS])
 
-KINDS is a comma-separated subset of down,int8,store,head,tail (default:
-all five).
+KINDS is a comma-separated subset of down,int8,store,head,tail,down32,upi8
+(default: all seven). ``down32`` is the fp32 down conv at the five training
+transitions of one microbatch [1, 2, 1024, 256] with statistics, against
+one fp32 cuDNN call (TF32 off); ``upi8`` the int8-tap up conv in bf16 at
+64 -> 32 and 256 -> 192 with the skip residual and statistics, its weights
+laid out as ``prepare_params`` gives them (where the checkout's wrapper
+takes ``wq_t``).
 
 The package is imported from the current directory, so the same file times
 whichever checkout it is run in (one that predates the ``wq_t`` argument of
@@ -37,7 +43,10 @@ DOWNS = [(8192, 256, 32, 64), (4096, 128, 64, 96), (2048, 64, 96, 128),
 INT8_STAGES = [(8192, 256, 32), (4096, 128, 64), (2048, 64, 96)]
 STORE_STAGES = INT8_STAGES + [(1024, 32, 128)]
 HEAD_TAIL = [(8192, 256)]  # the head's input and the tail's output (T, F)
-KINDS = ("down", "int8", "store", "head", "tail")
+TRAIN_DOWNS = [(1024, 256, 32, 64), (512, 128, 64, 96), (256, 64, 96, 128),
+               (128, 32, 128, 192), (64, 16, 192, 256)]
+UPS_I8 = [(4096, 128, 64, 32), (256, 8, 256, 192)]
+KINDS = ("down", "int8", "store", "head", "tail", "down32", "upi8")
 
 
 # Cycles the card sleeps before the timed calls (~25-35 ms), so that the
@@ -99,6 +108,8 @@ def main(argv=None) -> int:
 
     takes_t = "wq_t" in inspect.signature(
         conv_flat.conv3x3_flat_int8).parameters
+    up_takes_t = "wq_t" in inspect.signature(
+        conv_strided.conv_up_flat_int8).parameters
     sums: dict = {}
 
     def add(key, v):
@@ -118,6 +129,39 @@ def main(argv=None) -> int:
             add(("down", bsz), k)
             add(("down cudnn", bsz), lib)
             print(f"{label} down B{bsz} {ci}->{co} kernel {k:.4f} cudnn "
+                  f"{lib:.4f} ratio {k / lib:.2f}", flush=True)
+        for t, f, ci, co in TRAIN_DOWNS if "down32" in kinds else ():
+            x = rnd(bsz, t, f * ci)
+            w = rnd(4, 4, ci, co, scale=(16 * ci) ** -0.5)
+            b = rnd(co)
+            k = cuda_ms(torch, lambda: conv_strided.conv_down_flat(
+                x, w, b, c_in=ci, c_out=co, want_stats=True))
+            wl = w.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            xn = x.view(bsz, t, f, ci).permute(0, 3, 1, 2)
+            lib = cuda_ms(torch, lambda: F.conv2d(xn, wl, stride=2, padding=1))
+            add(("down32", bsz), k)
+            add(("down32 cudnn", bsz), lib)
+            print(f"{label} down32 B{bsz} {ci}->{co} kernel {k:.4f} cudnn "
+                  f"{lib:.4f} ratio {k / lib:.2f}", flush=True)
+        for t, f, ci, co in UPS_I8 if "upi8" in kinds else ():
+            x = rnd(bsz, t, f * ci).bfloat16()
+            w = rnd(4, 4, ci, co, scale=(4 * ci) ** -0.5)
+            wq, s_w = conv_strided.quantize_strided_weights_int8(w)
+            b, res = rnd(co), rnd(bsz, 2 * t, 2 * f * co).bfloat16()
+            extra = ({"wq_t": conv_flat.int8_weights_co_ci(wq)} if up_takes_t
+                     else {})
+            k = cuda_ms(torch, lambda: conv_strided.conv_up_flat_int8(
+                x, wq, s_w, b, c_in=ci, c_out=co, residual=res,
+                want_stats=True, **extra))
+            wl = w.bfloat16().permute(2, 3, 0, 1).flip(2, 3).contiguous(
+                memory_format=torch.channels_last)
+            xn = x.view(bsz, t, f, ci).permute(0, 3, 1, 2)
+            lib = cuda_ms(torch, lambda: F.conv_transpose2d(
+                xn, wl, stride=2, padding=1))
+            add(("upi8", bsz), k)
+            add(("upi8 cudnn", bsz), lib)
+            print(f"{label} upi8 B{bsz} {ci}->{co} kernel {k:.4f} cudnn "
                   f"{lib:.4f} ratio {k / lib:.2f}", flush=True)
         for t, f, c in INT8_STAGES if "int8" in kinds else ():
             x, res = rnd(bsz, t, f * c).bfloat16(), rnd(bsz, t, f * c).bfloat16()

@@ -5,7 +5,7 @@ The CUDA kernels (``csrc/conv3x3.cu`` ``conv3x3_mma_kernel``,
 ``csrc/conv_strided.cu`` ``conv_up_mma_kernel``) run only on the card. What
 surrounds their arithmetic is checked here:
 
-- the tile plans of the four redesigned kernels: the Python model
+- the tile plans of the redesigned kernels: the Python model
   (``ops/tile_plan.py``, which the wrappers use to size the statistics
   partials) against the C functions of ``csrc/conv_plan.cu``, built by the
   host compiler;
@@ -38,6 +38,7 @@ from ddim_audio_tpu_torch.ops.tile_plan import (
     VARIANT_FMA,
     VARIANT_MMA,
     VARIANT_NONE,
+    VARIANT_TF32,
     TilePlan,
     conv3x3_int8_plan,
     conv3x3_plan,
@@ -45,6 +46,7 @@ from ddim_audio_tpu_torch.ops.tile_plan import (
     conv_down_plan,
     conv_head_plan,
     conv_tail_plan,
+    conv_up_int8_plan,
     conv_up_plan,
     library_plan,
 )
@@ -62,6 +64,12 @@ DOWNS = [(8192, 256, 32, 64), (4096, 128, 64, 96), (2048, 64, 96, 128),
          (1024, 32, 128, 192), (512, 16, 192, 256)]
 INT8_STAGES = STAGES[:3]
 STORE_STAGES = STAGES[:4]  # the stages that store int8 activations
+# the training transitions (one microbatch [1, 2, 1024, 256]), which run the
+# fp32 down conv, and the up transitions with int8 taps (T_in, F_in, C_in,
+# C_out)
+TRAIN_DOWNS = [(1024, 256, 32, 64), (512, 128, 64, 96), (256, 64, 96, 128),
+               (128, 32, 128, 192), (64, 16, 192, 256)]
+UPS_I8 = [(4096, 128, 64, 32), (256, 8, 256, 192)]
 
 
 @pytest.fixture(scope="module")
@@ -75,7 +83,8 @@ def plan_lib(tmp_path_factory):
                    check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(lib_path))
     for name, n in (("ddim_conv3x3_plan", 5), ("ddim_conv_up_plan", 6),
-                    ("ddim_conv_down_plan", 6), ("ddim_conv3x3_int8_plan", 5),
+                    ("ddim_conv_down_plan", 6), ("ddim_conv_up_int8_plan", 6),
+                    ("ddim_conv3x3_int8_plan", 5),
                     ("ddim_conv3x3_store_plan", 6), ("ddim_conv_head_plan", 6),
                     ("ddim_conv_tail_plan", 6)):
         getattr(lib, name).argtypes = [ctypes.c_int] * n + [ctypes.c_void_p]
@@ -114,7 +123,7 @@ def test_tile_plans_match_the_c_plans(plan_lib):
     downs = [(t, f, ci, co) for t in (2, 6, 18, 34) for f in (2, 16, 18, 34)
              for ci, co in ((32, 64), (64, 96), (96, 128), (128, 192),
                             (192, 256), (32, 96), (48, 64), (64, 48),
-                            (512, 512))] + DOWNS
+                            (512, 512))] + DOWNS + TRAIN_DOWNS
     for t, f, ci, co in downs:
         for bf16 in (0, 1):
             for b in (1, 2, 3):
@@ -125,6 +134,18 @@ def test_tile_plans_match_the_c_plans(plan_lib):
                     want.tiles
                 assert plan_lib.ddim_conv_down_variant(t, f, ci, co, bf16) == \
                     want.variant
+    up_i8 = [(t, f, ci, co) for t in (1, 3, 4, 9) for f in (1, 7, 8, 20)
+             for ci, co in ((32, 32), (64, 32), (256, 192), (96, 64),
+                            (288, 32), (48, 32), (64, 48))] + UPS_I8
+    for t, f, ci, co in up_i8:
+        for bf16 in (0, 1):
+            for b in (1, 2):
+                want = library_plan(plan_lib.ddim_conv_up_int8_plan, t, f, ci,
+                                    co, bf16, b)
+                assert conv_up_int8_plan(t, f, ci, co, bool(bf16), b) == want
+                assert want.variant == (
+                    VARIANT_MMA if ci % 32 == 0 and ci <= 256 and co % 32 == 0
+                    else VARIANT_NONE), (t, f, ci, co)
     i8 = [(t, f, c) for t in (1, 8, 9, 33) for f in (1, 16, 17, 40)
           for c in (16, 32, 64, 96, 128)] + INT8_STAGES
     for t, f, c in i8:
@@ -156,8 +177,19 @@ def test_tile_plans_match_the_c_plans(plan_lib):
         # the int8 kernel's group is the 8 × 16 tile at every int8 stage
         assert all(conv_down_plan(*s, True, b).variant == VARIANT_MMA
                    for s in DOWNS)
-        assert all(conv_down_plan(*s, False, b).variant == VARIANT_FMA
-                   for s in DOWNS)
+        # fp32: split TF32 on the tensor cores at every transition, one
+        # output-channel group a block; the int8-tap up conv: one partial a
+        # quantisation group, 32 output channels a block
+        for s in DOWNS + TRAIN_DOWNS:
+            plan = conv_down_plan(*s, False, b)
+            assert plan.variant == VARIANT_TF32
+            assert plan.split % plan.groups == 0  # groups · the K split
+        for t, f, ci, co in UPS_I8:
+            for bf16 in (True, False):
+                plan = conv_up_int8_plan(t, f, ci, co, bf16, b)
+                assert plan[:3] == (VARIANT_MMA, 8, 16)
+                assert plan.tiles == (2 * t // 8) * (2 * f // 16)
+                assert plan.split == plan.groups == co // 32
         assert all(conv3x3_int8_plan(*s, bf16, b)[:3] == (VARIANT_MMA, 8, 16)
                    for s in INT8_STAGES for bf16 in (True, False))
         # the narrow grids share their groups over grid.z, 32→64 does not
@@ -200,6 +232,14 @@ def test_tile_plans_match_the_c_plans(plan_lib):
         assert conv_head_plan(8192, 256, 2, 32, True, b).tiles * b == 264
     # two tail blocks an SM: bands of 32 rows
     assert conv_tail_plan(8192, 256, 32, 2, True, 1)[1:4] == (32, 256, 256)
+    # fp32 down at the training shapes: 128 positions a block (256 at C_out
+    # = 96) where a sample's grid reaches two blocks an SM, else half
+    assert [conv_down_plan(*s, False, 1)[1:4] for s in TRAIN_DOWNS] == [
+        (8, 16, 512), (8, 16, 128), (4, 16, 64), (4, 16, 16), (8, 8, 4)]
+    # ... and the input channels split over a cluster of blocks where a
+    # sample's grid stays under one block an SM (48 and 16 blocks)
+    assert [conv_down_plan(*s, False, 1).split for s in TRAIN_DOWNS] == [
+        1, 3, 2, 3 * 2, 4 * 6]
     # s5 at B = 1 (16 tiles) shares its four groups over grid.z; s0 does not
     assert conv3x3_plan(256, 8, 256, True, 1).split == 4
     assert conv3x3_plan(8192, 256, 32, True, 1).split == 1

@@ -406,7 +406,8 @@ def test_redesigned_kernels_match_twins_on_gpu(cuda, dtype, tol, B, case):
                                   "int8 C64 residual", "int8 C96 ragged"])
 def test_down_and_int8_redesign_match_twins_on_gpu(cuda, dtype, B, case):
     """The redesigned down conv (tensor cores in bf16 at every transition,
-    f_out = 8 included; CUDA cores in fp32) and int8-tap conv3x3 (persistent
+    f_out = 8 included; in fp32 split TF32 on the tensor cores) and int8-tap
+    conv3x3 (persistent
     blocks, the [3, 3, C_out, C_in] weights) at ragged T and F: the plan the
     library reports equals the Python model, the same call twice gives the
     same bits, and each agrees with its twin (down: relative error as
@@ -431,7 +432,7 @@ def test_down_and_int8_redesign_match_twins_on_gpu(cuda, dtype, B, case):
                  "down ragged 64->96": (14, 26, 64, 96),
                  "down ragged 128->96": (18, 34, 128, 96)}[case]
         T, F, C_in, C_out = shape
-        want = tile_plan.VARIANT_MMA if bf16 else tile_plan.VARIANT_FMA
+        want = tile_plan.VARIANT_MMA if bf16 else tile_plan.VARIANT_TF32
         assert lib.ddim_conv_down_variant(*shape, bf16) == want
         assert tile_plan.library_plan(lib.ddim_conv_down_plan, *shape, bf16,
                                       B) == tile_plan.conv_down_plan(
