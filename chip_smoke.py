@@ -31,8 +31,9 @@ phase on its own lines:
    tail's small ragged one (``ddim_conv3x3_variant``,
    ``ddim_conv_up_variant``, ``ddim_conv_down_variant``,
    ``ddim_conv_head_variant``, ``ddim_conv_tail_variant``; 192->256 at
-   f_out = 8 included) and fp32 the CUDA-core one (the down conv: its
-   split-TF32 tensor-core one), that the int8 taps keep
+   f_out = 8 included) and fp32 the split-TF32 tensor-core one (conv3x3,
+   up and down; the CUDA-core one for the head and tail), that the int8
+   taps keep
    their 8 x 16 quantisation group (``ddim_conv3x3_int8_geometry``), and
    that the same call twice gives the same bits. Each kernel's sums at B = 2 in bf16 close the phase: kernel /
    cuDNN and the share of the bound;
@@ -94,11 +95,12 @@ phase on its own lines:
    bit, the kernel's and the plain version's time, the bound, and the one
    PyTorch call (``torch.nn.grad.conv2d_weight``; fp32 with TF32 off);
    then the float-tap conv3x3, down and up kernels in fp32 at the same
-   shapes (``[train-kernels]``: the variants training runs, conv3x3 and up
-   on CUDA cores, down in split TF32 on the tensor cores, whose plan must
-   equal the Python model and whose calls must give the same bits twice):
-   agreement with the twin, the kernel's, twin's and bound's time and one
-   ``F.conv2d`` / ``F.conv_transpose2d`` call's (fp32, TF32 off);
+   shapes (``[train-kernels]``: the variants training runs, all three in
+   split TF32 on the tensor cores, whose plans must equal the Python model
+   and whose calls must give the same bits twice): agreement with the twin
+   and its SNR, the kernel's, twin's and bound's time (split TF32, with the
+   CUDA-core bound beside it) and one ``F.conv2d`` /
+   ``F.conv_transpose2d`` call's (fp32, TF32 off);
 8. grad: one microbatch forward + backward of the full audio.yml model
    (fp32, remat) on the non-zero-GN3 weights: the kernel route, the same
    through the plain twins with every wrapper call shadowed by its kernel,
@@ -241,12 +243,15 @@ TOL_GRAD_LEAF = 1e-4
 TOL_BF16_LOSS = 2e-2
 
 # Published H100 SXM peaks: HBM bytes/s and dense operations/s by operand type
-# (fp32 outside the tensor cores; "tf32x3": the split-TF32 fp32 down conv,
-# three TF32 tensor-core products an fp32 one, 495 / 3 TFLOP/s).
+# (fp32 outside the tensor cores; "tf32x3": the split-TF32 fp32 conv3x3, up
+# and down convs, three TF32 tensor-core products an fp32 one, 495 / 3
+# TFLOP/s).
 PEAK_BYTES = 3.35e12
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12,
             "tf32x3": 495e12 / 3}
 VARIANT_NAMES = {0: "fma", 1: "mma", 2: "tf32x3"}
+# the wrappers whose fp32 calls run split TF32 on the tensor cores
+TF32_KERNELS = ("conv3x3_flat", "conv_up_flat", "conv_down_flat")
 
 # Production stage shapes at [1, 2, 8192, 256] (T, F, C), and transitions
 # (T_in, F_in, C_in, C_out) of the down path.
@@ -634,11 +639,11 @@ def check_plan(case, bsz, bf16) -> str:
     """The redesigned kernels (conv3x3_flat, conv_up_flat, conv_down_flat,
     conv3x3_flat_int8, conv_head_flat, conv_tail_flat): the library's tile
     plan equals the Python model the wrapper sizes its partials from, and
-    the variant is the tensor-core kernel in bf16 (in fp32 the CUDA-core
-    one, but for the down conv's split-TF32 kernel; the int8 taps run on the
-    tensor cores in both, over the quantisation group the geometry query
-    reports, 8 × 16 with a 1-position halo). Returns the plan's note for the
-    kernel's line."""
+    the variant is the tensor-core kernel in bf16 (in fp32 the split-TF32
+    one for conv3x3, up and down, the CUDA-core one for the head and tail;
+    the int8 taps run on the tensor cores in both, over the quantisation
+    group the geometry query reports, 8 × 16 with a 1-position halo).
+    Returns the plan's note for the kernel's line."""
     from ddim_audio_tpu_torch.ops import _cuda, tile_plan
 
     kind, shape = case["plan"]
@@ -655,7 +660,7 @@ def check_plan(case, bsz, bf16) -> str:
     else:
         variant = getattr(lib, f"ddim_{kind}_variant")(*shape, bf16)
         want = (tile_plan.VARIANT_MMA if bf16 else tile_plan.VARIANT_TF32
-                if kind == "conv_down" else tile_plan.VARIANT_FMA)
+                if case["name"] in TF32_KERNELS else tile_plan.VARIANT_FMA)
     require(variant == want == got.variant,
             f"{tag}: variant {variant}, want {want}")
     return (f" | {VARIANT_NAMES[variant]} tile {got.tile_t}x{got.tile_f}"
@@ -713,7 +718,7 @@ def phase_kernels(summary):
                 plain_ms = cuda_time(lambda: twin(*pos, **kw), n=5, warmup=1,
                                       prefill=True)
                 kind = ("int8" if case["int8"] else "tf32x3"
-                        if dt == "fp32" and name == "conv_down_flat" else dt)
+                        if dt == "fp32" and name in TF32_KERNELS else dt)
                 bnd, by = bound_ms(case["io"](pos, kw, outs), case["ops"], kind)
                 line += (f" | kernel {ms:.3f} ms, twin {plain_ms:.3f} ms, bound "
                          f"{bnd:.3f} ms ({by})")
@@ -1463,16 +1468,15 @@ def _dw_cases(torch):
 
 def phase_train_kernels():
     """The float-tap conv3x3, down and up kernels in fp32 (which training
-    runs 2,730 / 140 / 140 times an optimizer step: conv3x3 and up on CUDA
-    cores, down in split TF32 on the tensor cores) at the stage shapes of
-    one training microbatch [1, 2, 1024, 256], every fusion on: agreement
-    with the twin, then the kernel's, the twin's, the bound's (fp32 at 67
-    TFLOP/s outside the tensor cores; for the down conv the larger of its
-    bytes and three TF32 products an operation at 495 TFLOP/s, the CUDA-core
-    bound beside it) and the one PyTorch call's time (``F.conv2d`` /
-    ``F.conv_transpose2d`` in fp32, TF32 off), kernel / library; then each
-    kernel's sum over its shapes. The down conv also: the library's plan =
-    the Python model, the split-TF32 variant, twice bit-equal."""
+    runs 2,730 / 140 / 140 times an optimizer step, all three in split TF32
+    on the tensor cores) at the stage shapes of one training microbatch
+    [1, 2, 1024, 256], every fusion on: agreement with the twin, the
+    library's plan = the Python model, the split-TF32 variant, twice
+    bit-equal, the SNR against the twin, then the kernel's, the twin's, the
+    bound's (the larger of the bytes and three TF32 products an operation at
+    495 TFLOP/s, the CUDA-core bound at 67 TFLOP/s beside it) and the one
+    PyTorch call's time (``F.conv2d`` / ``F.conv_transpose2d`` in fp32, TF32
+    off), kernel / library; then each kernel's sum over its shapes."""
     import torch
 
     sums = {}
@@ -1486,34 +1490,29 @@ def phase_train_kernels():
         err, rel = rel_err(outs[0], refs[0])
         require(rel <= TOL_FP32, f"{name} {case['label']} fp32 (training "
                 f"shape): rel err {rel:.3e} > {TOL_FP32}")
-        note, kind, extra = "", "fp32", ""
-        if name == "conv_down_flat":
-            note = check_plan(case, 1, 0)
-            again = case["kernel"](*pos, **kw)
-            require(all(torch.equal(a, b) for a, b in zip(outs, again)),
-                    f"{name} {case['label']} fp32: two calls differ")
-            note += f", twice bit-equal, SNR {snr_db(outs[0], refs[0]):.1f} dB"
-            kind = "tf32x3"
-            fma_bnd, _ = bound_ms(case["io"](pos, kw, outs), case["ops"],
-                                  "fp32")
-            extra = f", CUDA-core bound {fma_bnd:.3f} ms"
+        note = check_plan(case, 1, 0)
+        again = case["kernel"](*pos, **kw)
+        require(all(torch.equal(a, b) for a, b in zip(outs, again)),
+                f"{name} {case['label']} fp32: two calls differ")
+        note += f", twice bit-equal, SNR {snr_db(outs[0], refs[0]):.1f} dB"
+        fma_bnd, _ = bound_ms(case["io"](pos, kw, outs), case["ops"], "fp32")
         ms = cuda_time(lambda: case["kernel"](*pos, **kw), prefill=True)
         plain_ms = cuda_time(lambda: case["twin"](*pos, **kw), n=5, warmup=1,
                               prefill=True)
         lib_ms = cuda_time(case["lib"](pos, kw), prefill=True)
-        bnd, by = bound_ms(case["io"](pos, kw, outs), case["ops"], kind)
+        bnd, by = bound_ms(case["io"](pos, kw, outs), case["ops"], "tf32x3")
         log(f"[train-kernels] {name:14s} B1 {case['label']:18s} fp32 rel "
             f"{rel:.2e}{note} | kernel {ms:.3f} ms, twin {plain_ms:.3f} ms, "
-            f"bound {bnd:.3f} ms ({by}{extra}), cuDNN fp32 (TF32 off) "
-            f"{lib_ms:.3f} ms: kernel / cuDNN {ms / lib_ms:.2f}x, bound / "
-            f"kernel {bnd / ms:.1%}")
-        acc = sums.setdefault(name, [0.0, 0.0, 0.0, 0.0])
-        for i, v in enumerate((ms, bnd, lib_ms, plain_ms)):
+            f"bound {bnd:.3f} ms ({by}, CUDA-core bound {fma_bnd:.3f} ms), "
+            f"cuDNN fp32 (TF32 off) {lib_ms:.3f} ms: kernel / cuDNN "
+            f"{ms / lib_ms:.2f}x, bound / kernel {bnd / ms:.1%}")
+        acc = sums.setdefault(name, [0.0] * 5)
+        for i, v in enumerate((ms, bnd, fma_bnd, lib_ms, plain_ms)):
             acc[i] += v
-    for name, (ms, bnd, lib_ms, plain_ms) in sums.items():
+    for name, (ms, bnd, fma_bnd, lib_ms, plain_ms) in sums.items():
         log(f"[train-kernels] sum B1 fp32 {name:14s} kernel {ms:.3f} / bound "
-            f"{bnd:.3f} / cuDNN {lib_ms:.3f} / twin {plain_ms:.3f} ms: kernel "
-            f"/ cuDNN {ms / lib_ms:.2f}x")
+            f"{bnd:.3f} (CUDA cores {fma_bnd:.3f}) / cuDNN {lib_ms:.3f} / twin "
+            f"{plain_ms:.3f} ms: kernel / cuDNN {ms / lib_ms:.2f}x")
 
 
 def _int8_store_config(path):

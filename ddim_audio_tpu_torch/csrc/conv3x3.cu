@@ -14,7 +14,7 @@
 //             partial (sum, sum²) of out32 per channel (optional)
 //             out = out32 rounded to the storage dtype
 //
-// Two variants; conv3x3_plan (conv_plan.h) picks one per call and
+// Three variants; conv3x3_plan (conv_plan.h) picks one per call and
 // ddim_conv3x3_variant reports it:
 //
 // - conv3x3_mma_kernel (bf16, C % 32 == 0: every bf16 conv of the audio.yml
@@ -60,10 +60,35 @@
 //   §6): the prologue, the MMAs, the weight stream and the epilogue run in
 //   series inside a block, and one block's phases overlap only other
 //   blocks'.
-// - conv3x3_kernel (fp32, and bf16 where C % 32 != 0): the MACs run on CUDA
-//   cores in fp32, bound by FMA issue and shared-memory reads (one float4
-//   broadcast read per 4 MACs of a position, one weight read per 4 MACs per
-//   lane), not by HBM. 8 positions per thread reuse each staged weight 8
+// - conv3x3_tf32_kernel (fp32, C % 32 == 0: training's convs, forward,
+//   recompute and dx, and the fp32 float-tap sampling route): the bf16
+//   kernel's warps on the tensor cores in split TF32, as the fp32 down conv
+//   (conv_strided.cu): each fp32 operand split into hi = tf32(v) and lo =
+//   tf32(v − hi), lo·hi + hi·lo + hi·hi accumulated by mma.sync.m16n8k8
+//   into fp32, each ring step's sum folded into the total by IEEE
+//   additions (the tensor cores' fp32 sum does not round to nearest;
+//   single-pass TF32 keeps ten mantissa bits and fails training's 100 dB
+//   guard). fp32 doubles the halo (190 KB at C = 256 for the bf16 tile), so
+//   the halo streams in 16-channel chunks beside a 3-deep ring of tap-row
+//   stages, one output-channel group a block (grid.z). Each halo value
+//   feeds nine taps, so a chunk is copied raw (x and the residual) by
+//   cp.async, and one pass applies the prologue and splits each value once
+//   into TF32 hi and lo planes that ldmatrix reads as they are, in place of
+//   a split a value a tap in the registers (store_split_tf32,
+//   conv_mma.cuh).
+//   Where a sample's grid does not reach one block an SM (s3-s5 of a
+//   training microbatch) the chunks split over a thread block cluster whose
+//   rank 0 sums the ranks in rank order (deterministic, no atomics). The
+//   kernel before it (below, which bf16 keeps where C % 32 != 0) ran at
+//   13-19% of the fp32 FMA bound and 2.1 times one fp32 cuDNN call summed
+//   over the training shapes; this one 0.198 / 0.137 / 0.106 / 0.057 /
+//   0.047 / 0.030 ms at s0-s5 of a training microbatch, 0.83 times that
+//   call summed, 123-129 dB against it (H100 80GB HBM3 at 700 W,
+//   chip_smoke.py; PERF.md).
+// - conv3x3_kernel (bf16 where C % 32 != 0, and fp32 there): the MACs run
+//   on CUDA cores in fp32, bound by FMA issue and shared-memory reads (one
+//   float4 broadcast read per 4 MACs of a position, one weight read per 4
+//   MACs per lane), not by HBM. 8 positions per thread reuse each staged weight 8
 //   times; the input halo is staged once per channel chunk. It fuses the
 //   prologue into the staging pass, so the activation makes one trip from
 //   HBM.
@@ -352,6 +377,227 @@ cudaError_t launch_conv3x3_mma(const TilePlan& p, const void* x,
   return cudaGetLastError();
 }
 
+
+// The fp32 conv3x3 on the tensor cores in split TF32. A block owns TT × FT
+// positions (16·MT·WM: 128 at MT = 2, WN = 2; 128 or 64 at MT = 1) × the
+// NB = 32·WN output channels of group blockIdx.z / ksplit, and the input
+// channels' chunks kz·C/(16·ksplit) … of them (kz = blockIdx.z % ksplit).
+// Step s = 3·kc + dt of the K loop stages tap row dt (taps (dt, 0 … 2)) ×
+// input channels kTf32K·kc … +15 × NB into a kTf32Stages-deep cp.async
+// ring; the step that stages chunk kc's first tap row also copies the
+// chunk's halo (rows t0 − 1 … t0 + TT, columns f0 − 1 … f0 + FT, zero
+// outside) of x and of the residual raw into one buffer each. Chunk kc's
+// first step runs the prologue on it (x + residual, the GroupNorm affine,
+// SiLU, zero outside the array after all of it: pad after norm) and splits
+// each value once into TF32 hi and lo planes (store_split_tf32) before it
+// issues the next copies. Per k8 step a warp's A fragments (hi, lo) come by
+// ldmatrix at each position's own plane address, B by 32-bit reads split
+// into hi and lo, then three mma.sync.m16n8k8 a tile pair. A step (3 taps ×
+// 16 channels: 48 products an output) sums into acc_s, folded into acc by
+// IEEE additions; the K split's ranks sum over the cluster (cluster_sum). The
+// epilogue runs from the registers as conv3x3_mma_kernel's, in fp32: add,
+// SiLU (conv_common's, as the CUDA-core kernel), statistics, 16-byte
+// stores. Registers are bounded for two blocks an SM (ptxas: 128 at MT =
+// 2, no spill; 96-99 at MT = 1).
+template <int MT, int WN>
+__global__ void __launch_bounds__(kThreads, 2) conv3x3_tf32_kernel(
+    const float* __restrict__ x, const float* __restrict__ res,
+    const float* __restrict__ pre_scale, const float* __restrict__ pre_shift,
+    const float* __restrict__ w, const float* __restrict__ add,
+    float* __restrict__ out, float* __restrict__ stats, int t_len, int f_len,
+    int c, int pre_silu, int post_silu, int ksplit) {
+  constexpr int kWarpsM = 8 / WN;
+  constexpr int kM = 16 * MT * kWarpsM;  // positions per block
+  constexpr int kNB = 32 * WN;           // output channels per block
+  constexpr int kWP = kNB + 8;           // stage pitch (floats)
+  constexpr int kTap = kTf32K * kWP;     // one tap's 16 ci × NB in a stage
+  constexpr int kStage = 3 * kTap;       // a tap row
+  constexpr int kQ = kTf32K / 4;         // 16-byte copies a halo position
+  extern __shared__ __align__(16) unsigned char smem[];
+
+  const int ft = f_len >= 16 ? 16 : 8, tt = kM / ft;
+  const int hw = ft + 2, hn = (tt + 2) * hw;
+  float* raw = reinterpret_cast<float*>(smem);  // [2][hn][kTf32K]: x, res
+  float* hi = raw + 2 * hn * kTf32K;            // [hn][kTf32Pitch]
+  float* lo = hi + hn * kTf32Pitch;             // [hn][kTf32Pitch]
+  float* ring = lo + hn * kTf32Pitch;  // [stages][3 df][16 ci][kWP]
+  float* red = ring + kTf32Stages * kStage;  // [kWarpsM][2][kNB]
+
+  const int b = blockIdx.y;
+  const int g = blockIdx.z / ksplit, kz = blockIdx.z % ksplit;
+  const int tiles_f = (f_len + ft - 1) / ft;
+  const int t0 = (blockIdx.x / tiles_f) * tt, f0 = (blockIdx.x % tiles_f) * ft;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp % kWarpsM, wn = warp / kWarpsM;
+  const int gid = lane >> 2, tig = lane & 3;
+  const size_t xb = (size_t)b * t_len * f_len * c;
+  // this block's steps: chunks kz·chunks/ksplit … (kz + 1)·chunks/ksplit − 1
+  const int chunks = c / kTf32K;
+  const int s_lo = 3 * (kz * chunks / ksplit);
+  const int s_hi = 3 * ((kz + 1) * chunks / ksplit);
+
+  auto load_weights = [&](int s) {
+    const int kc = s / 3, dt = s % 3;
+    float* dst = ring + (s % kTf32Stages) * kStage;
+    for (int i = threadIdx.x; i < 3 * kTf32K * kNB / 4; i += kThreads) {
+      const int q = i % (kNB / 4), r = (i / (kNB / 4)) % kTf32K;
+      const int df = i / (kTf32K * kNB / 4);
+      cp_async16(dst + df * kTap + r * kWP + 4 * q,
+                 w + ((size_t)(dt * 3 + df) * c + kc * kTf32K + r) * c +
+                     g * kNB + 4 * q);
+    }
+  };
+  auto load_raw = [&](int kc) {
+    for (int i = threadIdx.x; i < hn * kQ; i += kThreads) {
+      const int hp = i / kQ, q = i % kQ;
+      const int t = t0 - 1 + hp / hw, f = f0 - 1 + hp % hw;
+      const bool inside = t >= 0 && t < t_len && f >= 0 && f < f_len;
+      const size_t off =
+          inside ? xb + ((size_t)t * f_len + f) * c + kc * kTf32K + 4 * q : 0;
+      cp_async16_zfill(raw + hp * kTf32K + 4 * q, x + off, inside);
+      if (res != nullptr)
+        cp_async16_zfill(raw + (hn + hp) * kTf32K + 4 * q, res + off, inside);
+    }
+  };
+#pragma unroll
+  for (int s = s_lo; s < s_lo + kTf32Stages - 1; ++s) {
+    if (s < s_hi) load_weights(s);
+    if (s < s_hi && s % 3 == 0) load_raw(s / 3);
+    cp_async_commit();
+  }
+
+  uint32_t a_base[MT];  // lane's A row (position) in the hi plane, tap (0, 0)
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    const int p = wm * 16 * MT + mt * 16 + (lane & 15);
+    a_base[mt] = smem_u32(hi + ((p / ft) * hw + p % ft) * kTf32Pitch +
+                          (lane >> 4) * 4);
+  }
+  const uint32_t lo_off = hn * kTf32Pitch * 4;
+  // lane's b0 in a stage: k row tig, column wn·32 + gid (+ 8·nt)
+  const float* bst = ring + tig * kWP + wn * 32 + gid;
+  float acc[MT][kNT][4];
+  zero_acc(acc);
+
+#pragma unroll 1
+  for (int s = s_lo; s < s_hi; ++s) {
+    cp_async_wait<kTf32Stages - 2>();
+    __syncthreads();  // stage s and its chunk's raw halo visible; slot s − 1
+                      // free
+    const int kc = s / 3, dt = s % 3;
+    if (dt == 0) {  // the chunk's prologue, split once into the planes
+      for (int i = threadIdx.x; i < hn * kQ; i += kThreads) {
+        const int hp = i / kQ, q = i % kQ;
+        const int t = t0 - 1 + hp / hw, f = f0 - 1 + hp % hw;
+        float4 v = *reinterpret_cast<const float4*>(raw + hp * kTf32K + 4 * q);
+        if (res != nullptr) {
+          const float4 r =
+              *reinterpret_cast<const float4*>(raw + (hn + hp) * kTf32K + 4 * q);
+          v = make_float4(v.x + r.x, v.y + r.y, v.z + r.z, v.w + r.w);
+        }
+        if (pre_scale != nullptr) {
+          const int ch = b * c + kc * kTf32K + 4 * q;
+          const float4 sc = __ldg(reinterpret_cast<const float4*>(pre_scale + ch));
+          const float4 sh = __ldg(reinterpret_cast<const float4*>(pre_shift + ch));
+          v = make_float4(v.x * sc.x + sh.x, v.y * sc.y + sh.y,
+                          v.z * sc.z + sh.z, v.w * sc.w + sh.w);
+        }
+        if (pre_silu) v = make_float4(silu(v.x), silu(v.y), silu(v.z), silu(v.w));
+        if (t < 0 || t >= t_len || f < 0 || f >= f_len)  // pad after norm
+          v = make_float4(0.f, 0.f, 0.f, 0.f);
+        store_split_tf32(hi + hp * kTf32Pitch + 4 * q,
+                         lo + hp * kTf32Pitch + 4 * q, v);
+      }
+      __syncthreads();  // the planes written; the raw buffers free
+    }
+    const int nxt = s + kTf32Stages - 1;
+    if (nxt < s_hi) load_weights(nxt);
+    if (nxt < s_hi && nxt % 3 == 0) load_raw(nxt / 3);
+    cp_async_commit();
+    const float* bs = bst + (s % kTf32Stages) * kStage;
+    float acc_s[MT][kNT][4];
+    zero_acc(acc_s);
+#pragma unroll
+    for (int df = 0; df < 3; ++df) {
+      const uint32_t a_off = (dt * hw + df) * kTf32Pitch * 4;
+#pragma unroll
+      for (int kk = 0; kk < kTf32K / 8; ++kk) {
+        uint32_t ah[MT][4], al[MT][4], aa[MT];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) aa[mt] = a_base[mt] + a_off + kk * 32;
+        load_a_tf32(ah, al, aa, lo_off);
+        const float* bp = bs + df * kTap + kk * 8 * kWP;
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) {
+          uint32_t bh[2], bl[2];
+          split_tf32(bp[nt * 8], bh[0], bl[0]);
+          split_tf32(bp[nt * 8 + 4 * kWP], bh[1], bl[1]);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+            mma_tf32x3(acc_s[mt][nt], ah[mt], al[mt], bh, bl);
+        }
+      }
+    }
+    fold_acc(acc, acc_s);
+  }
+  // the K split's ranks sum in rank 0 (the planes' memory is free by then)
+  if (ksplit > 1 && !cluster_sum(acc, smem, ksplit)) return;
+
+  // Epilogue from the registers: add, SiLU, statistics, 16-byte stores.
+  const int co = g * kNB + wn * 32 + 8 * tig;
+  float av[8], s1[8], s2[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    av[k] = add != nullptr ? __ldg(add + b * c + co + k) : 0.f;
+    s1[k] = s2[k] = 0.f;
+  }
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      Vec8 o = quad_gather(acc[mt], r, tig);
+      const int p = wm * 16 * MT + mt * 16 + gid + 8 * r;
+      const int t = t0 + p / ft, f = f0 + p % ft;
+      if (t < t_len && f < f_len) {  // the epilogue of an output position
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          float v = o.v[k] + av[k];
+          if (post_silu) v = silu(v);
+          s1[k] += v;
+          s2[k] += v * v;
+          o.v[k] = v;
+        }
+        store8(out + xb + ((size_t)t * f_len + f) * c + co, o);
+      }
+    }
+  if (stats != nullptr)
+    group_stats(s1, s2, red, wm, wn, kWarpsM, kNB,
+                stats + ((size_t)b * gridDim.x + blockIdx.x) * 2 * c + g * kNB,
+                c);
+}
+
+template <int MT, int WN>
+cudaError_t launch_conv3x3_tf32(const TilePlan& p, const void* x,
+                                const void* res, const float* pre_scale,
+                                const float* pre_shift, const void* w,
+                                const float* add, void* out, float* stats,
+                                int batch, int t_len, int f_len, int c,
+                                int pre_silu, int post_silu, cudaStream_t s) {
+  static bool raised = false;  // per instantiation; one card per process
+  if (!raised) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        conv3x3_tf32_kernel<MT, WN>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+    if (err != cudaSuccess) return err;
+    raised = true;
+  }
+  return launch_cluster_z(
+      conv3x3_tf32_kernel<MT, WN>, p, batch, s, static_cast<const float*>(x),
+      static_cast<const float*>(res), pre_scale, pre_shift,
+      static_cast<const float*>(w), add, static_cast<float*>(out), stats,
+      t_len, f_len, c, pre_silu, post_silu, p.split / p.groups);
+}
+
 }  // namespace ddim
 
 extern "C" {
@@ -368,6 +614,18 @@ int ddim_conv3x3(const void* x, const void* res, const float* pre_scale,
   using namespace ddim;
   const TilePlan p = conv3x3_plan(t_len, f_len, c, bf16, batch);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (p.variant == kVariantTf32) {
+    // MT from the tile (16·MT·WM positions), WN from the group width; at
+    // WN = 1 the plan takes MT = 1 (MT = 2 leaves no room for two blocks)
+    const int wn = c / p.groups / 32;
+    const int mt = p.tile_t * p.tile_f / (16 * (8 / wn));
+    const auto launch = wn == 1    ? launch_conv3x3_tf32<1, 1>
+                        : mt == 2 ? launch_conv3x3_tf32<2, 2>
+                                  : launch_conv3x3_tf32<1, 2>;
+    return static_cast<int>(launch(p, x, res, pre_scale, pre_shift, w, add,
+                                   out, stats, batch, t_len, f_len, c,
+                                   pre_silu, post_silu, s));
+  }
   if (p.variant == kVariantMma) {
     // audio.yml: C = 32, 64 → <1, 3>; 96 → <1, 2>; 128 … 256 → <2, 2>
     const auto launch = conv3x3_warps_n(c) == 2      ? launch_conv3x3_mma<2, 2>

@@ -2,9 +2,12 @@
 // conv_strided.cu up and down; conv3x3_int8.cu and conv_strided_int8.cu take
 // the copies, ldmatrix, the int8 items and requant and the statistics):
 // cp.async staging, ldmatrix fragment loads, mma.sync.m16n8k16 bf16 → fp32
-// and m16n8k8 split TF32 → fp32, the register epilogue's quad transpose and
-// statistics, and the conv3x3 block's weight ring and tap steps
-// (Conv3x3Mma), which the float-tap and the int8-storage conv3x3 share.
+// and m16n8k8 split TF32 → fp32 (the split at staging or in the registers,
+// the fold of a step's sum, the K split's sum over a cluster, the cluster
+// launch), the register
+// epilogue's quad transpose and statistics, and the conv3x3 block's weight
+// ring and tap steps (Conv3x3Mma), which the float-tap and the int8-storage
+// conv3x3 share.
 //
 // Warp tile: MT m16 tiles (16·MT positions, one per A-fragment row) × 4 n8
 // tiles (32 output channels). A rows are positions of the staged halo, read
@@ -12,6 +15,8 @@
 // B is a weight stage [32 ci][n co] (co contiguous as in HWIO) read with
 // ldmatrix.trans, so no repack exists either.
 #pragma once
+
+#include <cooperative_groups.h>
 
 #include "conv_common.cuh"
 
@@ -138,6 +143,137 @@ __device__ __forceinline__ void mma_tf32x3(float (&d)[4],
   mma_tf32(d, al, bh[0], bh[1]);
   mma_tf32(d, ah, bl[0], bl[1]);
   mma_tf32(d, ah, bh[0], bh[1]);
+}
+
+// A fragment (m16n8k8 TF32) at ldmatrix address addr, split in the
+// registers into its hi and lo halves.
+__device__ __forceinline__ void split_a_tf32(uint32_t (&ah)[4],
+                                             uint32_t (&al)[4],
+                                             uint32_t addr) {
+  uint32_t r[4];
+  ldsm_x4(r, addr);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) split_tf32(__uint_as_float(r[k]), ah[k], al[k]);
+}
+
+// Four staged values into the hi and lo planes of a split-TF32 halo chunk.
+// The conv3x3 and up kernels split each halo value once, at staging (it
+// feeds 9 taps in conv3x3, 4 in the up conv), and ldmatrix reads the planes
+// as they are; a split of each A fragment in the registers after its
+// ldmatrix, as the down conv does, measured 9-10% slower summed over the
+// training shapes on an H100 (PERF.md).
+__device__ __forceinline__ void store_split_tf32(float* hi, float* lo,
+                                                 float4 v) {
+  uint4 h, l;
+  split_tf32(v.x, h.x, l.x);
+  split_tf32(v.y, h.y, l.y);
+  split_tf32(v.z, h.z, l.z);
+  split_tf32(v.w, h.w, l.w);
+  *reinterpret_cast<uint4*>(hi) = h;
+  *reinterpret_cast<uint4*>(lo) = l;
+}
+
+// A fragments (hi, lo) of MT m16 tiles from the planes: the lane's
+// ldmatrix addresses a[mt] in the hi plane, the lo plane lo_off bytes on.
+template <int MT>
+__device__ __forceinline__ void load_a_tf32(uint32_t (&ah)[MT][4],
+                                            uint32_t (&al)[MT][4],
+                                            const uint32_t (&a)[MT],
+                                            uint32_t lo_off) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    ldsm_x4(ah[mt], a[mt]);
+    ldsm_x4(al[mt], a[mt] + lo_off);
+  }
+}
+
+template <int MT>
+__device__ __forceinline__ void zero_acc(float (&acc)[MT][kNT][4]) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[mt][nt][k] = 0.f;
+}
+
+// acc += part by IEEE fp32 additions: the tensor cores' fp32 accumulation
+// is not round-to-nearest, so a split-TF32 kernel sums each ring step into
+// accumulators of its own (part) and folds them in here.
+template <int MT>
+__device__ __forceinline__ void fold_acc(float (&acc)[MT][kNT][4],
+                                         const float (&part)[MT][kNT][4]) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        acc[mt][nt][k] = __fadd_rn(acc[mt][nt][k], part[mt][nt][k]);
+}
+
+// The K split's sum over a thread block cluster: each rank leaves its sums
+// in its own shared memory (`scratch`, free by then: MT·kNT·kThreads
+// float4s, [fragment][thread]), and rank 0 adds the ranks' sums in rank
+// order over distributed shared memory, so the result does not depend on
+// which block finishes first. Every thread of every rank calls it; returns
+// true in rank 0, which goes on to the epilogue.
+template <int MT>
+__device__ __forceinline__ bool cluster_sum(float (&acc)[MT][kNT][4],
+                                            void* scratch, int ksplit) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  float4* part = reinterpret_cast<float4*>(scratch);
+  __syncthreads();  // every warp is done with the shared memory
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+      part[(mt * kNT + nt) * kThreads + threadIdx.x] = make_float4(
+          acc[mt][nt][0], acc[mt][nt][1], acc[mt][nt][2], acc[mt][nt][3]);
+  cluster.sync();  // every rank's sums are visible to the cluster
+  const bool first = cluster.block_rank() == 0;
+  if (first) {
+    zero_acc(acc);
+    for (int r = 0; r < ksplit; ++r) {
+      const float4* src = cluster.map_shared_rank(part, r);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) {
+          const float4 v = src[(mt * kNT + nt) * kThreads + threadIdx.x];
+          acc[mt][nt][0] = __fadd_rn(acc[mt][nt][0], v.x);
+          acc[mt][nt][1] = __fadd_rn(acc[mt][nt][1], v.y);
+          acc[mt][nt][2] = __fadd_rn(acc[mt][nt][2], v.z);
+          acc[mt][nt][3] = __fadd_rn(acc[mt][nt][3], v.w);
+        }
+    }
+  }
+  cluster.sync();  // rank 0 has read every rank's shared memory
+  return first;
+}
+
+// cudaLaunchKernelEx of a split-TF32 kernel on the plan's grid (tiles,
+// batch, split): the K split's blocks of a (tile, group), split / groups of
+// them, form one cluster along z.
+template <typename Kernel, typename... Args>
+cudaError_t launch_cluster_z(Kernel kernel, const TilePlan& p, int batch,
+                             cudaStream_t s, Args... args) {
+  const int ksplit = p.split / p.groups;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.tiles, batch, p.split);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = p.smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = ksplit;
+  cfg.attrs = attr;
+  cfg.numAttrs = ksplit > 1 ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 // One k16 step of a warp tile of MT m16 tiles: A rows at a_addr[mt] (byte
@@ -288,6 +424,27 @@ __device__ __forceinline__ void finish_group_stats(const float* red,
     for (int wm = 0; wm < warps_m; ++wm) s += red[(wm * 2 + which) * nb + ch];
     dst[which * c + ch] = s;
   }
+}
+
+// Block statistics of one output-channel group from the lanes' column sums
+// s1, s2 (channels wn·32 + 8·tig … of the group's nb, the warp's positions):
+// over the quad columns, then over the warps_m warps wm that share the
+// channels, into dst[0 … nb) and dst[c …). All threads call it.
+__device__ __forceinline__ void group_stats(float (&s1)[8], float (&s2)[8],
+                                            float* red, int wm, int wn,
+                                            int warps_m, int nb, float* dst,
+                                            int c) {
+  sum_over_gid(s1);
+  sum_over_gid(s2);
+  const int lane = threadIdx.x & 31;
+  if (lane < 4) {  // gid 0: lane = tig
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      red[(wm * 2) * nb + wn * 32 + 8 * lane + k] = s1[k];
+      red[(wm * 2 + 1) * nb + wn * 32 + 8 * lane + k] = s2[k];
+    }
+  }
+  finish_group_stats(red, warps_m, nb, dst, c);
 }
 
 // The conv3x3 tensor-core block (conv3x3.cu, conv3x3_store.cu): WN warps

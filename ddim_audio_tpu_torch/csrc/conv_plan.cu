@@ -25,7 +25,8 @@ int ddim_conv3x3_tiles(int t_len, int f_len, int c, int bf16) {
   return ddim::conv3x3_plan(t_len, f_len, c, bf16, 1).tiles;
 }
 
-// 1 when ddim_conv3x3 runs the tensor-core kernel, 0 for CUDA cores.
+// The variant ddim_conv3x3 runs: 0 CUDA cores, 1 tensor cores (bf16), 2
+// split TF32 on the tensor cores (fp32).
 int ddim_conv3x3_variant(int t_len, int f_len, int c, int bf16) {
   return ddim::conv3x3_plan(t_len, f_len, c, bf16, 1).variant;
 }

@@ -29,10 +29,10 @@ DDIM_HD int num_tiles(int t_out, int f_out) {
 
 // ---------------------------------------------- tensor-core (mma.sync) --
 //
-// Variants: 0 = CUDA cores (fp32, and bf16 where channels are no multiple
+// Variants: 0 = CUDA cores (fp32 and bf16 where channels are no multiple
 // of 32), 1 = tensor cores (mma.sync.m16n8k16 bf16, fp32 accumulation),
 // 2 = tensor cores in split TF32 (fp32 operands as hi + lo TF32 pairs, three
-// mma.sync.m16n8k8 products: the fp32 down conv).
+// mma.sync.m16n8k8 products: the fp32 conv3x3, up and down convs).
 constexpr int kVariantNone = -1;  // no kernel takes the shape (the call raises)
 constexpr int kVariantFma = 0;
 constexpr int kVariantMma = 1;
@@ -45,21 +45,30 @@ constexpr int kUpStages = 3;
 // conv_down ring: a stage holds kDownTaps taps (a tap row) × 32 ci × NB co
 constexpr int kDownStages = 3;
 constexpr int kDownTaps = 4;
-// split-TF32 down conv: its halo streams through in chunks of kTf32K input
-// channels (two buffers, kTf32Pitch floats a position: 80 bytes, so the 8
-// rows of an ldmatrix fall in distinct banks), its weights through a
-// kTf32Stages-deep ring of tap rows (kDownTaps taps × kTf32K ci × NB co)
+// split-TF32 kernels: the halo streams through in chunks of kTf32K input
+// channels (kTf32Pitch floats a position: 80 bytes, so the 8 rows of an
+// ldmatrix fall in distinct banks), the weights through a kTf32Stages-deep
+// ring (down: a tap row, kDownTaps taps × kTf32K ci × NB co a stage;
+// conv3x3: a tap row of 3 taps; up: kUpTf32Offs tap offsets of the four
+// parity classes). The down conv stages each chunk into one of two halo buffers;
+// conv3x3 and up copy a chunk raw into one buffer and split it once, with
+// conv3x3's prologue, into a TF32 hi and a lo plane.
 constexpr int kTf32K = 16;
 constexpr int kTf32Pitch = kTf32K + 4;
 constexpr int kTf32Stages = 3;
 constexpr int kMmaRed = 2048;     // bytes of the statistics scratch
 constexpr int kSmemLimit = 232448;
+constexpr int kSmemPerSm = 233472;  // shared memory of an SM, bytes
 // Blocks the grid should reach before the halo is staged more than once:
 // two resident blocks on each of the H100's 132 SMs.
 constexpr int kSMs = 132;  // an H100's SMs
 constexpr int kFillBlocks = 2 * kSMs;
-// the split-TF32 down conv's K split, at most (blocks of a cluster)
+// the split-TF32 kernels' K split, at most (blocks of a cluster)
 constexpr int kTf32MaxSplit = 8;
+// input positions a block of the split-TF32 up conv (4 × 16 or 8 × 8), and
+// the tap offsets (a, b) a stage of its ring holds (two ring steps a chunk)
+constexpr int kUpTf32Pos = 64;
+constexpr int kUpTf32Offs = 2;
 
 struct TilePlan {
   int variant;
@@ -91,8 +100,54 @@ DDIM_HD int conv3x3_min_blocks(int c) { return c <= 64 ? 3 : 2; }
 // on (128 positions a block), else one (256 positions a block).
 DDIM_HD int conv3x3_warps_n(int c) { return c >= 128 && c % 64 == 0 ? 2 : 1; }
 
+// The K split of a split-TF32 kernel: where a sample's grid of `blocks`
+// does not reach one block an SM, the input channels' kTf32K-channel chunks
+// split over up to kTf32MaxSplit blocks of a cluster, two chunks a block at
+// least.
+DDIM_HD int tf32_ksplit(int blocks, int c_in) {
+  const int half = c_in / kTf32K / 2;
+  int ksplit = blocks >= kSMs ? 1 : kSMs / blocks;
+  if (ksplit > half) ksplit = half;
+  if (ksplit > kTf32MaxSplit) ksplit = kTf32MaxSplit;
+  return ksplit < 1 ? 1 : ksplit;
+}
+
+// conv3x3 in split TF32 (conv3x3_tf32_kernel): two warps across 64 output
+// channels wherever C is a multiple of 64 (each chunk's prologue and split
+// serve 64 channels), else one across 32; MT = 2 m16 tiles a warp (128
+// positions at WN = 2) where its shared memory leaves room for two blocks
+// an SM and one sample's grid reaches kFillBlocks, else MT = 1 (128 or 64
+// positions); one output-channel group a block and the K split over a
+// cluster (grid.z = split = groups · the K split). Shared memory: the raw
+// chunk of x and of the residual, the hi and lo planes of the
+// prologue-applied chunk and the ring of tap rows.
+DDIM_HD int conv3x3_tf32_warps_n(int c) { return c % 64 == 0 ? 2 : 1; }
+
+DDIM_HD int conv3x3_tf32_smem(int tt, int ft, int nb) {
+  const int hn = (tt + 2) * (ft + 2);
+  return 4 * (2 * hn * kTf32K + 2 * hn * kTf32Pitch +
+              kTf32Stages * 3 * kTf32K * (nb + 8)) +
+         kMmaRed;
+}
+
 DDIM_HD TilePlan conv3x3_plan(int t, int f, int c, int bf16, int batch) {
   TilePlan p;
+  if (!bf16 && c % 32 == 0) {
+    const int wn = conv3x3_tf32_warps_n(c), nb = 32 * wn;
+    p.variant = kVariantTf32;
+    p.tile_f = f >= 16 ? 16 : 8;
+    p.tile_t = 16 * 2 * (8 / wn) / p.tile_f;  // MT = 2
+    p.groups = c / nb;
+    p.tiles = cdiv(t, p.tile_t) * cdiv(f, p.tile_f);
+    if (2 * (conv3x3_tf32_smem(p.tile_t, p.tile_f, nb) + 1024) > kSmemPerSm ||
+        p.tiles * p.groups < kFillBlocks) {  // MT = 1
+      p.tile_t /= 2;
+      p.tiles = cdiv(t, p.tile_t) * cdiv(f, p.tile_f);
+    }
+    p.split = p.groups * tf32_ksplit(p.tiles * p.groups, c);
+    p.smem = conv3x3_tf32_smem(p.tile_t, p.tile_f, nb);
+    return p;
+  }
   if (bf16 && c % 32 == 0) {
     const int wn = conv3x3_warps_n(c), m = 32 * (8 / wn), nb = 32 * wn;
     p.variant = kVariantMma;
@@ -119,9 +174,32 @@ DDIM_HD TilePlan conv3x3_plan(int t, int f, int c, int bf16, int batch) {
 // conv_up: a block owns 128 input positions and their 512 outputs; warp w
 // computes output parity class w % 4 of input positions 64·(w / 4) … +63
 // for one group of 32 output channels.
+//
+// In split TF32 (conv_up_tf32_kernel) a block owns kUpTf32Pos input
+// positions and one group of 32 output channels; warp w computes class w % 4
+// of input positions 32·(w / 4) … +31 (MT = 2), and the K split takes a
+// cluster where a sample's grid does not reach one block an SM. Shared
+// memory: the raw chunk, its hi and lo planes and the ring.
+DDIM_HD int conv_up_tf32_smem(int tt, int ft) {
+  const int hn = (tt + 2) * (ft + 2);
+  return 4 * (hn * kTf32K + 2 * hn * kTf32Pitch +
+              kTf32Stages * kUpTf32Offs * 4 * kTf32K * (32 + 8)) +
+         kMmaRed;
+}
+
 DDIM_HD TilePlan conv_up_plan(int t_in, int f_in, int c_in, int c_out,
                               int bf16, int batch) {
   TilePlan p;
+  if (!bf16 && c_in % 32 == 0 && c_out % 32 == 0) {
+    p.variant = kVariantTf32;
+    p.tile_f = f_in >= 16 ? 16 : 8;
+    p.tile_t = kUpTf32Pos / p.tile_f;
+    p.tiles = cdiv(t_in, p.tile_t) * cdiv(f_in, p.tile_f);
+    p.groups = c_out / 32;
+    p.split = p.groups * tf32_ksplit(p.tiles * p.groups, c_in);
+    p.smem = conv_up_tf32_smem(p.tile_t, p.tile_f);
+    return p;
+  }
   if (bf16 && c_in % 32 == 0 && c_out % 32 == 0) {
     p.variant = kVariantMma;
     p.tile_f = f_in >= 16 ? 16 : 8;
@@ -192,14 +270,7 @@ DDIM_HD TilePlan conv_down_plan(int t_in, int f_in, int c_in, int c_out,
       p.tile_t /= 2;
       p.tiles = cdiv(t_out, p.tile_t) * cdiv(f_out, p.tile_f);
     }
-    // a K split (a cluster of blocks along z) where a sample's grid does not
-    // reach one block an SM, each block two chunks at least
-    const int blocks = p.tiles * p.groups, half = c_in / kTf32K / 2;
-    int ksplit = blocks >= kSMs ? 1 : kSMs / blocks;
-    if (ksplit > half) ksplit = half;
-    if (ksplit > kTf32MaxSplit) ksplit = kTf32MaxSplit;
-    if (ksplit < 1) ksplit = 1;
-    p.split = p.groups * ksplit;
+    p.split = p.groups * tf32_ksplit(p.tiles * p.groups, c_in);
     p.smem = conv_down_tf32_smem(p.tile_t, p.tile_f, nb);
     return p;
   }
@@ -324,7 +395,6 @@ constexpr int kHeadMU = 2;       // m16 tiles a head warp computes at once
 constexpr int kHeadStages = 2;   // head: output staging tiles
 constexpr int kTailStages = 1;   // tail: input rows in flight
 constexpr int kTailTt = 8, kTailFt = 16;  // CUDA-core tail block: 8 x 16
-constexpr int kSmemPerSm = 233472;  // shared memory of an SM, bytes
 
 // Elements of a head halo row: Cin-wide positions -1 ... F with 8 elements
 // of pad before position 0 (16-byte aligned copies) and a pitch of 32 mod 64

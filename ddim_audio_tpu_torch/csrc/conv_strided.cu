@@ -86,7 +86,7 @@
 //   input halo and weights staged per chunk as fp32, 8 accumulators per
 //   thread.
 //
-// up, two variants picked per call (conv_up_plan, conv_plan.h;
+// up, three variants picked per call (conv_up_plan, conv_plan.h;
 // ddim_conv_up_variant reports it):
 // - conv_up_mma_kernel (bf16, C_in % 32 == 0, C_out % 32 == 0: every bf16
 //   transition of audio.yml, 256→192 at f_out = 16 included). On an H100 the
@@ -117,11 +117,23 @@
 //   29 / 21 / 14% of the byte bound (cuDNN's bare transposed conv: 0.210 /
 //   0.117 / 0.112), 0.060 / 0.071 ms at 192→128 / 256→192, 11 / 5% of the
 //   tensor-core bound.
-// - conv_up_kernel (fp32, and bf16 with channels no multiple of 32): the FMA
-//   implicit GEMM, 4·Cin MACs per output element; every warp owns one
-//   (row, column) parity class so each staged weight is reused 8 times.
-#include <cooperative_groups.h>
-
+// - conv_up_tf32_kernel (fp32, C_in % 32 == 0, C_out % 32 == 0: training's
+//   up convs and the dx of its down convs, ops/flat_grad.py): the sub-pixel
+//   block of the bf16 kernel on the tensor cores in split TF32, as the fp32
+//   down conv, on 64 input positions and one group of 32 output channels a
+//   block (a warp a class × 32 positions: the fp32 sums of a wider tile do
+//   not fit the registers). Each 16-channel chunk of the input halo is
+//   copied raw and split once into TF32 hi and lo planes (each value feeds
+//   four taps), the tap offsets stream through a 3-deep ring, and the small
+//   grids (192→128, 256→192 at a training microbatch) split the chunks over
+//   a cluster. The kernel before it (below) ran at 2.1 times one fp32 cuDNN
+//   call summed over the training shapes; this one 0.145 / 0.103 / 0.064 /
+//   0.036 / 0.033 ms from 64→32 to 256→192, 0.41 times that call summed,
+//   133-135 dB against it (H100 80GB HBM3 at 700 W, chip_smoke.py;
+//   PERF.md).
+// - conv_up_kernel (bf16 with channels no multiple of 32, and fp32 there):
+//   the FMA implicit GEMM, 4·Cin MACs per output element; every warp owns
+//   one (row, column) parity class so each staged weight is reused 8 times.
 #include "conv_mma.cuh"
 
 namespace ddim {
@@ -612,12 +624,7 @@ __global__ void __launch_bounds__(kThreads, 1) conv_down_tf32_kernel(
                           (lane >> 4) * 4);
   }
   float acc[MT][kNT][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) acc[mt][nt][k] = 0.f;
+  zero_acc(acc);
 
 #pragma unroll 1
   for (int s = s_lo; s < s_hi; ++s) {
@@ -631,12 +638,7 @@ __global__ void __launch_bounds__(kThreads, 1) conv_down_tf32_kernel(
     const float* bst = ring + (s % kTf32Stages) * kStage + tig * kWP +
                        wn * 32 + gid;
     float acc_s[MT][kNT][4];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) acc_s[mt][nt][k] = 0.f;
+    zero_acc(acc_s);
 #pragma unroll
     for (int df = 0; df < 4; ++df) {
       const uint32_t a_off =
@@ -645,13 +647,8 @@ __global__ void __launch_bounds__(kThreads, 1) conv_down_tf32_kernel(
       for (int kk = 0; kk < kTf32K / 8; ++kk) {
         uint32_t ah[MT][4], al[MT][4];
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          uint32_t r[4];
-          ldsm_x4(r, a_base[mt] + a_off + kk * 32);
-#pragma unroll
-          for (int k = 0; k < 4; ++k)
-            split_tf32(__uint_as_float(r[k]), ah[mt][k], al[mt][k]);
-        }
+        for (int mt = 0; mt < MT; ++mt)
+          split_a_tf32(ah[mt], al[mt], a_base[mt] + a_off + kk * 32);
         const float* bp = bst + df * kTap + kk * 8 * kWP;
 #pragma unroll
         for (int nt = 0; nt < kNT; ++nt) {
@@ -664,54 +661,10 @@ __global__ void __launch_bounds__(kThreads, 1) conv_down_tf32_kernel(
         }
       }
     }
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-          acc[mt][nt][k] = __fadd_rn(acc[mt][nt][k], acc_s[mt][nt][k]);
+    fold_acc(acc, acc_s);
   }
-
-  if (ksplit > 1) {
-    // Each rank's sums into its own shared memory (the halo's, now free),
-    // [fragment][thread] as float4s; rank 0 adds them in rank order.
-    namespace cg = cooperative_groups;
-    cg::cluster_group cluster = cg::this_cluster();
-    float4* part = reinterpret_cast<float4*>(smem);
-    __syncthreads();  // every warp is done with the halo
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt)
-        part[(mt * kNT + nt) * kThreads + threadIdx.x] =
-            make_float4(acc[mt][nt][0], acc[mt][nt][1], acc[mt][nt][2],
-                        acc[mt][nt][3]);
-    cluster.sync();  // every rank's sums are visible to the cluster
-    if (cluster.block_rank() == 0) {
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-          for (int k = 0; k < 4; ++k) acc[mt][nt][k] = 0.f;
-      for (int r = 0; r < ksplit; ++r) {
-        const float4* src = cluster.map_shared_rank(part, r);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-          for (int nt = 0; nt < kNT; ++nt) {
-            const float4 v = src[(mt * kNT + nt) * kThreads + threadIdx.x];
-            acc[mt][nt][0] = __fadd_rn(acc[mt][nt][0], v.x);
-            acc[mt][nt][1] = __fadd_rn(acc[mt][nt][1], v.y);
-            acc[mt][nt][2] = __fadd_rn(acc[mt][nt][2], v.z);
-            acc[mt][nt][3] = __fadd_rn(acc[mt][nt][3], v.w);
-          }
-      }
-    }
-    cluster.sync();  // rank 0 has read every rank's shared memory
-    if (kz != 0) return;
-  }
+  // the K split's ranks sum in rank 0 (the halo's memory is free by then)
+  if (ksplit > 1 && !cluster_sum(acc, smem, ksplit)) return;
 
   // Epilogue from the registers: bias, statistics, 16-byte stores.
   const int co = g * kNB + wn * 32 + 8 * tig;
@@ -740,21 +693,11 @@ __global__ void __launch_bounds__(kThreads, 1) conv_down_tf32_kernel(
         store8(out + ob + ((size_t)t * f_out + f) * c_out + co, o);
       }
     }
-  if (stats != nullptr) {
-    sum_over_gid(s1);
-    sum_over_gid(s2);
-    if (gid == 0) {
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        red[(wm * 2) * kNB + wn * 32 + 8 * tig + k] = s1[k];
-        red[(wm * 2 + 1) * kNB + wn * 32 + 8 * tig + k] = s2[k];
-      }
-    }
-    finish_group_stats(
-        red, kWarpsM, kNB,
+  if (stats != nullptr)
+    group_stats(
+        s1, s2, red, wm, wn, kWarpsM, kNB,
         stats + ((size_t)b * gridDim.x + blockIdx.x) * 2 * c_out + g * kNB,
         c_out);
-  }
 }
 
 template <int MT, int WN>
@@ -770,25 +713,11 @@ cudaError_t launch_conv_down_tf32(const TilePlan& p, const void* x,
     if (err != cudaSuccess) return err;
     raised = true;
   }
-  // the K split's blocks of a (tile, group) form one cluster along z
-  const int ksplit = p.split / p.groups;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(p.tiles, batch, p.split);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = p.smem;
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = ksplit;
-  cfg.attrs = attr;
-  cfg.numAttrs = ksplit > 1 ? 1 : 0;
-  const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, conv_down_tf32_kernel<MT, WN>, static_cast<const float*>(x),
-      static_cast<const float*>(w), bias, static_cast<float*>(out), stats,
-      t_in, f_in, c_in, c_out, ksplit);
-  return err != cudaSuccess ? err : cudaGetLastError();
+  return launch_cluster_z(conv_down_tf32_kernel<MT, WN>, p, batch, s,
+                          static_cast<const float*>(x),
+                          static_cast<const float*>(w), bias,
+                          static_cast<float*>(out), stats, t_in, f_in, c_in,
+                          c_out, p.split / p.groups);
 }
 
 // Sub-pixel form of the up conv: output (2i + py, 2j + px) is a 2×2 conv of
@@ -951,6 +880,214 @@ __global__ void __launch_bounds__(kThreads, 2) conv_up_mma_kernel(
   }
 }
 
+
+// The fp32 up conv on the tensor cores in split TF32: the sub-pixel form of
+// conv_up_mma_kernel on kUpTf32Pos input positions a block (TT × FT = 4 ×
+// 16, or 8 × 8 where F_in < 16) and one group of 32 output channels
+// (blockIdx.z / ksplit); warp w computes class w % 4 of input positions
+// 32·(w / 4) … +31, MT = 2 m16 tiles × 4 n8 tiles. Step s = 2·kc + h of
+// the K loop stages, for tap offsets ab = 2h, 2h + 1 ((a, b) = (ab >> 1,
+// ab & 1)) and input channels kTf32K·kc … +15, the four classes' taps × 32
+// output channels into a kTf32Stages-deep cp.async ring; the step that
+// stages chunk kc's first weights also copies the chunk's input halo (rows
+// i0 − 1 … i0 + TT, columns j0 − 1 … j0 + FT, zero outside) raw into one
+// buffer, which chunk kc's first step splits once into TF32 hi and lo
+// planes (store_split_tf32) before it issues the next copies and runs its
+// MMAs. Per k8 step a warp's A fragments
+// (hi, lo) come by ldmatrix at each position's own plane address, B by
+// 32-bit reads split into hi and lo, then three mma.sync.m16n8k8 a tile
+// pair; a step sums into acc_s, folded into acc by IEEE additions, and
+// where a sample's grid is small the chunks split over a cluster
+// (cluster_sum). The epilogue is conv_up_mma_kernel's: bias, the fp32 skip
+// residual, statistics of the sum, 16-byte stores.
+__global__ void __launch_bounds__(kThreads, 2) conv_up_tf32_kernel(
+    const float* __restrict__ x, const float* __restrict__ w,
+    const float* __restrict__ bias, const float* __restrict__ res,
+    float* __restrict__ out, float* __restrict__ stats, int t_in, int f_in,
+    int c_in, int c_out, int ksplit) {
+  constexpr int MT = 2;                  // m16 tiles per warp
+  constexpr int kNB = 32;                // output channels per block
+  constexpr int kWP = kNB + 8;           // stage pitch (floats)
+  constexpr int kClass = kTf32K * kWP;   // one class's tap in a stage
+  constexpr int kStage = kUpTf32Offs * 4 * kClass;
+  constexpr int kSteps = 4 / kUpTf32Offs;  // ring steps a chunk
+  constexpr int kQ = kTf32K / 4;         // 16-byte copies a halo position
+  extern __shared__ __align__(16) unsigned char smem[];
+
+  const int fi = f_in >= 16 ? 16 : 8, ti = kUpTf32Pos / fi;
+  const int hw = fi + 2, hn = (ti + 2) * hw;
+  float* raw = reinterpret_cast<float*>(smem);  // [hn][kTf32K]
+  float* hi = raw + hn * kTf32K;                // [hn][kTf32Pitch]
+  float* lo = hi + hn * kTf32Pitch;             // [hn][kTf32Pitch]
+  float* ring = lo + hn * kTf32Pitch;  // [stages][2 ab][4 cls][16 ci][kWP]
+  float* red = ring + kTf32Stages * kStage;  // [kWarps][2][kNB]
+
+  const int b = blockIdx.y;
+  const int g = blockIdx.z / ksplit, kz = blockIdx.z % ksplit;
+  const int tiles_f = (f_in + fi - 1) / fi;
+  const int i0 = (blockIdx.x / tiles_f) * ti, j0 = (blockIdx.x % tiles_f) * fi;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int cls = warp & 3, py = cls >> 1, px = cls & 1, half = warp >> 2;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int t_out = 2 * t_in, f_out = 2 * f_in;
+  const size_t xb = (size_t)b * t_in * f_in * c_in;
+  const size_t ob = (size_t)b * t_out * f_out * c_out;
+  // this block's steps: chunks kz·chunks/ksplit … (kz + 1)·chunks/ksplit − 1
+  const int chunks = c_in / kTf32K;
+  const int s_lo = kSteps * (kz * chunks / ksplit);
+  const int s_hi = kSteps * ((kz + 1) * chunks / ksplit);
+
+  auto load_weights = [&](int s) {
+    const int kc = s / kSteps;
+    float* dst = ring + (s % kTf32Stages) * kStage;
+    for (int i = threadIdx.x; i < kUpTf32Offs * 4 * kTf32K * kNB / 4;
+         i += kThreads) {
+      const int q = i % (kNB / 4), r = (i / (kNB / 4)) % kTf32K;
+      const int ko = i / (kTf32K * kNB / 4);  // (offset, class) of the tap
+      const int k = ko & 3, ab = (s % kSteps) * kUpTf32Offs + (ko >> 2);
+      const int tap = ((k >> 1) + 2 * (ab >> 1)) * 4 + (k & 1) + 2 * (ab & 1);
+      cp_async16(dst + ko * kClass + r * kWP + 4 * q,
+                 w + ((size_t)tap * c_in + kc * kTf32K + r) * c_out +
+                     g * kNB + 4 * q);
+    }
+  };
+  auto load_raw = [&](int kc) {
+    for (int i = threadIdx.x; i < hn * kQ; i += kThreads) {
+      const int hp = i / kQ, q = i % kQ;
+      const int t = i0 - 1 + hp / hw, f = j0 - 1 + hp % hw;
+      const bool inside = t >= 0 && t < t_in && f >= 0 && f < f_in;
+      const float* src =
+          inside ? x + xb + ((size_t)t * f_in + f) * c_in + kc * kTf32K + 4 * q
+                 : x;
+      cp_async16_zfill(raw + hp * kTf32K + 4 * q, src, inside);
+    }
+  };
+#pragma unroll
+  for (int s = s_lo; s < s_lo + kTf32Stages - 1; ++s) {
+    if (s < s_hi) load_weights(s);
+    if (s < s_hi && s % kSteps == 0) load_raw(s / kSteps);
+    cp_async_commit();
+  }
+
+  uint32_t a_base[MT];  // lane's A row in the hi plane, tap offset (0, 0)
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    const int p = half * 16 * MT + mt * 16 + (lane & 15);
+    a_base[mt] = smem_u32(hi + ((p / fi + py) * hw + p % fi + px) * kTf32Pitch +
+                          (lane >> 4) * 4);
+  }
+  const uint32_t lo_off = hn * kTf32Pitch * 4;
+  // lane's b0 in a stage: offset 0, class cls, k row tig, column gid (+ 8·nt)
+  const float* bst = ring + cls * kClass + tig * kWP + gid;
+  float acc[MT][kNT][4];
+  zero_acc(acc);
+
+#pragma unroll 1
+  for (int s = s_lo; s < s_hi; ++s) {
+    cp_async_wait<kTf32Stages - 2>();
+    __syncthreads();  // stage s and its chunk's raw halo visible; slot s − 1
+                      // free
+    if (s % kSteps == 0) {  // split the chunk's halo into its planes, once
+      for (int i = threadIdx.x; i < hn * kQ; i += kThreads) {
+        const int hp = i / kQ, q = i % kQ;
+        store_split_tf32(
+            hi + hp * kTf32Pitch + 4 * q, lo + hp * kTf32Pitch + 4 * q,
+            *reinterpret_cast<const float4*>(raw + hp * kTf32K + 4 * q));
+      }
+      __syncthreads();  // the planes written; the raw buffer free
+    }
+    const int nxt = s + kTf32Stages - 1;
+    if (nxt < s_hi) load_weights(nxt);
+    if (nxt < s_hi && nxt % kSteps == 0) load_raw(nxt / kSteps);
+    cp_async_commit();
+    float acc_s[MT][kNT][4];
+    zero_acc(acc_s);
+#pragma unroll
+    for (int o = 0; o < kUpTf32Offs; ++o)
+#pragma unroll
+      for (int kk = 0; kk < kTf32K / 8; ++kk) {
+        const int ab = (s % kSteps) * kUpTf32Offs + o;
+        const uint32_t a_off = ((ab >> 1) * hw + (ab & 1)) * kTf32Pitch * 4;
+        uint32_t ah[MT][4], al[MT][4], aa[MT];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) aa[mt] = a_base[mt] + a_off + kk * 32;
+        load_a_tf32(ah, al, aa, lo_off);
+        const float* bp = bst + (s % kTf32Stages) * kStage +
+                          o * 4 * kClass + kk * 8 * kWP;
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) {
+          uint32_t bh[2], bl[2];
+          split_tf32(bp[nt * 8], bh[0], bl[0]);
+          split_tf32(bp[nt * 8 + 4 * kWP], bh[1], bl[1]);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+            mma_tf32x3(acc_s[mt][nt], ah[mt], al[mt], bh, bl);
+        }
+      }
+    fold_acc(acc, acc_s);
+  }
+  // the K split's ranks sum in rank 0 (the planes' memory is free by then)
+  if (ksplit > 1 && !cluster_sum(acc, smem, ksplit)) return;
+
+  // Epilogue from the registers: bias, the skip residual, statistics of the
+  // sum, 16-byte stores.
+  const int co = g * kNB + 8 * tig;
+  float bv[8], s1[8], s2[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    bv[k] = __ldg(bias + co + k);
+    s1[k] = s2[k] = 0.f;
+  }
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      Vec8 o = quad_gather(acc[mt], r, tig);
+      const int p = half * 16 * MT + mt * 16 + gid + 8 * r;
+      const int i = i0 + p / fi, j = j0 + p % fi;
+      if (i < t_in && j < f_in) {  // the epilogue of an output position
+        const size_t off =
+            ob + ((size_t)(2 * i + py) * f_out + 2 * j + px) * c_out + co;
+        const Vec8 rv = res != nullptr ? load8(res + off) : Vec8{};
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          float v = o.v[k] + bv[k];
+          if (res != nullptr) v += rv.v[k];
+          s1[k] += v;
+          s2[k] += v * v;
+          o.v[k] = v;
+        }
+        store8(out + off, o);
+      }
+    }
+  if (stats != nullptr)
+    group_stats(
+        s1, s2, red, warp, 0, kWarps, kNB,
+        stats + ((size_t)b * gridDim.x + blockIdx.x) * 2 * c_out + g * kNB,
+        c_out);
+}
+
+cudaError_t launch_conv_up_tf32(const TilePlan& p, const void* x,
+                                const void* w, const float* bias,
+                                const void* res, void* out, float* stats,
+                                int batch, int t_in, int f_in, int c_in,
+                                int c_out, cudaStream_t s) {
+  static bool raised = false;  // one card per process
+  if (!raised) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        conv_up_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kSmemLimit);
+    if (err != cudaSuccess) return err;
+    raised = true;
+  }
+  return launch_cluster_z(conv_up_tf32_kernel, p, batch, s,
+                          static_cast<const float*>(x),
+                          static_cast<const float*>(w), bias,
+                          static_cast<const float*>(res),
+                          static_cast<float*>(out), stats, t_in, f_in, c_in,
+                          c_out, p.split / p.groups);
+}
+
 }  // namespace ddim
 
 extern "C" {
@@ -1010,6 +1147,10 @@ int ddim_conv_up(const void* x, const void* w, const float* bias,
   const TilePlan p = conv_up_plan(t_in, f_in, c_in, c_out, bf16, batch);
   const dim3 grid(p.tiles, batch, p.split);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (p.variant == kVariantTf32)
+    return static_cast<int>(launch_conv_up_tf32(p, x, w, bias, res, out,
+                                                stats, batch, t_in, f_in,
+                                                c_in, c_out, s));
   if (p.variant == kVariantMma) {
     using T = __nv_bfloat16;
     static bool raised = false;  // one card per process

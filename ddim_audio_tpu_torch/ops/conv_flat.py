@@ -31,13 +31,16 @@ frequency columns × one channel (``STORE_GROUP``, the CUDA kernels' group;
 f mod lcm(C, 128)/C). A consumer dequantises every value, halo included,
 with the scale of the group that owns it.
 
-On the card, bf16 float-tap convs with C % 32 == 0 (every audio.yml stage,
-F = 8 included) run their taps on the tensor cores (mma.sync bf16, fp32
-accumulation; all C output channels per staging pass of the prologue); fp32
-convs and other channel counts run on CUDA cores. ``tile_plan.conv3x3_plan``
-says which, and how the grid is cut; what bounds each variant, and why the
-design, is noted at the top of ``csrc/conv3x3.cu``. Both write per-block
-statistics partials that ``torch.sum`` finishes, so runs are deterministic.
+On the card, float-tap convs with C % 32 == 0 (every audio.yml stage,
+F = 8 included) run their taps on the tensor cores: bf16 with mma.sync bf16
+(fp32 accumulation; all C output channels per staging pass of the
+prologue), fp32 in split TF32 (each operand a TF32 hi + lo pair, three
+TF32 products a tap, fp32 accuracy; training's path and the fp32 float-tap
+sampling route); other channel counts run on CUDA cores.
+``tile_plan.conv3x3_plan`` says which, and how the grid is cut; what bounds
+each variant, and why the design, is noted at the top of
+``csrc/conv3x3.cu``. All write per-block statistics partials that
+``torch.sum`` finishes, so runs are deterministic.
 """
 
 from __future__ import annotations

@@ -28,8 +28,8 @@ other. bf16 transitions at the audio.yml widths run their taps on the
 tensor cores with mma.sync (down: one staged input halo a tile for all its
 output channels, ``tile_plan.conv_down_plan``; up: the sub-pixel form, all
 four output parity classes from one staged input tile,
-``tile_plan.conv_up_plan``); the fp32 down conv (training's) runs them in
-split TF32 (three TF32 products a tap, fp32 accuracy); fp32 up and the
+``tile_plan.conv_up_plan``); the fp32 down and up convs (training's) run
+them in split TF32 (three TF32 products a tap, fp32 accuracy); the
 geometries those do not take run on CUDA cores (what bounds each: the note
 at the top of ``csrc/conv_strided.cu``). The int8-tap up conv is a
 persistent kernel (``tile_plan.conv_up_int8_plan``). Statistics come from

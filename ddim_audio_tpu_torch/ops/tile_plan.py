@@ -23,10 +23,12 @@ from typing import NamedTuple
 
 VARIANT_NONE, VARIANT_FMA, VARIANT_MMA, VARIANT_TF32 = -1, 0, 1, 2
 MMA_K = 32               # input channels per weight stage
-TF32_K = 16              # split-TF32 down: input channels a halo chunk/stage
-TF32_PITCH = TF32_K + 4  # floats a halo position
-TF32_STAGES = 3          # its weight ring: stages of a tap row each
+TF32_K = 16              # split TF32: input channels a halo chunk/stage
+TF32_PITCH = TF32_K + 4  # floats a halo position (hi and lo planes)
+TF32_STAGES = 3          # its weight ring's stages
 TF32_MAX_SPLIT = 8       # its K split over a cluster of blocks, at most
+UP_TF32_POS = 64         # split-TF32 up: input positions a block and
+UP_TF32_OFFS = 2         # tap offsets a stage of its ring
 UP_I8_CO = 32            # int8-tap up: output channels a block
 CONV_STAGES = 3          # conv3x3 weight ring: stages of a tap row each
 UP_STAGES = 3            # up weight ring: stages of one tap per class
@@ -86,9 +88,41 @@ def fill_split(tiles: int, batch: int, groups: int) -> int:
     return min(split, groups)
 
 
+def tf32_ksplit(blocks: int, c_in: int) -> int:
+    """The K split of a split-TF32 kernel: a cluster of blocks where a
+    sample's grid of ``blocks`` stays under one block an SM, two TF32_K
+    chunks of the input channels a block at least, TF32_MAX_SPLIT at most."""
+    ksplit = 1 if blocks >= SMS else SMS // blocks
+    return max(1, min(ksplit, c_in // TF32_K // 2, TF32_MAX_SPLIT))
+
+
+def _conv3x3_tf32_smem(tt: int, ft: int, nb: int) -> int:
+    hn = (tt + 2) * (ft + 2)
+    return 4 * (2 * hn * TF32_K + 2 * hn * TF32_PITCH
+                + TF32_STAGES * 3 * TF32_K * (nb + 8)) + MMA_RED
+
+
 def conv3x3_plan(t: int, f: int, c: int, bf16: bool,
                  batch: int = 1) -> TilePlan:
-    """The plan of ``ddim_conv3x3`` at [batch, t, f, c]."""
+    """The plan of ``ddim_conv3x3`` at [batch, t, f, c]. fp32 at C % 32 == 0
+    runs split TF32: two warps across 64 output channels where C % 64 == 0,
+    else one across 32; 128 positions a block at WN = 2 (MT = 2) where two
+    such blocks fit an SM's shared memory and one sample's grid of them
+    reaches FILL_BLOCKS, else half as many (MT = 1); one output-channel
+    group a block and the K split over a cluster (``split`` = ``groups`` ·
+    the K split)."""
+    if not bf16 and c % 32 == 0:
+        nb = 64 if c % 64 == 0 else 32
+        ft = 16 if f >= 16 else 8
+        tt = 16 * 2 * (8 // (nb // 32)) // ft
+        groups = c // nb
+        if (2 * (_conv3x3_tf32_smem(tt, ft, nb) + 1024) > SMEM_PER_SM
+                or _cdiv(t, tt) * _cdiv(f, ft) * groups < FILL_BLOCKS):
+            tt //= 2  # MT = 1
+        tiles = _cdiv(t, tt) * _cdiv(f, ft)
+        return TilePlan(VARIANT_TF32, tt, ft, tiles, groups,
+                        groups * tf32_ksplit(tiles * groups, c),
+                        _conv3x3_tf32_smem(tt, ft, nb))
     if bf16 and c % 32 == 0:
         wn = 2 if c >= 128 and c % 64 == 0 else 1  # warps across a group
         m, nb = 32 * (8 // wn), 32 * wn
@@ -107,7 +141,20 @@ def conv3x3_plan(t: int, f: int, c: int, bf16: bool,
 def conv_up_plan(t_in: int, f_in: int, c_in: int, c_out: int, bf16: bool,
                  batch: int = 1) -> TilePlan:
     """The plan of ``ddim_conv_up`` for an input [batch, t_in, f_in, c_in];
-    the tensor-core tile is in input positions (128 a block)."""
+    the tensor-core tile is in input positions (128 a block in bf16; in
+    split TF32, fp32, UP_TF32_POS, one group of 32 output channels a block
+    and the K split over a cluster: ``split`` = ``groups`` · the K split)."""
+    if not bf16 and c_in % 32 == 0 and c_out % 32 == 0:
+        ft = 16 if f_in >= 16 else 8
+        tt = UP_TF32_POS // ft
+        tiles = _cdiv(t_in, tt) * _cdiv(f_in, ft)
+        groups = c_out // 32
+        hn = (tt + 2) * (ft + 2)
+        smem = 4 * (hn * TF32_K + 2 * hn * TF32_PITCH
+                    + TF32_STAGES * UP_TF32_OFFS * 4 * TF32_K * (32 + 8)) \
+            + MMA_RED
+        return TilePlan(VARIANT_TF32, tt, ft, tiles, groups,
+                        groups * tf32_ksplit(tiles * groups, c_in), smem)
     if bf16 and c_in % 32 == 0 and c_out % 32 == 0:
         ft = 16 if f_in >= 16 else 8
         tt = 128 // ft
@@ -149,12 +196,8 @@ def conv_down_plan(t_in: int, f_in: int, c_in: int, c_out: int, bf16: bool,
         if _cdiv(t_out, tt) * _cdiv(f_out, ft) * groups < FILL_BLOCKS:
             tt //= 2  # MT = 1: one sample's grid decides
         tiles = _cdiv(t_out, tt) * _cdiv(f_out, ft)
-        # the K split: a cluster of blocks where a sample's grid stays
-        # under one block an SM, two 16-channel chunks a block at least
-        blocks = tiles * groups
-        ksplit = 1 if blocks >= SMS else SMS // blocks
-        ksplit = max(1, min(ksplit, c_in // TF32_K // 2, TF32_MAX_SPLIT))
-        return TilePlan(VARIANT_TF32, tt, ft, tiles, groups, groups * ksplit,
+        return TilePlan(VARIANT_TF32, tt, ft, tiles, groups,
+                        groups * tf32_ksplit(tiles * groups, c_in),
                         _down_tf32_smem(tt, ft, nb))
     if bf16 and c_in % MMA_K == 0 and c_out % 32 == 0:
         nb = 64 if c_out % 64 == 0 else 32  # 32 output channels a warp

@@ -1,10 +1,11 @@
 """Where the time of the bf16 tensor-core conv3x3, up and down kernels, of
 the int8-tap conv3x3, of the int8-storage conv3x3, of the head and tail
-convs, of the fp32 down conv (training's) and of the int8-tap up conv goes,
-on the card: each kernel built again with one piece of its work taken out.
+convs, of the fp32 conv3x3, up and down convs (training's) and of the
+int8-tap up conv goes, on the card: each kernel built again with one piece
+of its work taken out.
 
     python -m ddim_audio_tpu_torch.tools.conv_ablation [--out FILE]
-        [--kernels conv3x3,up,down,int8,store,head,tail,down32,upi8]
+        [--kernels conv3x3,up,down,int8,store,head,tail,down32,upi8,conv32,up32]
         [--csrc DIR]
 
 Copies ``csrc`` (or ``--csrc``, another checkout's kernel sources, e.g. a
@@ -30,7 +31,17 @@ they had first and for their redesigned ones: ``no_mma`` the FMAs or
 MMAs, ``no_weights`` the weight staging, ``no_halo`` the input halo (down32:
 its copies; upi8: the first kernel's amax pass over global memory, the
 persistent one's prefetch of the next group's raw halo), ``no_requant``
-(upi8) the requantisation pass and ``no_epilogue`` the stores. Builds
+(upi8) the requantisation pass and ``no_epilogue`` the stores. ``conv32``
+and ``up32`` (the fp32 conv3x3 with every fusion on and the fp32 up conv
+with the skip residual, both with statistics, at the training shapes,
+against fp32 cuDNN with TF32 off) likewise, for their CUDA-core kernels and
+their split-TF32 ones: ``no_mma`` the FMAs or MMAs, ``no_weights`` the
+weights (the split-TF32 ring after its first stages), ``no_halo`` the halo
+(the CUDA-core conv3x3's staging pass with its prologue; the split-TF32
+kernels' raw chunk copies after the first), ``no_epilogue`` add or bias,
+residual, SiLU, statistics and stores, and for the split-TF32 kernels
+``no_split`` (the split at staging: the chunk into the hi plane as it is),
+which a checkout without it builds unedited. Builds
 ``conv3x3.cu``, ``conv_strided.cu``, ``conv_strided_int8.cu``,
 ``conv3x3_int8.cu``, ``conv3x3_store.cu``, ``conv_head_tail.cu`` and
 ``conv_plan.cu`` of each copy with nvcc, all at once, and times the C entry
@@ -90,6 +101,9 @@ HEAD_TAIL = [(8192, 256)]  # the head's input and the tail's output (T, F)
 TRAIN_DOWNS = [(1024, 256, 32, 64), (512, 128, 64, 96), (256, 64, 96, 128),
                (128, 32, 128, 192), (64, 16, 192, 256)]
 UPS_I8 = [(4096, 128, 64, 32), (256, 8, 256, 192)]
+TRAIN_STAGES = [(1024, 256, 32), (512, 128, 64), (256, 64, 96), (128, 32, 128),
+                (64, 16, 192), (32, 8, 256)]
+TRAIN_UPS = [(t // 2, f // 2, co, ci) for t, f, ci, co in TRAIN_DOWNS]
 SOURCES = ("conv3x3.cu", "conv_strided.cu", "conv_strided_int8.cu",
            "conv3x3_int8.cu", "conv3x3_store.cu", "conv_head_tail.cu",
            "conv_plan.cu")
@@ -207,17 +221,22 @@ DOWN32_EDITS = {
          (r"mma_tf32x3\(acc", "if (s < 0) mma_tf32x3(acc")),
     ],
     "no_weights": [
-        # the weights of each 8-channel chunk; the ring after its first
-        # stages
+        # the weights of each 8-channel chunk (down and up on CUDA cores);
+        # the split-TF32 rings after their first stages (down; up)
         ((r"idx < 16 \* kCkS \* kCoTile; idx \+= kThreads",
           "idx < 0; idx += kThreads"),
          (r"if \(s \+ kTf32Stages - 1 < s_hi\) load_stage",
-          "if (false) load_stage")),
+          "if (false) load_stage"),
+         (r"if \(nxt < s_hi\) load_weights", "if (false) load_weights")),
     ],
     "no_halo": [
-        # the halo of each 8-channel chunk; the 16-channel halo chunks
+        # the halo of each 8-channel chunk (down and up on CUDA cores); the
+        # split-TF32 down's 16-channel halo chunks; the split-TF32 up's raw
+        # chunk copies after the first
         ((r"idx < hn \* kCkS; idx \+= kThreads", "idx < 0; idx += kThreads"),
-         (r"i < hn \* kTf32Q; i \+= kThreads", "i < 0; i += kThreads")),
+         (r"i < hn \* kTf32Q; i \+= kThreads", "i < 0; i += kThreads"),
+         (r"if \(nxt < s_hi && nxt % kSteps == 0\) load_raw",
+          "if (false) load_raw")),
     ],
     "no_epilogue": [
         # bias, statistics and stores
@@ -227,8 +246,58 @@ DOWN32_EDITS = {
           "      const float o = acc[i] + bias[co];"),
          (r"const bool inside = t < t_out && f < f_out;",
           "const bool inside = t < t_out && f < f_out && c_in < 0;")),
+        # the up conv's bias, residual, statistics and stores (CUDA cores;
+        # split TF32)
+        ((r"if \(t < t_out && f < f_out && co < c_out\) \{\n"
+          r"      const size_t off",
+          "if (t < t_out && f < f_out && co < c_out && c_in < 0) {\n"
+          "      const size_t off"),
+         (r"if \(i < t_in && j < f_in\) \{  // the epilogue",
+          "if (i < t_in && j < f_in && c_in < 0) {  // the epilogue")),
     ],
 }
+# The fp32 conv3x3 (conv3x3.cu): the CUDA-core kernel first written and the
+# split-TF32 one
+CONV32_EDITS = {
+    "no_mma": [
+        ((r"acc\[i\] = fma4\(acc\[i\], v, w0, w1, w2, w3\);",
+          "if (tap < 0) acc[i] = fma4(acc[i], v, w0, w1, w2, w3);"),
+         (r"mma_tf32x3\(acc", "if (s < 0) mma_tf32x3(acc")),
+    ],
+    "no_weights": [
+        ((r"idx < 9 \* kCk3 \* kCoTile; idx \+= kThreads",
+          "idx < 0; idx += kThreads"),
+         (r"if \(nxt < s_hi\) load_weights", "if (false) load_weights")),
+    ],
+    "no_halo": [
+        # the staging pass with its prologue; the raw chunk copies after
+        # the first
+        ((r"idx < hn \* kCk3; idx \+= kThreads", "idx < 0; idx += kThreads"),
+         (r"if \(nxt < s_hi && nxt % 3 == 0\) load_raw",
+          "if (false) load_raw")),
+    ],
+    "no_epilogue": [
+        ((r"if \(t < t_len && f < f_len && co < c\) \{",
+          "if (t < t_len && f < f_len && co < c && pre_silu < 0) {"),
+         (r"if \(t < t_len && f < f_len\) \{  // the epilogue",
+          "if (t < t_len && f < f_len && c < 0) {  // the epilogue")),
+    ],
+}
+# The split-TF32 conv3x3 and up's split at staging (conv_mma.cuh): the
+# chunk stored into the hi plane as it is. A checkout without it builds this
+# variant unedited.
+TF32_SPLIT_EDITS = {
+    "no_split": [
+        ((r"uint4 h, l;\n  split_tf32\(v\.x, h\.x, l\.x\);\n"
+          r"  split_tf32\(v\.y, h\.y, l\.y\);\n"
+          r"  split_tf32\(v\.z, h\.z, l\.z\);\n"
+          r"  split_tf32\(v\.w, h\.w, l\.w\);",
+          "const uint4 h = make_uint4(__float_as_uint(v.x), "
+          "__float_as_uint(v.y), __float_as_uint(v.z), __float_as_uint(v.w));"
+          "\n  const uint4 l = make_uint4(0u, 0u, 0u, 0u);"),),
+    ],
+}
+OPTIONAL = ("no_split",)
 UPI8_EDITS = {
     "no_mma": [
         # the int8 MMAs of the two-pass kernel; of the persistent one
@@ -272,15 +341,22 @@ UPI8_EDITS = {
 }
 ALT_EDITS = {"conv_head_tail.cu": HEAD_TAIL_EDITS,
              "conv_strided.cu": DOWN32_EDITS,
-             "conv_strided_int8.cu": UPI8_EDITS}
+             "conv_strided_int8.cu": UPI8_EDITS,
+             "conv3x3.cu": CONV32_EDITS,
+             "conv_mma.cuh": TF32_SPLIT_EDITS}
 KERNELS = ("conv3x3", "up", "down", "int8", "store", "head", "tail", "down32",
-           "upi8")
+           "upi8", "conv32", "up32")
+# the variants each fp32 / int8 kind's own edits add
+KIND_EDITS = {"down32": DOWN32_EDITS, "upi8": UPI8_EDITS,
+              "conv32": {**CONV32_EDITS, **TF32_SPLIT_EDITS},
+              "up32": {**DOWN32_EDITS, **TF32_SPLIT_EDITS}}
 
 
 def apply_alternatives(d: Path, name: str) -> dict:
     """The edits of ALT_EDITS for variant ``name`` in the copy ``d``; each
-    edit needs at least one of its alternatives to match. Returns the
-    matches of every alternative, by file."""
+    edit needs at least one of its alternatives to match (but for the
+    OPTIONAL variants). Returns the matches of every alternative, by
+    file."""
     hits_of = {}
     for fn, edits in ALT_EDITS.items():
         q = d / fn
@@ -289,7 +365,7 @@ def apply_alternatives(d: Path, name: str) -> dict:
             for pat, rep in alternatives:
                 text, n = re.subn(pat, rep, text)
                 hits.append(n)
-            if not any(hits):
+            if not any(hits) and name not in OPTIONAL:
                 raise RuntimeError(f"{name}: no match for any of "
                                    f"{[a[0] for a in alternatives]} in {fn}")
             hits_of.setdefault(fn, []).append(hits)
@@ -315,7 +391,7 @@ def build(root: Path, csrc: Path, variants) -> dict:
                                   "int raised = 48 * 1024;")
                          .replace("static int grid_cap = 0;",
                                   "int grid_cap = 0;"))
-        for fn, pat, rep in VARIANTS[name]:
+        for fn, pat, rep in VARIANTS.get(name, ()):
             q = d / fn
             text, n = re.subn(pat, rep, q.read_text())
             if n == 0:
@@ -399,11 +475,11 @@ def main(argv=None) -> int:
         return 2
     # the variants that edit something the chosen kernels run
     variants = ["full"]
-    if todo - {"head", "tail"}:
+    if todo - {"head", "tail", "conv32", "up32"}:
         variants += [v for v, e in VARIANTS.items() if e]
     if todo & {"head", "tail"}:
         variants += [v for v in HEAD_TAIL_EDITS if v not in variants]
-    for kind, edits in (("down32", DOWN32_EDITS), ("upi8", UPI8_EDITS)):
+    for kind, edits in KIND_EDITS.items():
         if kind in todo:
             variants += [v for v in edits if v not in variants]
     if not torch.cuda.is_available():
@@ -531,6 +607,65 @@ def main(argv=None) -> int:
                 wl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
                 xn = x.view(bsz, t, f, ci).permute(0, 3, 1, 2)
                 lib_ms = cuda_ms(lambda: F.conv2d(xn, wl, stride=2, padding=1))
+                row.append(f"cudnn_fp32 {lib_ms:.4f}")
+                emit(" | ".join(row))
+            for t, f, c in TRAIN_STAGES if "conv32" in todo else ():
+                x, res = rnd(bsz, t, f * c), rnd(bsz, t, f * c)
+                w = rnd(3, 3, c, c, scale=(9 * c) ** -0.5)
+                sc, sh, add = 1 + 0.1 * rnd(bsz, c), 0.1 * rnd(bsz, c), rnd(bsz, c)
+                out = torch.empty_like(x)
+                # as many partials as either kernel writes (the CUDA-core
+                # one's 64-position tiles are the smallest)
+                stats = torch.empty(bsz, _fma_plan(t, f, c).tiles, 2, c,
+                                    device="cuda")
+                row = [f"conv32 B{bsz} T{t} F{f} C{c}"]
+                for name, lib in libs.items():
+                    def run(lib=lib, res_on=True, pre_on=True):
+                        err = lib.ddim_conv3x3(
+                            x.data_ptr(), res.data_ptr() if res_on else None,
+                            sc.data_ptr() if pre_on else None,
+                            sh.data_ptr() if pre_on else None, w.data_ptr(),
+                            add.data_ptr(), out.data_ptr(), stats.data_ptr(),
+                            bsz, t, f, c, int(pre_on), 1, 0, st)
+                        if err:
+                            raise RuntimeError(f"ddim_conv3x3 fp32 {name}: "
+                                               f"{err}")
+                    row.append(f"{name} {cuda_ms(run):.4f}")
+                    if name == "full":
+                        row.append("no_residual "
+                                   f"{cuda_ms(lambda: run(res_on=False)):.4f}")
+                        row.append("no_prologue "
+                                   f"{cuda_ms(lambda: run(res_on=False, pre_on=False)):.4f}")
+                wl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+                xn = x.view(bsz, t, f, c).permute(0, 3, 1, 2)
+                row.append("cudnn_fp32 "
+                           f"{cuda_ms(lambda: F.conv2d(xn, wl, padding=1)):.4f}")
+                emit(" | ".join(row))
+            for t, f, ci, co in TRAIN_UPS if "up32" in todo else ():
+                x = rnd(bsz, t, f * ci)
+                w = rnd(4, 4, ci, co, scale=(4 * ci) ** -0.5)
+                bias, res = rnd(co), rnd(bsz, 2 * t, 2 * f * co)
+                out = torch.empty_like(res)
+                stats = torch.empty(bsz, _fma_plan(2 * t, 2 * f, co).tiles, 2,
+                                    co, device="cuda")
+                row = [f"up32 B{bsz} T{t} F{f} {ci}->{co}"]
+                for name, lib in libs.items():
+                    def run(lib=lib, res_on=True):
+                        err = lib.ddim_conv_up(
+                            x.data_ptr(), w.data_ptr(), bias.data_ptr(),
+                            res.data_ptr() if res_on else None, out.data_ptr(),
+                            stats.data_ptr(), bsz, t, f, ci, co, 0, st)
+                        if err:
+                            raise RuntimeError(f"ddim_conv_up fp32 {name}: "
+                                               f"{err}")
+                    row.append(f"{name} {cuda_ms(run):.4f}")
+                    if name == "full":
+                        row.append("no_residual "
+                                   f"{cuda_ms(lambda: run(res_on=False)):.4f}")
+                xn = x.view(bsz, t, f, ci).permute(0, 3, 1, 2)
+                wl = up_weight(w)
+                lib_ms = cuda_ms(lambda: F.conv_transpose2d(xn, wl, stride=2,
+                                                            padding=1))
                 row.append(f"cudnn_fp32 {lib_ms:.4f}")
                 emit(" | ".join(row))
             for t, f, ci, co in UPS_I8 if "upi8" in todo else ():

@@ -1,16 +1,21 @@
 """Time the bf16 down conv, the int8-tap conv3x3, the int8-storage conv3x3,
-the head and tail convs, the fp32 down conv (training's) and the int8-tap
-up conv of a checkout, on the card, at the audio.yml shapes, B = 1 and 2,
-against one cuDNN call of the bare conv; for comparing two checkouts of
-this package in one machine, in turns.
+the head and tail convs, the fp32 down, conv3x3 and up convs (training's)
+and the int8-tap up conv of a checkout, on the card, at the audio.yml
+shapes, B = 1 and 2, against one cuDNN call of the bare conv; for comparing
+two checkouts of this package in one machine, in turns.
 
     python3 -m ddim_audio_tpu_torch.tools.kernel_pair LABEL [KINDS]
     (cd <other checkout> && python3 <this checkout>/ddim_audio_tpu_torch/tools/kernel_pair.py LABEL [KINDS])
 
-KINDS is a comma-separated subset of down,int8,store,head,tail,down32,upi8
-(default: all seven). ``down32`` is the fp32 down conv at the five training
-transitions of one microbatch [1, 2, 1024, 256] with statistics, against
-one fp32 cuDNN call (TF32 off); ``upi8`` the int8-tap up conv in bf16 at
+KINDS is a comma-separated subset of
+down,int8,store,head,tail,down32,upi8,conv32,up32 (default: all nine).
+``down32`` is the fp32 down conv at the five training transitions of one
+microbatch [1, 2, 1024, 256] with statistics, against one fp32 cuDNN call
+(TF32 off); ``conv32`` the fp32 conv3x3 at its six stages with every fusion
+on (residual, GroupNorm affine + SiLU prologue, add, SiLU, statistics:
+chip_smoke.py's ``[train-kernels]`` operands) and ``up32`` the fp32 up conv
+at its five transitions with the skip residual and statistics, likewise
+against fp32 cuDNN; ``upi8`` the int8-tap up conv in bf16 at
 64 -> 32 and 256 -> 192 with the skip residual and statistics, its weights
 laid out as ``prepare_params`` gives them (where the checkout's wrapper
 takes ``wq_t``).
@@ -46,7 +51,11 @@ HEAD_TAIL = [(8192, 256)]  # the head's input and the tail's output (T, F)
 TRAIN_DOWNS = [(1024, 256, 32, 64), (512, 128, 64, 96), (256, 64, 96, 128),
                (128, 32, 128, 192), (64, 16, 192, 256)]
 UPS_I8 = [(4096, 128, 64, 32), (256, 8, 256, 192)]
-KINDS = ("down", "int8", "store", "head", "tail", "down32", "upi8")
+TRAIN_STAGES = [(1024, 256, 32), (512, 128, 64), (256, 64, 96), (128, 32, 128),
+                (64, 16, 192), (32, 8, 256)]
+TRAIN_UPS = [(t // 2, f // 2, co, ci) for t, f, ci, co in TRAIN_DOWNS]
+KINDS = ("down", "int8", "store", "head", "tail", "down32", "upi8", "conv32",
+         "up32")
 
 
 # Cycles the card sleeps before the timed calls (~25-35 ms), so that the
@@ -143,6 +152,37 @@ def main(argv=None) -> int:
             add(("down32", bsz), k)
             add(("down32 cudnn", bsz), lib)
             print(f"{label} down32 B{bsz} {ci}->{co} kernel {k:.4f} cudnn "
+                  f"{lib:.4f} ratio {k / lib:.2f}", flush=True)
+        for t, f, c in TRAIN_STAGES if "conv32" in kinds else ():
+            x, res = rnd(bsz, t, f * c), rnd(bsz, t, f * c)
+            w = rnd(3, 3, c, c, scale=(9 * c) ** -0.5)
+            kw = dict(c=c, residual=res, pre=(1 + 0.1 * rnd(bsz, c),
+                                              0.1 * rnd(bsz, c)),
+                      add=rnd(bsz, c), pre_silu=True, post_silu=True,
+                      want_stats=True)
+            k = cuda_ms(torch, lambda: conv_flat.conv3x3_flat(x, w, **kw))
+            wl = w.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            xn = x.view(bsz, t, f, c).permute(0, 3, 1, 2)
+            lib = cuda_ms(torch, lambda: F.conv2d(xn, wl, padding=1))
+            add(("conv32", bsz), k)
+            add(("conv32 cudnn", bsz), lib)
+            print(f"{label} conv32 B{bsz} C{c} kernel {k:.4f} cudnn "
+                  f"{lib:.4f} ratio {k / lib:.2f}", flush=True)
+        for t, f, ci, co in TRAIN_UPS if "up32" in kinds else ():
+            x = rnd(bsz, t, f * ci)
+            w = rnd(4, 4, ci, co, scale=(4 * ci) ** -0.5)
+            b, res = rnd(co), rnd(bsz, 2 * t, 2 * f * co)
+            k = cuda_ms(torch, lambda: conv_strided.conv_up_flat(
+                x, w, b, c_in=ci, c_out=co, residual=res, want_stats=True))
+            wl = w.permute(2, 3, 0, 1).flip(2, 3).contiguous(
+                memory_format=torch.channels_last)
+            xn = x.view(bsz, t, f, ci).permute(0, 3, 1, 2)
+            lib = cuda_ms(torch, lambda: F.conv_transpose2d(
+                xn, wl, stride=2, padding=1))
+            add(("up32", bsz), k)
+            add(("up32 cudnn", bsz), lib)
+            print(f"{label} up32 B{bsz} {ci}->{co} kernel {k:.4f} cudnn "
                   f"{lib:.4f} ratio {k / lib:.2f}", flush=True)
         for t, f, ci, co in UPS_I8 if "upi8" in kinds else ():
             x = rnd(bsz, t, f * ci).bfloat16()

@@ -69,6 +69,12 @@ STORE_STAGES = STAGES[:4]  # the stages that store int8 activations
 # C_out)
 TRAIN_DOWNS = [(1024, 256, 32, 64), (512, 128, 64, 96), (256, 64, 96, 128),
                (128, 32, 128, 192), (64, 16, 192, 256)]
+# ... and its stages (T, F, C) and up transitions, which run the fp32 conv3x3
+# and up convs
+TRAIN_STAGES = [(1024, 256, 32), (512, 128, 64), (256, 64, 96), (128, 32, 128),
+                (64, 16, 192), (32, 8, 256)]
+TRAIN_UPS = [(512, 128, 64, 32), (256, 64, 96, 64), (128, 32, 128, 96),
+             (64, 16, 192, 128), (32, 8, 256, 192)]
 UPS_I8 = [(4096, 128, 64, 32), (256, 8, 256, 192)]
 
 
@@ -95,9 +101,11 @@ def test_tile_plans_match_the_c_plans(plan_lib):
     """Every production shape (B = 1, 2; bf16 and fp32) and a sweep of small
     and ragged ones: variant, tile, tiles, groups, split and shared memory as
     conv_plan.h computes them; the production bf16 calls all take the
-    tensor-core variant, the fp32 ones the CUDA-core one."""
+    tensor-core variant, the fp32 conv3x3, up and down ones split TF32 on
+    the tensor cores."""
     c3 = [(t, f, c) for t in (1, 7, 16, 33) for f in (1, 8, 12, 16, 40)
-          for c in (16, 32, 48, 64, 96, 128, 192, 256, 512, 1024)] + STAGES
+          for c in (16, 32, 48, 64, 96, 128, 192, 256, 512, 1024)] + STAGES \
+        + TRAIN_STAGES
     for t, f, c in c3:
         for bf16 in (0, 1):
             for b in (1, 2, 5):
@@ -109,7 +117,7 @@ def test_tile_plans_match_the_c_plans(plan_lib):
                     want.variant
     ups = [(t, f, ci, co) for t in (1, 6, 9) for f in (1, 8, 12, 20)
            for ci, co in ((32, 32), (48, 32), (64, 48), (256, 192),
-                          (1024, 64))] + UPS
+                          (1024, 64))] + UPS + TRAIN_UPS
     for t, f, ci, co in ups:
         for bf16 in (0, 1):
             for b in (1, 2, 3):
@@ -199,8 +207,17 @@ def test_tile_plans_match_the_c_plans(plan_lib):
                    for s in STAGES)
         assert all(conv_up_plan(*s, True, b).variant == VARIANT_MMA
                    for s in UPS)
-        assert all(conv3x3_plan(*s, False, b).variant == VARIANT_FMA
-                   for s in STAGES)
+        # fp32 conv3x3 and up: split TF32 on the tensor cores at every
+        # stage and transition, sampling and training shapes, one
+        # output-channel group a block (split = groups · the K split)
+        for s in STAGES + TRAIN_STAGES:
+            plan = conv3x3_plan(*s, False, b)
+            assert plan.variant == VARIANT_TF32
+            assert plan.split % plan.groups == 0
+        for s in UPS + TRAIN_UPS:
+            plan = conv_up_plan(*s, False, b)
+            assert plan.variant == VARIANT_TF32
+            assert plan.split % plan.groups == 0
     # the head (T, F, Cin, C0) and tail (T, F, C0, Cout): the production
     # shape, chip_smoke.py's 40 x 24, and a ragged sweep
     sweep = [(t, f) for t in (1, 7, 33, 300, 8192)
@@ -240,6 +257,22 @@ def test_tile_plans_match_the_c_plans(plan_lib):
     # sample's grid stays under one block an SM (48 and 16 blocks)
     assert [conv_down_plan(*s, False, 1).split for s in TRAIN_DOWNS] == [
         1, 3, 2, 3 * 2, 4 * 6]
+    # fp32 conv3x3 at the training shapes: 128 positions a block (MT = 2 at
+    # C = 64, where two warps share 64 channels and two blocks fit an SM;
+    # MT = 1 at C = 32 and 96) where a sample's grid reaches two blocks an
+    # SM, else 64; the input channels split over a cluster where it stays
+    # under one block an SM (s4: 48 blocks, s5: 16)
+    assert [conv3x3_plan(*s, False, 1)[1:4] for s in TRAIN_STAGES] == [
+        (8, 16, 2048), (8, 16, 512), (8, 16, 128), (4, 16, 64), (4, 16, 16),
+        (8, 8, 4)]
+    assert [conv3x3_plan(*s, False, 1).split for s in TRAIN_STAGES] == [
+        1, 1, 3, 2, 3 * 2, 4 * 8]
+    # fp32 up: 64 input positions a block (4 × 16, 8 × 8 at F_in = 8), the
+    # K split at 192→128 (64 blocks) and 256→192 (24)
+    assert [conv_up_plan(*s, False, 1)[1:4] for s in TRAIN_UPS] == [
+        (4, 16, 1024), (4, 16, 256), (4, 16, 64), (4, 16, 16), (8, 8, 4)]
+    assert [conv_up_plan(*s, False, 1).split for s in TRAIN_UPS] == [
+        1, 2, 3, 4 * 2, 6 * 5]
     # s5 at B = 1 (16 tiles) shares its four groups over grid.z; s0 does not
     assert conv3x3_plan(256, 8, 256, True, 1).split == 4
     assert conv3x3_plan(8192, 256, 32, True, 1).split == 1

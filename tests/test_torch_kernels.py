@@ -348,7 +348,8 @@ def test_int8_storage_kernels_match_twins_on_gpu(cuda, dtype, F, C):
 def test_redesigned_kernels_match_twins_on_gpu(cuda, dtype, tol, B, case):
     """The redesigned bf16 kernels at the geometries that took other paths
     before (conv3x3 at F = 8, up at f_out = 16) and at ragged T and F: the
-    variant the library reports (tensor cores in bf16, CUDA cores in fp32),
+    variant the library reports (tensor cores in bf16, split TF32 on the
+    tensor cores in fp32),
     the plan the wrapper sizes its partials from, output and statistics
     against the twin, and the same call twice bit for bit."""
     from ddim_audio_tpu_torch.ops import tile_plan
@@ -360,7 +361,7 @@ def test_redesigned_kernels_match_twins_on_gpu(cuda, dtype, tol, B, case):
         return torch.randn(*s, generator=g, device=cuda)
 
     bf16 = int(dtype == torch.bfloat16)
-    want = tile_plan.VARIANT_MMA if bf16 else tile_plan.VARIANT_FMA
+    want = tile_plan.VARIANT_MMA if bf16 else tile_plan.VARIANT_TF32
     lib = kernels()
     if case.startswith("conv3x3"):
         T, F, C = (19, 8, 256) if "F8" in case else (21, 37, 96)
