@@ -47,9 +47,10 @@ phase on its own lines:
    statistics relative, the same call twice bit-equal, the storage conv's
    tile plan (the library's equal to the Python model, the tensor-core
    variant in bf16 at every storage shape and the CUDA-core one in fp32,
-   tiles of whole 8 x 16 storage groups), the int8 up conv's plan (the
-   library's equal to the Python model, one partial an 8 x 16 group) and
-   its output bit-equal to the twin's, and for bf16 the kernel's, the
+   tiles of whole 8 x 16 storage groups), the int8 up and down convs' plans
+   (the library's equal to the Python model, one partial an 8 x 16 group;
+   the down conv's grid persistent, its resident blocks on every SM) and
+   their outputs bit-equal to the twin's, and for bf16 the kernel's, the
    twin's, the bound's and the one PyTorch call's time with kernel / cuDNN
    (``residual_affine_flat`` has none: no single call dequantises, adds and
    requantises per group), then each kernel's B = 2 sum;
@@ -93,7 +94,10 @@ phase on its own lines:
    at every stage shape of the training geometry (microbatch 1 of
    [2, 1024, 256]), fp32 and bf16: agreement, the same kernel twice bit for
    bit, the kernel's and the plain version's time, the bound, and the one
-   PyTorch call (``torch.nn.grad.conv2d_weight``; fp32 with TF32 off);
+   PyTorch call (``torch.nn.grad.conv2d_weight``; fp32 with TF32 off); the
+   down conv's (``conv_down_dw_flat``) plan equal to the Python model and,
+   in fp32, split TF32 on the tensor cores, its bound that of three TF32
+   products an operation with the CUDA-core one beside it;
    then the float-tap conv3x3, down and up kernels in fp32 at the same
    shapes (``[train-kernels]``: the variants training runs, all three in
    split TF32 on the tensor cores, whose plans must equal the Python model
@@ -244,8 +248,8 @@ TOL_BF16_LOSS = 2e-2
 
 # Published H100 SXM peaks: HBM bytes/s and dense operations/s by operand type
 # (fp32 outside the tensor cores; "tf32x3": the split-TF32 fp32 conv3x3, up
-# and down convs, three TF32 tensor-core products an fp32 one, 495 / 3
-# TFLOP/s).
+# and down convs and the down conv's weight gradient, three TF32 tensor-core
+# products an fp32 one, 495 / 3 TFLOP/s).
 PEAK_BYTES = 3.35e12
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12,
             "tf32x3": 495e12 / 3}
@@ -841,17 +845,20 @@ def _int8_cases(torch, bsz):
             b = rnd(co)
             res = rnd(bsz, 2 * t, 2 * f * co) if up else None
 
-            wq_t = int8_weights_co_ci(wq) if up else None
+            wq_t = int8_weights_co_ci(wq)
 
             def make(dt, x=x, wq=wq, ws=ws, b=b, res=res, ci=ci, co=co,
                      up=up, wq_t=wq_t):
-                kw = dict(c_in=ci, c_out=co, want_stats=True)
-                if up:  # the weights as prepare_params lays them out
-                    kw.update(residual=res.to(dt), wq_t=wq_t)
+                # the weights as prepare_params lays them out
+                kw = dict(c_in=ci, c_out=co, want_stats=True, wq_t=wq_t)
+                if up:
+                    kw.update(residual=res.to(dt))
                 return (x.to(dt), wq, ws, b), kw
 
-            def twin_up(*pos, wq_t=None, **kw):  # the twin reads HWIO wq
-                return conv_up_flat_int8_plain(*pos, **kw)
+            def twin_of(plain):
+                def twin(*pos, wq_t=None, **kw):  # the twin reads HWIO wq
+                    return plain(*pos, **kw)
+                return twin
 
             def lib(pos, kw, w=w, ci=ci, up=up):
                 if up:
@@ -867,11 +874,12 @@ def _int8_cases(torch, bsz):
                 name="conv_up_flat_int8" if up else "conv_down_flat_int8",
                 label=f"T{t} F{f} {ci}->{co}",
                 kernel=conv_up_flat_int8 if up else conv_down_flat_int8,
-                twin=twin_up if up else conv_down_flat_int8_plain,
+                twin=twin_of(conv_up_flat_int8_plain if up
+                             else conv_down_flat_int8_plain),
                 make=make, layout=("out", "stats", "stats"), io=io_of, lib=lib,
                 kind="int8", timed=True,
                 ops=2.0 * (4 if up else 16) * ci * co * to * fo * bsz,
-                **({"up_plan": (t, f, ci, co)} if up else {})))
+                strided_plan=(up, (t, f, ci, co))))
     return cases
 
 
@@ -917,28 +925,41 @@ def check_store_plan(case, bsz, bf16) -> str:
             f"{got.tile_f} split {got.split}/{got.groups}")
 
 
-def check_up_int8_plan(case, bsz, bf16, outs, refs) -> str:
-    """The persistent int8-tap up conv: the library's tile plan equals the
-    Python model the wrapper sizes its partials from (one a quantisation
-    group of 8 × 16 outputs), the tensor-core variant, and its output
-    equals the twin's bit for bit. Returns the note for the line."""
+def check_strided_int8_plan(case, bsz, bf16, outs, refs) -> str:
+    """The persistent int8-tap up and down convs: the library's tile plan
+    equals the Python model the wrapper sizes its partials from (one a
+    quantisation group of 8 × 16 outputs), the tensor-core variant, for the
+    down conv a persistent grid of its resident blocks on every SM (fewer
+    blocks than groups), and the output equals the twin's bit for bit.
+    Returns the note for the line."""
     import torch
 
     from ddim_audio_tpu_torch.ops import _cuda, tile_plan
 
-    shape = case["up_plan"]
+    up, shape = case["strided_plan"]
     lib = _cuda.kernels()
-    model = tile_plan.conv_up_int8_plan(*shape, bool(bf16), bsz)
-    got = tile_plan.library_plan(lib.ddim_conv_up_int8_plan, *shape, bf16,
-                                 bsz)
+    kind = "up" if up else "down"
+    model = getattr(tile_plan, f"conv_{kind}_int8_plan")(*shape, bool(bf16),
+                                                         bsz)
+    got = tile_plan.library_plan(getattr(lib, f"ddim_conv_{kind}_int8_plan"),
+                                 *shape, bf16, bsz)
     tag = f"{case['name']} B{bsz} {case['label']} bf16={bf16}"
     require(got == model, f"{tag}: library plan {got} != Python model {model}")
     require(got.variant == tile_plan.VARIANT_MMA and got[1:3] == (8, 16),
             f"{tag}: plan {got}")
     require(torch.equal(outs[0], refs[0]), f"{tag}: output differs from the "
             "twin's")
-    return (f" | persistent mma group {got.tile_t}x{got.tile_f} z "
-            f"{got.split}, bit-equal to the twin")
+    note = ""
+    if not up:
+        per_sm = tile_plan.down_int8_resident(got.smem)
+        require(got.grid == per_sm * tile_plan.SMS // got.split
+                and got.grid < bsz * got.tiles,
+                f"{tag}: grid {got.grid} is not persistent ({per_sm} blocks "
+                f"an SM, {bsz * got.tiles} groups)")
+        note = (f" persistent grid {got.grid} ({per_sm} an SM) over "
+                f"{bsz * got.tiles} groups,")
+    return (f" | mma group {got.tile_t}x{got.tile_f} z {got.split},{note} "
+            "bit-equal to the twin")
 
 
 def phase_int8_kernels(summary):
@@ -978,8 +999,9 @@ def phase_int8_kernels(summary):
                         f"{strel:.2e} | twice bit-equal {same}")
                 if "store_plan" in case:
                     line += check_store_plan(case, bsz, int(dt == "bf16"))
-                if "up_plan" in case:
-                    line += check_up_int8_plan(case, bsz, int(dt == "bf16"),
+                if "strided_plan" in case:
+                    line += check_strided_int8_plan(case, bsz,
+                                                    int(dt == "bf16"),
                                                outs, refs)
                 require(same, f"{name} {label} {dt}: two runs differ")
                 require(mx <= 1 and eq >= INT8_EQUAL_SHARE,
@@ -1451,7 +1473,8 @@ def _dw_cases(torch):
                 x.to(dt), g.to(dt), dict(c_in=c, c_out=c2)),
             lib=lambda x, g, c=c, c2=c2: lambda: conv2d_weight(
                 _nchw(x, c), (c2, c, 4, 4), _nchw(g, c2), stride=2, padding=1),
-            fb=f2, c_in=c, c_out=c2, ops=2.0 * 16 * c * c2 * t2 * f2))
+            fb=f2, c_in=c, c_out=c2, ops=2.0 * 16 * c * c2 * t2 * f2,
+            x_tf=(t, f)))
         xu, gu = rnd(1, t2, f2 * c2), rnd(1, t, f * c)
         # the transposed conv is the adjoint of the strided conv c -> c2, so
         # its weight gradient is that conv's, with g as the input
@@ -1692,6 +1715,29 @@ def phase_int8_store(summary, cfg, params):
                     f"SNR {snr:.2f} < {SNR_I8_CLI_TWIN_DB} dB")
 
 
+def check_dw_plan(case, bsz, bf16) -> str:
+    """The down conv's weight gradient: the library's plan equals the
+    Python model, fp32 takes the split-TF32 variant and the library sizes
+    the partials from it. Returns the note for the line."""
+    from ddim_audio_tpu_torch.ops import _cuda, tile_plan
+
+    lib = _cuda.kernels()
+    t, f = case["x_tf"]
+    shape = (t, f, case["c_in"], case["c_out"])
+    model = tile_plan.conv_down_dw_plan(*shape, bool(bf16), bsz)
+    got = tile_plan.library_plan(lib.ddim_conv_down_dw_plan, *shape, bf16,
+                                 bsz)
+    tag = f"{case['name']} B{bsz} {case['label']} bf16={bf16}"
+    require(got == model, f"{tag}: library plan {got} != Python model {model}")
+    require(lib.ddim_conv_dw_splits(1, bsz, *shape, bf16) == got.split,
+            f"{tag}: partials differ from the plan's split")
+    if not bf16:
+        require(got.variant == tile_plan.VARIANT_TF32,
+                f"{tag}: variant {got.variant}, want split TF32")
+    return (f", plan {VARIANT_NAMES[got.variant]} tile {got.tile_t}x"
+            f"{got.tile_f} blocks {got.groups}x{got.split}")
+
+
 def phase_dw_kernels(summary):
     import torch
 
@@ -1712,21 +1758,31 @@ def phase_dw_kernels(summary):
                     f"{name} {label} {dt}: two runs differ")
             require(rel <= TOL_DW, f"{name} {label} {dt}: rel err {rel:.3e} > "
                     f"{TOL_DW}")
+            note = ""
+            if name == "conv_down_dw_flat":
+                note = check_dw_plan(case, 1, int(dtype == torch.bfloat16))
             ms = cuda_time(lambda: case["kernel"](x, g, **kw), prefill=True)
             plain_ms = cuda_time(lambda: case["plain"](x, g, **kw), n=5,
                                  warmup=1, prefill=True)
             lib_ms = cuda_time(case["lib"](x, g), prefill=True)
             # the unit the kernel uses: tensor cores for bf16 where the
-            # variant with them applies, CUDA cores otherwise
+            # variant with them applies, split TF32 for the fp32 down dW,
+            # CUDA cores otherwise (their bound beside the split-TF32 one)
             mma = (dtype == torch.bfloat16 and case["fb"] >= 16
                    and case["c_in"] % 32 == 0 and case["c_out"] % 32 == 0)
-            bnd, by = bound_ms([x, g, out], case["ops"],
-                               "bf16" if mma else "fp32")
+            tf32x3 = note != "" and dtype == torch.float32
+            kind = "bf16" if mma else "tf32x3" if tf32x3 else "fp32"
+            bnd, by = bound_ms([x, g, out], case["ops"], kind)
+            if tf32x3:
+                fma_bnd, _ = bound_ms([x, g, out], case["ops"], "fp32")
+                note += f" | CUDA-core bound {fma_bnd:.3f} ms"
             tf32 = "" if dtype == torch.bfloat16 else ", TF32 off"
             log(f"[kernels] {name:17s} {label:23s} {dt} max_abs {err:.3e} rel "
-                f"{rel:.3e} (<= {TOL_DW}), twice bit-equal | kernel {ms:.3f} ms, "
-                f"plain {plain_ms:.3f} ms, bound {bnd:.3f} ms ({by}), "
-                f"conv2d_weight ({dt}{tf32}) {lib_ms:.3f} ms")
+                f"{rel:.3e} (<= {TOL_DW}), twice bit-equal{note} | kernel "
+                f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bnd:.3f} ms "
+                f"({by}{', split TF32' if tf32x3 else ''}), conv2d_weight "
+                f"({dt}{tf32}) {lib_ms:.3f} ms: kernel / library "
+                f"{ms / lib_ms:.2f}x")
             entry["max_abs_err"] = max(entry["max_abs_err"], err)
             if dtype == torch.float32:  # the main path trains in fp32
                 entry["ms"] += ms
@@ -1738,6 +1794,10 @@ def phase_dw_kernels(summary):
         entry = summary[name]
         entry["bound_by"] = ("bytes" if entry.pop("_bytes") >= entry.pop("_ops")
                              else "operations")
+        log(f"[kernels] sum B1 fp32 {name:17s} kernel {entry['ms']:.3f} / "
+            f"bound {entry['bound_ms']:.3f} / conv2d_weight "
+            f"{entry['library_ms']:.3f} / plain {entry['plain_ms']:.3f} ms: "
+            f"kernel / library {entry['ms'] / entry['library_ms']:.2f}x")
 
 
 def phase_grad(cfg, params):

@@ -34,7 +34,11 @@
 // them, then writes its partial sums to part[y]. The wrapper finishes with
 // torch.sum over y. No atomics: the result is the same bits run to run.
 //
-// Two variants, chosen per call by dw_use_mma:
+// Three variants, chosen per call by the plan (conv_plan.h: dw_first_plan,
+// conv_down_dw_plan):
+// - conv_dw_tf32_kernel (fp32, mode 1, C_in % 16 == C_out % 32 == 0; written
+//   for any mode of four taps a row, so that mode 2 can take it too): split
+//   TF32 on the tensor cores, below;
 // - conv_dw_mma_kernel (bf16 operands, base F >= 16, C_in % 32 == C_out % 32
 //   == 0): WMMA 16×16×16 bf16 products, fp32 accumulation. For a tap, the
 //   A operand is xᵀ: 16 channels × 16 consecutive base positions of a row,
@@ -46,14 +50,41 @@
 //   output channel co0 + l, warp w input channels ci0 + 4w … 4w + 3; per
 //   position and tap one float4 broadcast read of x and one conflict-free
 //   read of g feed 4 FMAs, with taps·4 fp32 accumulators per thread.
+//
+// The fp32 down-conv weight gradient (training's: 70 launches an optimizer
+// step) took 0.862 ms summed over the five training transitions on CUDA
+// cores against one fp32 conv2d_weight's 0.546 (an H100 80GB HBM3 at
+// 700 W, PERF.md). It has the multiply-adds of the fp32 down conv,
+// 2·16·C_in·C_out·T/2·F/2, which runs split TF32 since (conv_strided.cu);
+// so does conv_dw_tf32_kernel:
+// * the GEMM per tap: K = the base positions, M = C_in, N = C_out;
+// * a block owns all 16 taps × kDwTf32Ci input channels × kDwTf32Co output
+//   channels (grid.x) and a contiguous share of the batch's position tiles
+//   (grid.y: the partials' first dimension, planned per shape so that the
+//   grid is about two blocks an SM: 256 base positions at 192→256 give 4
+//   tiles, 65,536 at 32→64 give 1,024);
+// * per tile, the raw x halo and g tile are copied once by cp.async (the
+//   next tile's while this one's products run), and one pass splits every
+//   value into TF32 hi and lo planes laid out [position][channel]: each
+//   halo row's even columns before its odd ones where the operand is read
+//   at stride 2 (x in mode 1, g in mode 2), so that the 8 base positions of
+//   a k8 step are 8 consecutive rows for every tap; a pitch of 8 mod 32
+//   floats makes the fragments' scalar 32-bit loads conflict-free (ldmatrix
+//   has no transpose for 32-bit elements, and both operands are read with
+//   K = position contiguous in the fragment);
+// * warp w takes taps (w / 2, w % 2) and (w / 2, w % 2 + 2), which read the
+//   same g positions in modes 1 and 2: per k8 step four B fragments (hi and
+//   lo) serve both taps' A fragments, and each pair gives three
+//   mma.sync.m16n8k8 products (lo·hi + hi·lo + hi·hi);
+// * each tile's sum is folded into the block's total by IEEE fp32 additions
+//   (the tensor cores' accumulation is not round-to-nearest), and the
+//   partials are summed by the wrapper in a fixed order: fp32 accuracy and
+//   the same bits run to run.
 #include <mma.h>
 
-#include "conv_common.cuh"
+#include "conv_mma.cuh"
 
 namespace ddim {
-
-constexpr int kDwCi = 32;           // input channels per block
-constexpr int kDwTargetBlocks = 528;  // 4 per SM of an H100
 
 template <int MODE>
 struct DwGeom {
@@ -80,30 +111,15 @@ __host__ __device__ __forceinline__ int dw_go(int k) {
   return MODE == 2 ? (k & 1) : 0;
 }
 
-__host__ __device__ __forceinline__ bool dw_use_mma(int fb, int c_in,
-                                                    int c_out, int bf16) {
-  return bf16 && fb >= 16 && c_in % 32 == 0 && c_out % 32 == 0;
-}
-
-// Position tiles of the whole batch, for the variant dw_use_mma picks.
+// The plan of a call: the split-TF32 kernel's for the fp32 down conv, else
+// the first kernels'.
 template <int MODE>
-__host__ __device__ __forceinline__ int dw_total_tiles(int batch, int tb,
-                                                       int fb, bool mma) {
+TilePlan dw_plan(int batch, int t_len, int f_len, int c_in, int c_out,
+                 int bf16) {
   using G = DwGeom<MODE>;
-  const int ft = mma ? 16 : tile_f(fb);
-  const int tt = mma ? G::TTM : G::NP / ft;
-  return batch * ((tb + tt - 1) / tt) * ((fb + ft - 1) / ft);
-}
-
-// Position tiles per block: enough blocks to fill the card a few times
-// over, while the partials stay a few MB at the widest stages.
-__host__ __forceinline__ int dw_tiles_per_block(int total, int c_in,
-                                                int c_out) {
-  const int out_tiles =
-      ((c_in + kDwCi - 1) / kDwCi) * ((c_out + kCoTile - 1) / kCoTile);
-  const int want = (kDwTargetBlocks + out_tiles - 1) / out_tiles;
-  const int per = (total + want - 1) / want;
-  return per < 1 ? 1 : per;
+  if (MODE == 1)
+    return conv_down_dw_plan(t_len, f_len, c_in, c_out, bf16, batch);
+  return dw_first_plan(t_len, f_len, G::NP, G::TTM, c_in, c_out, bf16, batch);
 }
 
 template <typename T, int MODE>
@@ -297,28 +313,194 @@ __global__ void __launch_bounds__(kThreads) conv_dw_mma_kernel(
   }
 }
 
+// The slot of halo position (r, c) in a plane whose rows are `w` positions
+// wide: at stride S = 2 each row holds its even columns, then its odd ones.
+template <int S>
+__device__ __forceinline__ int dw_slot(int r, int c, int w) {
+  return S == 2 ? r * w + (c & 1) * (w / 2) + (c >> 1) : r * w + c;
+}
+
 template <int MODE>
-int dw_splits(int batch, int t_len, int f_len, int c_in, int c_out, int bf16) {
-  const int tb = MODE == 1 ? t_len / 2 : t_len;
+__global__ void __launch_bounds__(kThreads, 2)
+    conv_dw_tf32_kernel(const float* __restrict__ x,
+                        const float* __restrict__ g, float* __restrict__ part,
+                        int batch, int t_len, int f_len, int c_in, int c_out,
+                        int tt, int ft, int per_block) {
+  using G = DwGeom<MODE>;
+  constexpr int XS = G::XS, GS = G::GS;
+  constexpr int CI = kDwTf32Ci, CO = kDwTf32Co;
+  constexpr int XP = kDwTf32XP, GP = kDwTf32GP;
+  static_assert(G::KH == 4, "a warp takes taps (kh, kw) and (kh, kw + 2)");
+  extern __shared__ __align__(16) float smem_dw[];
+  const int hw = G::halo(ft), hx = G::halo(tt) * hw;  // the x halo
+  const int gw = GS * ft, hg = GS * tt * gw;           // the g tile
+  float* xr = smem_dw;        // raw x [hx][CI]
+  float* gr = xr + hx * CI;   // raw g [hg][CO]
+  float* xh = gr + hg * CO;   // x planes [hx][XP], hi then lo
+  float* xl = xh + hx * XP;
+  float* gh = xl + hx * XP;   // g planes [hg][GP], hi then lo
+  float* gl = gh + hg * GP;
+
+  const int tb = MODE == 1 ? t_len / 2 : t_len;  // the base grid
   const int fb = MODE == 1 ? f_len / 2 : f_len;
-  const int total =
-      dw_total_tiles<MODE>(batch, tb, fb, dw_use_mma(fb, c_in, c_out, bf16));
-  const int per = dw_tiles_per_block(total, c_in, c_out);
-  return (total + per - 1) / per;
+  const int tg_len = GS * tb, fg_len = GS * fb;
+  const int tiles_f = (fb + ft - 1) / ft;
+  const int tiles = ((tb + tt - 1) / tt) * tiles_f;
+  const int total = batch * tiles;
+  const int co_groups = c_out / CO;
+  const int ci0 = (blockIdx.x / co_groups) * CI;
+  const int co0 = (blockIdx.x % co_groups) * CO;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int kh = warp >> 1, kw0 = warp & 1;
+
+  // A tile's raw x halo (rows XS·t0 − 1 …, columns XS·f0 − 1 …, zero
+  // outside) and g tile (zero outside: positions past the array add
+  // nothing), this block's channels.
+  auto load_raw = [&](int tile) {
+    const int b = tile / tiles, r = tile % tiles;
+    const int t0 = (r / tiles_f) * tt, f0 = (r % tiles_f) * ft;
+    const float* xb = x + (size_t)b * t_len * f_len * c_in + ci0;
+    for (int i = threadIdx.x; i < hx * (CI / 4); i += kThreads) {
+      const int hp = i / (CI / 4), q = i % (CI / 4);
+      const int t = XS * t0 - 1 + hp / hw, f = XS * f0 - 1 + hp % hw;
+      const bool in = t >= 0 && t < t_len && f >= 0 && f < f_len;
+      cp_async16_zfill(xr + hp * CI + 4 * q,
+                       in ? xb + ((size_t)t * f_len + f) * c_in + 4 * q : x,
+                       in);
+    }
+    const float* gb = g + (size_t)b * tg_len * fg_len * c_out + co0;
+    for (int i = threadIdx.x; i < hg * (CO / 4); i += kThreads) {
+      const int gp = i / (CO / 4), q = i % (CO / 4);
+      const int t = GS * t0 + gp / gw, f = GS * f0 + gp % gw;
+      const bool in = t < tg_len && f < fg_len;
+      cp_async16_zfill(gr + gp * CO + 4 * q,
+                       in ? gb + ((size_t)t * fg_len + f) * c_out + 4 * q : g,
+                       in);
+    }
+  };
+
+  float acc[2][kNT][4];
+  zero_acc(acc);
+  const int first = blockIdx.y * per_block;
+  const int last = first + per_block < total ? first + per_block : total;
+  if (first < last) load_raw(first);
+  cp_async_commit();
+#pragma unroll 1
+  for (int tile = first; tile < last; ++tile) {
+    cp_async_wait<0>();
+    __syncthreads();  // the raw tile landed; every warp is done with the planes
+    // The split: every value once into its hi and lo planes.
+    for (int i = threadIdx.x; i < hx * (CI / 4); i += kThreads) {
+      const int hp = i / (CI / 4), q = i % (CI / 4);
+      const int sl = dw_slot<XS>(hp / hw, hp % hw, hw) * XP + 4 * q;
+      store_split_tf32(xh + sl, xl + sl,
+                       *reinterpret_cast<const float4*>(xr + hp * CI + 4 * q));
+    }
+    for (int i = threadIdx.x; i < hg * (CO / 4); i += kThreads) {
+      const int gp = i / (CO / 4), q = i % (CO / 4);
+      const int sl = dw_slot<GS>(gp / gw, gp % gw, gw) * GP + 4 * q;
+      store_split_tf32(gh + sl, gl + sl,
+                       *reinterpret_cast<const float4*>(gr + gp * CO + 4 * q));
+    }
+    __syncthreads();  // the planes are complete and the raw buffers free
+    if (tile + 1 < last) load_raw(tile + 1);
+    cp_async_commit();
+
+    // The tile's products: k8 step = base positions (i, j0 … j0 + 7).
+    float sum[2][kNT][4];
+    zero_acc(sum);
+#pragma unroll 1
+    for (int i = 0; i < tt; ++i) {
+#pragma unroll 1
+      for (int j0 = 0; j0 < ft; j0 += 8) {
+        // B (both taps): g at (GS·i + go(kh), GS·j + go(kw0)), k = j − j0
+        const int gs = dw_slot<GS>(GS * i + dw_go<MODE>(kh),
+                                   GS * j0 + dw_go<MODE>(kw0), gw);
+        uint32_t bh[kNT][2], bl[kNT][2];
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) {
+          const int o = (gs + tig) * GP + nt * 8 + gid;
+          bh[nt][0] = __float_as_uint(gh[o]);
+          bh[nt][1] = __float_as_uint(gh[o + 4 * GP]);
+          bl[nt][0] = __float_as_uint(gl[o]);
+          bl[nt][1] = __float_as_uint(gl[o + 4 * GP]);
+        }
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          // A (tap (kh, kw0 + 2u)): x at (XS·i + xo(kh), XS·j + xo(kw)),
+          // m = input channel
+          const int kw = kw0 + 2 * u;
+          const int xs = dw_slot<XS>(XS * i + dw_xo<MODE>(kh) + 1,
+                                     XS * j0 + dw_xo<MODE>(kw) + 1, hw);
+          const int o = (xs + tig) * XP + gid;
+          const uint32_t ah[4] = {
+              __float_as_uint(xh[o]), __float_as_uint(xh[o + 8]),
+              __float_as_uint(xh[o + 4 * XP]),
+              __float_as_uint(xh[o + 4 * XP + 8])};
+          const uint32_t al[4] = {
+              __float_as_uint(xl[o]), __float_as_uint(xl[o + 8]),
+              __float_as_uint(xl[o + 4 * XP]),
+              __float_as_uint(xl[o + 4 * XP + 8])};
+#pragma unroll
+          for (int nt = 0; nt < kNT; ++nt)
+            mma_tf32x3(sum[u][nt], ah, al, bh[nt], bl[nt]);
+        }
+      }
+    }
+    fold_acc(acc, sum);
+  }
+
+  // The block's partial: D row = input channel, column = output channel.
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int tap = kh * 4 + kw0 + 2 * u;
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+      float* dst =
+          part + (((size_t)blockIdx.y * 16 + tap) * c_in + ci0 + gid) * c_out +
+          co0 + nt * 8 + 2 * tig;
+      *reinterpret_cast<float2*>(dst) =
+          make_float2(acc[u][nt][0], acc[u][nt][1]);
+      *reinterpret_cast<float2*>(dst + 8 * c_out) =
+          make_float2(acc[u][nt][2], acc[u][nt][3]);
+    }
+  }
+}
+
+template <int MODE>
+cudaError_t launch_dw_tf32(const TilePlan& p, const float* x, const float* g,
+                           float* part, int batch, int t_len, int f_len,
+                           int c_in, int c_out, cudaStream_t s) {
+  static int raised = 48 * 1024;  // per instantiation; one card per process
+  if (p.smem > raised) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        conv_dw_tf32_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        p.smem);
+    if (err != cudaSuccess) return err;
+    raised = p.smem;
+  }
+  if (p.split == 0) return cudaSuccess;
+  const int per = (p.tiles + p.split - 1) / p.split;
+  conv_dw_tf32_kernel<MODE><<<dim3(p.groups, p.split), kThreads, p.smem, s>>>(
+      x, g, part, batch, t_len, f_len, c_in, c_out, p.tile_t, p.tile_f, per);
+  return cudaGetLastError();
 }
 
 template <int MODE>
 int dw_launch(const void* x, const void* g, float* part, int batch, int t_len,
               int f_len, int c_in, int c_out, int bf16, cudaStream_t s) {
-  const int tb = MODE == 1 ? t_len / 2 : t_len;
-  const int fb = MODE == 1 ? f_len / 2 : f_len;
-  const bool mma = dw_use_mma(fb, c_in, c_out, bf16);
-  const int total = dw_total_tiles<MODE>(batch, tb, fb, mma);
-  const int per = dw_tiles_per_block(total, c_in, c_out);
-  const dim3 grid(((c_in + kDwCi - 1) / kDwCi) *
-                      ((c_out + kCoTile - 1) / kCoTile),
-                  (total + per - 1) / per);
-  if (mma) {
+  const TilePlan p = dw_plan<MODE>(batch, t_len, f_len, c_in, c_out, bf16);
+  if constexpr (DwGeom<MODE>::KH == 4) {  // the split-TF32 kernel's taps
+    if (p.variant == kVariantTf32)
+      return static_cast<int>(launch_dw_tf32<MODE>(
+          p, static_cast<const float*>(x), static_cast<const float*>(g), part,
+          batch, t_len, f_len, c_in, c_out, s));
+  }
+  if (p.split == 0) return static_cast<int>(cudaSuccess);
+  const int per = (p.tiles + p.split - 1) / p.split;
+  const dim3 grid(p.groups, p.split);
+  if (p.variant == kVariantMma) {
     using T = __nv_bfloat16;
     conv_dw_mma_kernel<MODE><<<grid, kThreads, 0, s>>>(
         static_cast<const T*>(x), static_cast<const T*>(g), part, batch,
@@ -346,9 +528,11 @@ extern "C" {
 int ddim_conv_dw_splits(int mode, int batch, int t_len, int f_len, int c_in,
                         int c_out, int bf16) {
   using namespace ddim;
-  if (mode == 0) return dw_splits<0>(batch, t_len, f_len, c_in, c_out, bf16);
-  if (mode == 1) return dw_splits<1>(batch, t_len, f_len, c_in, c_out, bf16);
-  return dw_splits<2>(batch, t_len, f_len, c_in, c_out, bf16);
+  if (mode == 0)
+    return dw_plan<0>(batch, t_len, f_len, c_in, c_out, bf16).split;
+  if (mode == 1)
+    return dw_plan<1>(batch, t_len, f_len, c_in, c_out, bf16).split;
+  return dw_plan<2>(batch, t_len, f_len, c_in, c_out, bf16).split;
 }
 
 // x: [B, T, F, C_in]; g: [B, T, F, C_out] (mode 0), [B, T/2, F/2, C_out]

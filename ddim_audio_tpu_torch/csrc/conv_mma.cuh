@@ -411,6 +411,36 @@ __device__ __forceinline__ void sum_over_gid(float (&v)[8]) {
     for (int k = 0; k < 8; ++k) v[k] += __shfl_xor_sync(0xffffffffu, v[k], m);
 }
 
+// The column sums of s1 and s2 (16 values a lane) over the 8 lanes of one
+// quad column, reduced and scattered in 8 + 4 + 2 shuffles (a butterfly of
+// each value takes 48): at each round a lane keeps half its values and
+// sends the other half to the partner on gid bit r, then adds. Afterwards
+// lane gid holds the totals of values j = 8·b0 + 4·b1 + 2·b2 + {0, 1}
+// (b: gid's bits; values 0-7 are s1, 8-15 s2) in out[0], out[1]. A fixed
+// order: the same bits run to run.
+__device__ __forceinline__ void reduce_scatter_gid(const float (&s1)[8],
+                                                   const float (&s2)[8],
+                                                   float (&out)[2]) {
+  const int gid = (threadIdx.x & 31) >> 2;
+  float a[8], b[4];
+  const bool b0 = gid & 1, b1 = gid & 2, b2 = gid & 4;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const float got = __shfl_xor_sync(0xffffffffu, b0 ? s1[k] : s2[k], 4);
+    a[k] = (b0 ? s2[k] : s1[k]) + got;
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float got = __shfl_xor_sync(0xffffffffu, b1 ? a[k] : a[4 + k], 8);
+    b[k] = (b1 ? a[4 + k] : a[k]) + got;
+  }
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const float got = __shfl_xor_sync(0xffffffffu, b2 ? b[k] : b[2 + k], 16);
+    out[k] = (b2 ? b[2 + k] : b[k]) + got;
+  }
+}
+
 // Block statistics of one output-channel group of nb channels from
 // red[warp_m][2][nb] (each warp's column totals): sums over warp_m in order,
 // writes dst[0 … nb) (sum) and dst[c … c + nb) (sum²). All threads call it.

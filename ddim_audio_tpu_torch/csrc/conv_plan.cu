@@ -1,6 +1,7 @@
 // The tile-plan queries of ddim_conv3x3, ddim_conv_up, ddim_conv_down,
-// ddim_conv_up_int8, ddim_conv3x3_int8, ddim_conv3x3_store, ddim_conv_head,
-// ddim_conv_tail and ddim_residual_affine, and the
+// ddim_conv_up_int8, ddim_conv_down_int8, ddim_conv_dw (mode 1),
+// ddim_conv3x3_int8, ddim_conv3x3_store, ddim_conv_head, ddim_conv_tail and
+// ddim_residual_affine, and the
 // storage group of int8 activations (conv_plan.h).
 // Plain C++: nvcc builds it into the kernel library, and a host compiler
 // builds it alone for the CPU tests of the port's Python model of the plans.
@@ -9,9 +10,9 @@
 namespace {
 
 int write_plan(const ddim::TilePlan& p, int* out) {
-  const int v[7] = {p.variant, p.tile_t, p.tile_f, p.tiles,
-                    p.groups,  p.split,  p.smem};
-  for (int i = 0; i < 7; ++i) out[i] = v[i];
+  const int v[8] = {p.variant, p.tile_t, p.tile_f, p.tiles,
+                    p.groups,  p.split,  p.smem,   p.grid};
+  for (int i = 0; i < 8; ++i) out[i] = v[i];
   return 0;
 }
 
@@ -31,7 +32,8 @@ int ddim_conv3x3_variant(int t_len, int f_len, int c, int bf16) {
   return ddim::conv3x3_plan(t_len, f_len, c, bf16, 1).variant;
 }
 
-// out[0 … 7): variant, tile_t, tile_f, tiles, groups, split, smem bytes.
+// out[0 … 8): variant, tile_t, tile_f, tiles, groups, split, smem bytes,
+// grid (persistent kernels' blocks along grid.x, else 0).
 int ddim_conv3x3_plan(int t_len, int f_len, int c, int bf16, int batch,
                       int* out) {
   return write_plan(ddim::conv3x3_plan(t_len, f_len, c, bf16, batch), out);
@@ -74,6 +76,25 @@ int ddim_conv_up_int8_plan(int t_in, int f_in, int c_in, int c_out, int bf16,
                            int batch, int* out) {
   return write_plan(
       ddim::conv_up_int8_plan(t_in, f_in, c_in, c_out, bf16, batch), out);
+}
+
+// The same for ddim_conv_down_int8, in its input geometry (T, F, C_in,
+// C_out, bf16, B): `tiles` is the partials' second dimension, one a group;
+// `grid` the persistent blocks along grid.x.
+int ddim_conv_down_int8_plan(int t_in, int f_in, int c_in, int c_out,
+                             int bf16, int batch, int* out) {
+  return write_plan(
+      ddim::conv_down_int8_plan(t_in, f_in, c_in, c_out, bf16, batch), out);
+}
+
+// The plan of ddim_conv_dw in mode 1 (the down conv's weight gradient), in
+// x's geometry (T, F, C_in, C_out, bf16, B): `tiles` the batch's position
+// tiles, `groups` × `split` the grid, `split` the partials' first
+// dimension.
+int ddim_conv_down_dw_plan(int t_in, int f_in, int c_in, int c_out, int bf16,
+                           int batch, int* out) {
+  return write_plan(
+      ddim::conv_down_dw_plan(t_in, f_in, c_in, c_out, bf16, batch), out);
 }
 
 // The same for ddim_conv3x3_int8 (T, F, C, bf16 storage, B).

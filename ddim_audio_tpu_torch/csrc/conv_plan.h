@@ -77,6 +77,7 @@ struct TilePlan {
   int groups;          // output-channel groups
   int split;           // grid.z: blocks that share a tile's groups
   int smem;            // dynamic shared memory per block, bytes
+  int grid = 0;        // persistent kernels: blocks along grid.x (else 0)
 };
 
 // Output-channel groups go to separate blocks (grid.z, each re-staging the
@@ -358,6 +359,74 @@ DDIM_HD TilePlan conv_up_int8_plan(int t_in, int f_in, int c_in, int c_out,
   return p;
 }
 
+// The int8-tap down conv (conv_down_int8_kernel): the strided kernels'
+// quantisation group (an 8 × 16 output tile, its 16 × 32 input tile and a
+// 1-position halo: 18 × 34 input positions, all C_in, one scale), walked by
+// persistent blocks of CO output channels each (64 where C_out allows and
+// it fits, else 32; grid.z = C_out / CO). A block stages all 16 taps' int8
+// weights once, [tap][16-channel plane][co][16 bytes], and per group the raw
+// halo (in x's dtype), the int8 halo [16-channel plane][position][16 bytes]
+// and the statistics and amax scratch: 16-byte rows in 16-byte-wide planes,
+// so that the 8 rows of an ldmatrix are 128 contiguous bytes and no pad is
+// needed. C_in is 32 or 64 (every int8 down transition that
+// strided_int8_transition picks). Resident blocks an SM: as many as the
+// shared memory leaves room for, at most kDownI8MaxBlocks (the registers'
+// bound); grid.x: that many blocks on each SM, shared by the z groups, at
+// most one a group. C_in from 96 to 256, whose raw halo does not fit, takes
+// the two-pass kernel (`grid` 0): a block a group × CO output channels
+// (tiles × B × groups), the int8 halo [position][C_in + 16] and a weight
+// stage [16][CO][kWPitchI8] (at the end the fp32 output tile [128][CO + 8]).
+constexpr int kDownI8Halo = (2 * kTtQ + 2) * (2 * kFtQ + 2);
+constexpr int kDownI8MaxBlocks = 2;
+constexpr int kWPitchI8 = 32 + 16;
+
+DDIM_HD constexpr int down_int8_two_pass_smem(int c_in, int co) {
+  return (kDownI8Halo * (c_in + 16) + 15) / 16 * 16 +
+         (16 * co * kWPitchI8 > 128 * (co + 8) * 4 ? 16 * co * kWPitchI8
+                                                   : 128 * (co + 8) * 4);
+}
+
+DDIM_HD constexpr int conv_down_int8_smem(int c_in, int co, int bf16) {
+  return 16 * co * c_in + kDownI8Halo * c_in +
+         kDownI8Halo * c_in * (bf16 ? 2 : 4) + 4 * (8 * 2 * co + 8);
+}
+
+DDIM_HD constexpr int down_int8_resident(int smem) {
+  const int fit = kSmemPerSm / (smem + 1024);  // 1 KB reserved a block
+  return fit < 1 ? 1 : fit > kDownI8MaxBlocks ? kDownI8MaxBlocks : fit;
+}
+
+DDIM_HD TilePlan conv_down_int8_plan(int t_in, int f_in, int c_in, int c_out,
+                                     int bf16, int batch) {
+  TilePlan p;
+  p.tile_t = kTtQ;
+  p.tile_f = kFtQ;
+  p.tiles = cdiv(t_in / 2, kTtQ) * cdiv(f_in / 2, kFtQ);
+  int co = c_out % 64 == 0 ? 64 : 32;
+  if (conv_down_int8_smem(c_in, co, bf16) > kSmemLimit) co = 32;
+  p.groups = c_out > 0 ? cdiv(c_out, co) : 0;
+  p.split = p.groups;
+  p.smem = conv_down_int8_smem(c_in, co, bf16);
+  const bool ok = c_in > 0 && c_in % 32 == 0 && c_in <= 256 && c_out > 0 &&
+                  c_out % 32 == 0;
+  p.variant = ok ? kVariantMma : kVariantNone;
+  if (!ok) {
+    p.smem = 0;
+    return p;
+  }
+  if ((c_in != 32 && c_in != 64) || p.smem > kSmemLimit) {  // two-pass
+    co = c_out % 64 == 0 ? 64 : 32;
+    p.groups = c_out / co;
+    p.split = p.groups;
+    p.smem = down_int8_two_pass_smem(c_in, co);
+    return p;
+  }
+  const int per_z = down_int8_resident(p.smem) * kSMs / p.split;
+  const int n = batch * p.tiles;
+  p.grid = n < per_z ? n : per_z < 1 ? 1 : per_z;
+  return p;
+}
+
 DDIM_HD TilePlan conv3x3_int8_plan(int t, int f, int c, int bf16, int batch) {
   TilePlan p;
   p.variant = c == 32 || c == 64 || c == 96 ? kVariantMma : kVariantNone;
@@ -368,6 +437,70 @@ DDIM_HD TilePlan conv3x3_int8_plan(int t, int f, int c, int bf16, int batch) {
   p.split = 1;
   p.smem = p.variant == kVariantMma ? conv3x3_int8_smem(c, bf16) : 0;
   (void)batch;
+  return p;
+}
+
+// ------------------------------------------------------ weight gradients --
+//
+// conv_dw.cu. The first kernels (all three modes; bf16 WMMA where its
+// shapes allow, else CUDA cores) give a block one 32 × 32 (ci, co) tile of
+// every tap and a share of the position tiles (64 base positions on CUDA
+// cores, 4 or 8 rows of 16 with WMMA), aiming at kDwTargetBlocks blocks.
+// The down conv's fp32 weight gradient runs split TF32 on the tensor cores
+// (conv_dw_tf32_kernel, variant 2): a block owns all 16 taps × kDwTf32Ci
+// input channels × kDwTf32Co output channels (`groups` = such tiles) and a
+// share of the position tiles of kDwTf32Pos base positions (16 columns wide
+// where the base grid is, else 8), `split` shares (grid.y: the partials'
+// first dimension) sized so that groups · split stays within two blocks an
+// SM. Shared memory: the tile's raw x halo and g tile and their TF32 hi and
+// lo planes (pitch kDwTf32XP / kDwTf32GP floats a position: 8 mod 32, so the
+// fragments' scalar loads are conflict-free).
+constexpr int kDwCi = 32;             // first kernels: input channels a block
+constexpr int kDwTargetBlocks = 528;  // first kernels: 4 blocks an SM
+constexpr int kDwTf32Ci = 16, kDwTf32Co = 32, kDwTf32Pos = 64;
+constexpr int kDwTf32XP = kDwTf32Ci + 8, kDwTf32GP = kDwTf32Co + 8;
+
+DDIM_HD int dw_down_tf32_smem(int tt, int ft) {
+  const int hx = (2 * tt + 2) * (2 * ft + 2), hg = tt * ft;
+  return 4 * (hx * (kDwTf32Ci + 2 * kDwTf32XP) +
+              hg * (kDwTf32Co + 2 * kDwTf32GP));
+}
+
+// The first kernels' plan, every mode: a base grid tb × fb, np base
+// positions a CUDA-core tile, ttm rows of 16 a WMMA tile; `tiles` counts the
+// whole batch's, `split` the position shares (grid.y).
+DDIM_HD TilePlan dw_first_plan(int tb, int fb, int np, int ttm, int c_in,
+                               int c_out, int bf16, int batch) {
+  TilePlan p;
+  const bool mma = bf16 && fb >= 16 && c_in % 32 == 0 && c_out % 32 == 0;
+  p.variant = mma ? kVariantMma : kVariantFma;
+  p.tile_f = mma ? 16 : tile_f(fb);
+  p.tile_t = mma ? ttm : np / p.tile_f;
+  p.tiles = batch * cdiv(tb, p.tile_t) * cdiv(fb, p.tile_f);
+  p.groups = cdiv(c_in, kDwCi) * cdiv(c_out, 32);
+  const int want = cdiv(kDwTargetBlocks, p.groups);
+  const int per = cdiv(p.tiles, want) > 1 ? cdiv(p.tiles, want) : 1;
+  p.split = cdiv(p.tiles, per);
+  p.smem = 0;
+  return p;
+}
+
+DDIM_HD TilePlan conv_down_dw_plan(int t_in, int f_in, int c_in, int c_out,
+                                   int bf16, int batch) {
+  const int tb = t_in / 2, fb = f_in / 2;  // the base grid: g's
+  if (bf16 || c_in <= 0 || c_out <= 0 || c_in % kDwTf32Ci ||
+      c_out % kDwTf32Co)
+    return dw_first_plan(tb, fb, 32, 4, c_in, c_out, bf16, batch);
+  TilePlan p;
+  p.variant = kVariantTf32;
+  p.tile_f = fb >= 16 ? 16 : 8;
+  p.tile_t = kDwTf32Pos / p.tile_f;
+  p.tiles = batch * cdiv(tb, p.tile_t) * cdiv(fb, p.tile_f);
+  p.groups = (c_in / kDwTf32Ci) * (c_out / kDwTf32Co);
+  p.smem = dw_down_tf32_smem(p.tile_t, p.tile_f);
+  const int want = kFillBlocks / p.groups > 1 ? kFillBlocks / p.groups : 1;
+  const int per = cdiv(p.tiles, want) > 1 ? cdiv(p.tiles, want) : 1;
+  p.split = cdiv(p.tiles, per);
   return p;
 }
 

@@ -3,8 +3,8 @@
 // TPU kernels ddim_audio_tpu/ops/pallas/conv_strided.py `_down_kernel`
 // (wrapper `conv_down_flat(mxu_int8=True)`) and `_up_kernel`
 // (`conv_up_flat(mxu_int8=True)`), weights from `pack_down_weights_int8` /
-// `pack_up_weights_int8` (here quantize_strided_weights_int8, HWIO; the up
-// kernel reads them laid out [4, 4, Cout, Cin], `wq_t`):
+// `pack_up_weights_int8` (here quantize_strided_weights_int8, HWIO; both
+// kernels read them laid out [4, 4, Cout, Cin], `wq_t`):
 //
 // down  k4 s2 p1 conv, Cin → Cout, (T, F) → (T/2, F/2)
 // up    transposed k4 s2 p1 conv, (T, F) → (2T, 2F), w the stored equivalent
@@ -27,19 +27,41 @@
 // together, so they do too. Both kernels repeat the twin's arithmetic
 // operation for operation, so their outputs equal the twin's bit for bit.
 //
-// down (conv_down_int8_kernel). Pass 1 reads the staged input once for its
-// amax (one block reduction), pass 2 reads it again (from L2) and stores it
-// requantised into shared memory [halo position][Cin + 16] (the pad keeps
-// fragment reads off one bank). Per 32-channel K chunk all 16 taps' weights
-// of the block's output channels are staged transposed to [tap][co][ci]
-// (4×4-byte blocks through __byte_perm, as conv3x3_int8.cu), because
-// `mma.sync.m16n8k32.s8` wants K contiguous in both operands. Each warp owns
-// one output row of 16 positions (its A rows are the stride-2 input
-// columns of the tap, read at their own addresses). A block computes up to
-// 64 output channels (Cout/64 or Cout/32 blocks along z, each restaging the
-// same input and finding the same amax). What bounds it on an H100 is the
-// two staging passes and the weight restaging per block, not the int8 MMAs
-// (16·Cin·Cout MACs per output position, at 1,979 TOP/s) and not HBM.
+// down (conv_down_int8_kernel). On an H100 the int8 down conv is bound by
+// bytes (16·Cin·Cout MACs an output position; at 32→64, B = 1, 134 MB of x
+// and 67 MB of out: 0.060 ms at 3.35 TB/s). The two-pass kernel before this
+// design took 0.351 ms there (cuDNN's bf16 conv 0.187): each of its 4,096
+// blocks read its 18 × 34 × Cin halo from global memory twice (amax, then
+// requant), restaged all 16 taps' weights through 4-byte loads and byte
+// transposes, read A fragments as scalar 32-bit loads and took its
+// epilogue through an fp32 tile in shared memory (an H100 80GB HBM3 at
+// 700 W, PERF.md); it stays for C_in 96 … 256, whose raw halo does not fit
+// (conv_down_int8_two_pass_kernel). At C_in 32 and 64 (every int8 down
+// transition the model picks) this one takes the up kernel's pieces:
+// * persistent: per group of CO output channels (grid.z) as many blocks as
+//   stay resident (conv_down_int8_plan: two an SM at 32→64 in bf16), each
+//   walking quantisation groups blockIdx.x, + gridDim.x, …;
+// * the 16 taps' weights staged once a block by cp.async from the
+//   [4, 4, Cout, Cin] copy `wq_t`, and the int8 halo, both in planes of 16
+//   channels whose 16-byte rows (one output channel, one halo position) lie
+//   back to back: the 8 rows an ldmatrix reads are 128 contiguous bytes;
+// * the raw halo (18 × 34 positions × Cin, zero outside) copied once from
+//   global memory by cp.async; the amax and the requant read it from shared
+//   memory, and the next group's copy is issued right after the requant, so
+//   that it lands while this group's taps and epilogue run. (Holding the
+//   halo in registers across the amax, so that the copy could be issued
+//   right after the amax reduction, measured slower on the same card: B = 1
+//   0.191 against 0.169 ms, B = 2 0.363 against 0.308: 128 registers and a
+//   spill at two blocks an SM; PERF.md);
+// * A fragments by ldmatrix: each halo row holds its even columns, then its
+//   odd ones (in the raw halo too, so that the requant's reads and writes
+//   run over consecutive slots), so the 16 stride-2 input columns of a tap
+//   (output row = warp, columns 0 … 15) are 16 consecutive rows of the
+//   plane;
+// * the epilogue from the registers after the quad transpose: 16-byte
+//   stores, the statistics by a reduce-scatter over the lanes
+//   (reduce_scatter_gid) and one block scratch a group, finished at the
+//   next group's first barrier.
 //
 // up (conv_up_int8_kernel). On an H100 the int8 up conv is bound by bytes
 // (4·Cin·Cout MACs an output position; at 64→32, B = 1, 67 MB of x, 134 MB
@@ -89,23 +111,27 @@ constexpr int kTtI = 8, kFtI = 16;         // output tile (the group's)
 constexpr int kHwDI = 2 * kFtI + 2;        // down: 34 staged input columns
 constexpr int kHaloDI = (2 * kTtI + 2) * kHwDI;
 constexpr int kHwUI = kFtI / 2 + 2;        // up: 10 staged input columns
-constexpr int kWPitch = 32 + 16;           // staged weight row: 32 ci + pad
+constexpr int kWPitch = kWPitchI8;         // two-pass down: a weight row
 static_assert(kTtI == kTtQ && kFtI == kFtQ &&
-                  (kTtI / 2 + 2) * kHwUI == kUpI8Halo,
-              "the up kernel's group is conv_plan.h's");
+                  (kTtI / 2 + 2) * kHwUI == kUpI8Halo &&
+                  kHaloDI == kDownI8Halo,
+              "the kernels' groups are conv_plan.h's");
 
-__host__ __device__ inline int strided_int8_q_bytes(int c_in) {
-  return ((kHaloDI * (c_in + 16) + 15) / 16) * 16;
-}
-
-template <int CO>
-__host__ __device__ constexpr int strided_int8_w_bytes() {
-  constexpr int w = 16 * CO * kWPitch, a = kTtI * kFtI * (CO + 8) * 4;
-  return w > a ? w : a;
-}
-
+// The two-pass down kernel, for C_in (96 … 256) whose raw halo does not fit
+// beside the persistent kernel's int8 halo and weights: a block a group × CO
+// output channels (grid: tiles × B × C_out / CO). Pass 1 reads the staged
+// input once for its amax (one block reduction), pass 2 reads it again
+// (from L2) and stores it requantised into shared memory [halo position]
+// [Cin + 16] (the pad keeps fragment reads off one bank). Per 32-channel K
+// chunk all 16 taps' weights of the block's output channels are staged
+// transposed to [tap][co][ci] from the HWIO weights (4×4-byte blocks
+// through __byte_perm), because mma.sync.m16n8k32.s8 wants K contiguous in
+// both operands. Each warp owns one output row of 16 positions (its A rows
+// are the stride-2 input columns of the tap, read at their own addresses).
+// The epilogue goes through an fp32 tile in shared memory, one lane an
+// output channel.
 template <typename T, int CO>
-__global__ void __launch_bounds__(kThreads) conv_down_int8_kernel(
+__global__ void __launch_bounds__(kThreads) conv_down_int8_two_pass_kernel(
     const T* __restrict__ x, const int8_t* __restrict__ wq,
     const float* __restrict__ w_scale, const float* __restrict__ bias,
     T* __restrict__ out, float* __restrict__ stats, int t_in, int f_in,
@@ -116,7 +142,7 @@ __global__ void __launch_bounds__(kThreads) conv_down_int8_kernel(
   extern __shared__ __align__(16) unsigned char smem[];
   const int pitch = c_in + 16;
   unsigned char* qbuf = smem;                                  // [halo][pitch]
-  unsigned char* wbuf = smem + strided_int8_q_bytes(c_in);  // [16][CO][48]
+  unsigned char* wbuf = smem + (kHaloDI * pitch + 15) / 16 * 16;  // [16][CO][48]
   float* accs = reinterpret_cast<float*>(wbuf);  // [128][kAccPitch] at the end
   __shared__ float red[2 * kThreads];
 
@@ -271,6 +297,211 @@ __global__ void __launch_bounds__(kThreads) conv_down_int8_kernel(
       float* dst = stats + ((size_t)b * gridDim.x + blockIdx.x) * 2 * c_out;
       block_stats(s1, s2, red, dst, co, c_out);
     }
+  }
+}
+
+
+template <typename T, int CI, int CO>
+__global__ void __launch_bounds__(
+    kThreads, down_int8_resident(conv_down_int8_smem(CI, CO, sizeof(T) == 2)))
+    conv_down_int8_kernel(const T* __restrict__ x,
+                          const int8_t* __restrict__ wq_t,
+                          const float* __restrict__ w_scale,
+                          const float* __restrict__ bias, T* __restrict__ out,
+                          float* __restrict__ stats, int batch, int t_in,
+                          int f_in, int c_out) {
+  constexpr int kHalo = kDownI8Halo, kHw = kHwDI;  // 18 × 34 positions
+  constexpr int V = 16 / sizeof(T);                // elements a 16-byte copy
+  constexpr int NP = CI / 16;                      // 16-channel planes
+  constexpr int NT = CO / 8;                       // n8 tiles a warp
+  constexpr int kItems = kHalo * CI / 8;  // 8-channel items of the raw halo
+  extern __shared__ __align__(16) unsigned char smem[];
+  int8_t* wbuf = reinterpret_cast<int8_t*>(smem);  // [16 taps][NP][CO][16]
+  int8_t* qbuf = wbuf + 16 * CO * CI;              // [NP][kHalo][16]
+  T* raw = reinterpret_cast<T*>(qbuf + kHalo * CI);         // [kHalo][CI]
+  float* red = reinterpret_cast<float*>(raw + kHalo * CI);  // [8][2][CO]
+  float* red_amax = red + kWarps * 2 * CO;                   // [8]
+  // Both halos hold halo position (r, c) at slot r·34 + (c & 1)·17 + c / 2:
+  // each row's even columns, then its odd ones.
+  auto slot_of = [](int hp) {
+    const int c = hp % kHw;
+    return (hp - c) + (c & 1) * (kHw / 2) + (c >> 1);
+  };
+
+  const int t_out = t_in / 2, f_out = f_in / 2;
+  const int tiles_f = (f_out + kFtI - 1) / kFtI;
+  const int tiles = ((t_out + kTtI - 1) / kTtI) * tiles_f;
+  const int n_groups = batch * tiles;
+  const int z = blockIdx.z;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+
+  // The 16 taps' weights of output channels CO·z …, once for the block:
+  // row (tap·NP + p)·CO + co of wbuf is wq_t[tap][CO·z + co][16p … +15].
+  for (int i = threadIdx.x; i < 16 * CO * NP; i += kThreads) {
+    const int pl = i % NP, r = i / NP, tap = r / CO, co = r % CO;
+    cp_async16(wbuf + ((tap * NP + pl) * CO + co) * 16,
+               wq_t + ((size_t)tap * c_out + z * CO + co) * CI + 16 * pl);
+  }
+  // a group's raw halo: input rows 16·(tile row) − 1 …, columns 32·(tile
+  // column) − 1 …, all Cin channels, zero outside
+  auto load_raw = [&](int grp) {
+    const int b = grp / tiles, tile = grp % tiles;
+    const int i0 = (tile / tiles_f) * 2 * kTtI - 1;
+    const int j0 = (tile % tiles_f) * 2 * kFtI - 1;
+    const T* xb = x + (size_t)b * t_in * f_in * CI;
+    for (int i = threadIdx.x; i < kHalo * (CI / V); i += kThreads) {
+      const int hp = i / (CI / V), q = i % (CI / V);
+      const int t = i0 + hp / kHw, f = j0 + hp % kHw;
+      const bool inside = t >= 0 && t < t_in && f >= 0 && f < f_in;
+      const T* src = inside ? xb + ((size_t)t * f_in + f) * CI + V * q : x;
+      cp_async16_zfill(raw + slot_of(hp) * CI + V * q, src, inside);
+    }
+  };
+  if (blockIdx.x < n_groups) load_raw(blockIdx.x);
+  cp_async_commit();
+  // The statistics of a group are finished at the next group's first
+  // barrier (or after the walk): threads < 2·CO sum red over the warps.
+  auto flush_stats = [&](int grp) {
+    float* dst = stats + (size_t)grp * 2 * c_out + z * CO;  // (b, tile)
+    for (int i = threadIdx.x; i < 2 * CO; i += kThreads) {
+      const int which = i / CO, ch = i % CO;
+      float sum = 0.f;
+      for (int w = 0; w < kWarps; ++w) sum += red[(w * 2 + which) * CO + ch];
+      dst[which * c_out + ch] = sum;
+    }
+  };
+  // Item i (channels 8·(i % (CI / 8)) … of slot i / (CI / 8)) requantised
+  // into its plane of the int8 halo.
+  auto put_q = [&](int i, const Vec8& e, float inv) {
+    const int sl = i / (CI / 8), c8 = i % (CI / 8);
+    *reinterpret_cast<uint2*>(qbuf + ((c8 >> 1) * kHalo + sl) * 16 +
+                              (c8 & 1) * 8) =
+        make_uint2(quant4(e.v, inv), quant4(e.v + 4, inv));
+  };
+
+  // The lane's ldmatrix rows: A at output column lane & 15 of the warp's
+  // output row (halo row 2·warp + dt, tap (0, 0)), plane lane / 16 of a
+  // 32-channel chunk; B at output channel (m / 2)·8 + lane % 8 of an n8
+  // pair, plane m % 2 of the chunk (m = lane / 8).
+  const int m = lane >> 3;
+  const uint32_t a_base = smem_u32(
+      qbuf + ((lane >> 4) * kHalo + 2 * warp * kHw + (lane & 15)) * 16);
+  const uint32_t b_base =
+      smem_u32(wbuf + ((m & 1) * CO + (m >> 1) * 8 + (lane & 7)) * 16);
+
+  int it = 0;  // the block's groups so far
+#pragma unroll 1
+  for (int grp = blockIdx.x; grp < n_groups; grp += gridDim.x, ++it) {
+    const int b = grp / tiles, tile = grp % tiles;
+    const int t0 = (tile / tiles_f) * kTtI, f0 = (tile % tiles_f) * kFtI;
+    const bool more = grp + gridDim.x < n_groups;
+    cp_async_wait<0>();
+    __syncthreads();  // this group's raw halo (the first time, the weights)
+    if (stats != nullptr && it > 0) flush_stats(grp - gridDim.x);
+
+    // 1. The raw halo's amax.
+    float am = 0.f;
+    for (int i = threadIdx.x; i < kItems; i += kThreads) {
+      const Vec8 e = Raw8<T>::load(raw + 8 * i).vec();
+#pragma unroll
+      for (int k = 0; k < 8; ++k) am = fmaxf(am, fabsf(e.v[k]));
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      am = fmaxf(am, __shfl_xor_sync(0xffffffffu, am, o));
+    if (lane == 0) red_amax[warp] = am;
+    __syncthreads();
+    am = red_amax[0];
+#pragma unroll
+    for (int k = 1; k < kWarps; ++k) am = fmaxf(am, red_amax[k]);
+    const float amax = fmaxf(am, 1e-30f);
+    const float inv = 127.0f / amax;
+    const float s_q = amax * (1.0f / 127.0f);
+
+    // 2. The requant into the int8 halo; then the next group's raw halo
+    // lands while this one's taps and epilogue run.
+    for (int i = threadIdx.x; i < kItems; i += kThreads)
+      put_q(i, Raw8<T>::load(raw + 8 * i).vec(), inv);
+    __syncthreads();  // the int8 halo is complete and the raw halo read
+    if (more) load_raw(grp + gridDim.x);
+    cp_async_commit();
+
+    // 3. The 16 taps: output (t0 + warp, f0 + m) += x[2(t0 + warp) + dt − 1,
+    // 2(f0 + m) + df − 1] · w[dt, df], mma.sync.m16n8k32 s8 → s32.
+    int acc[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[nt][k] = 0;
+#pragma unroll
+    for (int tap = 0; tap < 16; ++tap) {
+      const int dt = tap >> 2, df = tap & 3;
+      const uint32_t a_tap =
+          a_base + (dt * kHw + (df & 1) * (kHw / 2) + (df >> 1)) * 16;
+      const uint32_t b_tap = b_base + tap * NP * CO * 16;
+#pragma unroll
+      for (int kc = 0; kc < CI / 32; ++kc) {
+        uint32_t fa[4];
+        ldsm_x4(fa, a_tap + 2 * kc * kHalo * 16);
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          uint32_t fb[4];
+          ldsm_x4(fb, b_tap + (2 * kc * CO + np * 16) * 16);
+          mma_s8(acc[2 * np], fa, fb[0], fb[1]);
+          mma_s8(acc[2 * np + 1], fa, fb[2], fb[3]);
+        }
+      }
+    }
+
+    // 4. Dequantise, bias, statistics and stores from the registers, the
+    // twin's operations in its order (float(acc) is exact: |acc| <=
+    // 127²·16·Cin < 2^24), 32 channels at a time.
+    const int t = t0 + warp;
+#pragma unroll
+    for (int h = 0; h < CO / 32; ++h) {
+      const int co = z * CO + 32 * h + 8 * tig;
+      float sc[8], s1[8], s2[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        sc[k] = __fmul_rn(s_q, __ldg(w_scale + co + k));
+        s1[k] = s2[k] = 0.f;
+      }
+      float accf[kNT][4];
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) accf[nt][k] = (float)acc[4 * h + nt][k];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        Vec8 o = quad_gather(accf, r, tig);
+        const int f = f0 + gid + 8 * r;
+        if (t < t_out && f < f_out) {  // the lane's 8 channels
+#pragma unroll
+          for (int k = 0; k < 8; ++k) {
+            const float e =
+                __fadd_rn(__fmul_rn(o.v[k], sc[k]), __ldg(bias + co + k));
+            s1[k] += e;
+            s2[k] += e * e;
+            o.v[k] = e;
+          }
+          store8(out + (((size_t)b * t_out + t) * f_out + f) * c_out + co, o);
+        }
+      }
+      if (stats != nullptr) {  // the warp's column sums, finished later
+        float tot[2];
+        reduce_scatter_gid(s1, s2, tot);
+        const int j = 2 * (((gid & 1) << 2) | (gid & 2) | ((gid >> 2) & 1));
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          red[(warp * 2 + ((j + e) >> 3)) * CO + 32 * h + 8 * tig +
+              ((j + e) & 7)] = tot[e];
+      }
+    }
+  }
+  if (stats != nullptr && it > 0) {
+    __syncthreads();
+    flush_stats(blockIdx.x + (it - 1) * gridDim.x);
   }
 }
 
@@ -508,39 +739,78 @@ __global__ void __launch_bounds__(kThreads, up_int8_min_blocks(CI))
   }
 }
 
-template <typename T, int CO>
-cudaError_t launch_down_int8(const void* x, const int8_t* wq,
-                             const float* w_scale, const float* bias,
-                             void* out, float* stats, int batch, int t_in,
-                             int f_in, int c_in, int c_out, cudaStream_t s) {
-  const int bytes = strided_int8_q_bytes(c_in) + strided_int8_w_bytes<CO>();
-  static int raised = 48 * 1024;  // per instantiation; one card per process
-  if (bytes > raised) {
+template <typename T, int CI, int CO>
+cudaError_t launch_down_int8(const TilePlan& p, const void* x,
+                             const int8_t* wq_t, const float* w_scale,
+                             const float* bias, void* out, float* stats,
+                             int batch, int t_in, int f_in, int c_out,
+                             cudaStream_t s) {
+  // once per instantiation; one card per process
+  static int raised = 48 * 1024;
+  if (p.smem > raised) {
     const cudaError_t err = cudaFuncSetAttribute(
-        conv_down_int8_kernel<T, CO>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        conv_down_int8_kernel<T, CI, CO>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
     if (err != cudaSuccess) return err;
-    raised = bytes;
+    raised = p.smem;
   }
-  const int t_out = t_in / 2, f_out = f_in / 2;
-  const dim3 grid(((t_out + kTtI - 1) / kTtI) * ((f_out + kFtI - 1) / kFtI),
-                  batch, c_out / CO);
-  conv_down_int8_kernel<T, CO><<<grid, kThreads, bytes, s>>>(
-      static_cast<const T*>(x), wq, w_scale, bias, static_cast<T*>(out),
-      stats, t_in, f_in, c_in, c_out);
+  // The plan's grid is its resident blocks on every SM: the card must
+  // keep that many resident, or the walk would not be persistent.
+  static int resident = 0;
+  if (resident == 0) {
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &resident, conv_down_int8_kernel<T, CI, CO>, kThreads, p.smem);
+    if (err != cudaSuccess) return err;
+  }
+  if (resident < down_int8_resident(p.smem))
+    return cudaErrorInvalidConfiguration;
+  if (p.grid == 0) return cudaSuccess;
+  conv_down_int8_kernel<T, CI, CO>
+      <<<dim3(p.grid, 1, p.split), kThreads, p.smem, s>>>(
+          static_cast<const T*>(x), wq_t, w_scale, bias, static_cast<T*>(out),
+          stats, batch, t_in, f_in, c_out);
+  return cudaGetLastError();
+}
+
+template <typename T, int CO>
+cudaError_t launch_down_int8_two_pass(const TilePlan& p, const void* x,
+                                      const int8_t* wq, const float* w_scale,
+                                      const float* bias, void* out,
+                                      float* stats, int batch, int t_in,
+                                      int f_in, int c_in, int c_out,
+                                      cudaStream_t s) {
+  static int raised = 48 * 1024;  // per instantiation; one card per process
+  if (p.smem > raised) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        conv_down_int8_two_pass_kernel<T, CO>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+    if (err != cudaSuccess) return err;
+    raised = p.smem;
+  }
+  conv_down_int8_two_pass_kernel<T, CO>
+      <<<dim3(p.tiles, batch, p.split), kThreads, p.smem, s>>>(
+          static_cast<const T*>(x), wq, w_scale, bias, static_cast<T*>(out),
+          stats, t_in, f_in, c_in, c_out);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch_down_int8(const void* x, const int8_t* wq,
+cudaError_t dispatch_down_int8(const TilePlan& p, const void* x,
+                               const int8_t* wq, const int8_t* wq_t,
                                const float* w_scale, const float* bias,
                                void* out, float* stats, int batch, int t_in,
                                int f_in, int c_in, int c_out, cudaStream_t s) {
-  if (c_out % 64 == 0)
-    return launch_down_int8<T, 64>(x, wq, w_scale, bias, out, stats, batch,
-                                   t_in, f_in, c_in, c_out, s);
-  return launch_down_int8<T, 32>(x, wq, w_scale, bias, out, stats, batch,
-                                 t_in, f_in, c_in, c_out, s);
+  const bool wide = c_out / p.groups == 64;  // CO: conv_down_int8_plan
+  if (p.grid == 0)  // the two-pass kernel
+    return (wide ? launch_down_int8_two_pass<T, 64>
+                 : launch_down_int8_two_pass<T, 32>)(
+        p, x, wq, w_scale, bias, out, stats, batch, t_in, f_in, c_in, c_out,
+        s);
+  if (c_in == 32)
+    return (wide ? launch_down_int8<T, 32, 64> : launch_down_int8<T, 32, 32>)(
+        p, x, wq_t, w_scale, bias, out, stats, batch, t_in, f_in, c_out, s);
+  return (wide ? launch_down_int8<T, 64, 64> : launch_down_int8<T, 64, 32>)(
+      p, x, wq_t, w_scale, bias, out, stats, batch, t_in, f_in, c_out, s);
 }
 
 template <typename T, int CI>
@@ -620,31 +890,30 @@ int ddim_strided_int8_geometry(int i) {
   return i >= 0 && i < 4 ? g[i] : -1;
 }
 
-// Spatial tiles per sample (the partials' second dimension), both directions.
-int ddim_strided_int8_tiles(int t_out, int f_out) {
-  return ((t_out + ddim::kTtI - 1) / ddim::kTtI) *
-         ((f_out + ddim::kFtI - 1) / ddim::kFtI);
-}
-
 // x: [B, T, F, Cin] (fp32 or bf16, as `bf16` says); wq: [4, 4, Cin, Cout]
-// int8 HWIO; w_scale, bias: [Cout] fp32; out: [B, T/2, F/2, Cout] in x's
-// dtype; stats: [B, ddim_strided_int8_tiles(...), 2, Cout] fp32 or null.
-// Cin and Cout multiples of 32 (Cin ≤ 256); every pointer 16-byte aligned.
-int ddim_conv_down_int8(const void* x, const void* wq, const float* w_scale,
-                        const float* bias, void* out, float* stats, int batch,
-                        int t_in, int f_in, int c_in, int c_out, int bf16,
-                        void* stream) {
+// int8 HWIO and wq_t the same laid out [4, 4, Cout, Cin] (the persistent
+// kernel reads wq_t, the two-pass one wq); w_scale, bias: [Cout] fp32; out:
+// [B, T/2, F/2, Cout] in x's dtype; stats: [B, ddim_conv_down_int8_plan(...)
+// .tiles, 2, Cout] fp32 or null. Cin and Cout multiples of 32 (Cin <= 256);
+// every pointer 16-byte aligned.
+int ddim_conv_down_int8(const void* x, const void* wq, const void* wq_t,
+                        const float* w_scale, const float* bias, void* out,
+                        float* stats, int batch, int t_in, int f_in, int c_in,
+                        int c_out, int bf16, void* stream) {
   using namespace ddim;
-  if (c_in % 32 || c_out % 32 || c_in > 256)
-    return static_cast<int>(cudaErrorInvalidValue);
+  const TilePlan p =
+      conv_down_int8_plan(t_in, f_in, c_in, c_out, bf16, batch);
+  if (p.variant != kVariantMma) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const int8_t* w8 = static_cast<const int8_t*>(wq);
+  const int8_t* w8t = static_cast<const int8_t*>(wq_t);
   const cudaError_t err =
-      bf16 ? dispatch_down_int8<__nv_bfloat16>(x, w8, w_scale, bias, out,
-                                               stats, batch, t_in, f_in, c_in,
-                                               c_out, s)
-           : dispatch_down_int8<float>(x, w8, w_scale, bias, out, stats,
-                                       batch, t_in, f_in, c_in, c_out, s);
+      bf16 ? dispatch_down_int8<__nv_bfloat16>(p, x, w8, w8t, w_scale, bias,
+                                               out, stats, batch, t_in, f_in,
+                                               c_in, c_out, s)
+           : dispatch_down_int8<float>(p, x, w8, w8t, w_scale, bias, out,
+                                       stats, batch, t_in, f_in, c_in, c_out,
+                                       s);
   return static_cast<int>(err);
 }
 

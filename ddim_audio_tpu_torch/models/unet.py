@@ -58,7 +58,7 @@ from ..ops.flat_grad import (
     conv_up_flat_t,
     resblock_flat_train,
 )
-from ..ops.flat_resblock import (conv3x3_taps, conv_taps, resblock_flat,
+from ..ops.flat_resblock import (conv3x3_taps, resblock_flat,
                                   resblock_flat_int8)
 from ..utils.device import resolve_device
 from .embeddings import beta_embedding_apply, beta_embedding_init
@@ -235,17 +235,18 @@ def prepare_params(params, cfg: ModelConfig):
     conv weights (the 4-D leaves) cast to the compute dtype and, with
     ``cfg.tap_int8``, the resblock convs of the int8-tap stages, with
     ``cfg.strided_int8`` the int8 transitions, also quantised FROM THE FP32
-    WEIGHTS (``wq``, ``w_scale`` beside ``w``; the resblock convs and the
-    int8 up transitions also ``wq_t``, ``wq`` laid out [kh, kw, C_out, C_in]
-    as their int8-tap kernels read it). The forwards then cast, quantise and
-    lay out nothing per call; ``apply_model`` ignores the extra entries."""
+    WEIGHTS (``wq``, ``w_scale`` beside ``w``, and ``wq_t``, ``wq`` laid out
+    [kh, kw, C_out, C_in] as the int8-tap kernels read it). The forwards
+    then cast, quantise and lay out nothing per call; ``apply_model``
+    ignores the extra entries."""
     p = _cast_conv_weights(params, cfg.dtype)
     prev = None
     for c, src, dst in zip(cfg.ch, params["down_modules"]["stages"],
                            p["down_modules"]["stages"]):
         if "down" in src and strided_int8_transition(cfg, prev, c):
             wq, w_scale = quantize_strided_weights_int8(src["down"]["w"])
-            dst["down"].update(wq=wq, w_scale=w_scale)
+            dst["down"].update(wq=wq, w_scale=w_scale,
+                               wq_t=int8_weights_co_ci(wq))
         prev = c
     for i, (c, src, dst) in enumerate(zip(cfg.ch, params["up_modules"]["stages"],
                                           p["up_modules"]["stages"])):
@@ -496,11 +497,11 @@ def _apply_model_flat_core(params, xf, temb_chunks, cfg: ModelConfig):
                 "flat path: a stage > 0 without a 'down' transition has no "
                 "fused GroupNorm-statistics source")
         if "down" in stage:
-            w, w_scale = conv_taps(stage["down"], dtype,
+            w, taps = conv3x3_taps(stage["down"], dtype,
                                    strided_int8_transition(cfg, prev, c))
             hf, s1, s2 = conv_down_flat(
                 hf, w, stage["down"]["b"], c_in=prev, c_out=c,
-                want_stats=True, w_scale=w_scale)
+                want_stats=True, **taps)
             stats = (s1, s2)
             t //= 2
             f //= 2

@@ -34,24 +34,24 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "ddim_conv3x3_tiles": (_I,) * 4,
     "ddim_conv3x3_variant": (_I,) * 4,
-    # T, F, C, bf16, B, out[7] (ops/tile_plan.py)
+    # T, F, C, bf16, B, out[8] (ops/tile_plan.py)
     "ddim_conv3x3_plan": (_I,) * 5 + (_P,),
     "ddim_conv_down_tiles": (_I,) * 5,
     "ddim_conv_down_variant": (_I,) * 5,
-    # T, F, Cin, Cout, bf16, B, out[7]
+    # T, F, Cin, Cout, bf16, B, out[8]
     "ddim_conv_down_plan": (_I,) * 6 + (_P,),
     "ddim_conv_up_tiles": (_I,) * 5,
     "ddim_conv_up_variant": (_I,) * 5,
-    # T, F, Cin, Cout, bf16, B, out[7]
+    # T, F, Cin, Cout, bf16, B, out[8]
     "ddim_conv_up_plan": (_I,) * 6 + (_P,),
     "ddim_conv3x3_int8_tiles": (_I,) * 2,
     "ddim_conv3x3_int8_geometry": (_I,),
-    # T, F, C, bf16, B, out[7]
+    # T, F, C, bf16, B, out[8]
     "ddim_conv3x3_int8_plan": (_I,) * 5 + (_P,),
-    # T, F, Cin, C0, bf16, B, out[7]
+    # T, F, Cin, C0, bf16, B, out[8]
     "ddim_conv_head_plan": (_I,) * 6 + (_P,),
     "ddim_conv_head_variant": (_I,) * 5,
-    # T, F, C0, Cout, bf16, B, out[7]
+    # T, F, C0, Cout, bf16, B, out[8]
     "ddim_conv_tail_plan": (_I,) * 6 + (_P,),
     "ddim_conv_tail_variant": (_I,) * 5,
     # mode, B, T, F, Cin, Cout, bf16
@@ -73,7 +73,7 @@ _SIGNATURES = {
     # x, w, bias, res, out, stats, B, T, F, Cin, Cout, bf16, stream
     "ddim_conv_up": (_P,) * 6 + (_I,) * 6 + (_P,),
     "ddim_store_geometry": (_I,),
-    # T, F, C, bf16, B, int8 operands (x, residual), out[7]
+    # T, F, C, bf16, B, int8 operands (x, residual), out[8]
     "ddim_conv3x3_store_plan": (_I,) * 6 + (_P,),
     "ddim_residual_affine_tiles": (_I,) * 2,
     # x, x_scales, res, res_scales, pre_scale, pre_shift, w, add, out,
@@ -84,13 +84,17 @@ _SIGNATURES = {
     # B, T, F, C, x_kind, s_kind, out_kind (0 fp32, 1 bf16, 2 int8), stream
     "ddim_residual_affine": (_P,) * 9 + (_I,) * 7 + (_P,),
     "ddim_strided_int8_geometry": (_I,),
-    "ddim_strided_int8_tiles": (_I,) * 2,
-    # x, wq, w_scale, bias, out, stats, B, T, F, Cin, Cout, bf16, stream
-    "ddim_conv_down_int8": (_P,) * 6 + (_I,) * 6 + (_P,),
+    # x, wq, wq_t, w_scale, bias, out, stats, B, T, F, Cin, Cout, bf16,
+    # stream
+    "ddim_conv_down_int8": (_P,) * 7 + (_I,) * 6 + (_P,),
+    # T, F, Cin, Cout, bf16, B, out[8]
+    "ddim_conv_down_int8_plan": (_I,) * 6 + (_P,),
+    # x's T, F, Cin, Cout, bf16, B, out[8]
+    "ddim_conv_down_dw_plan": (_I,) * 6 + (_P,),
     # x, wq_t, w_scale, bias, res, out, stats, B, T, F, Cin, Cout, bf16,
     # stream
     "ddim_conv_up_int8": (_P,) * 7 + (_I,) * 6 + (_P,),
-    # T, F, Cin, Cout, bf16, B, out[7]
+    # T, F, Cin, Cout, bf16, B, out[8]
     "ddim_conv_up_int8_plan": (_I,) * 6 + (_P,),
 }
 

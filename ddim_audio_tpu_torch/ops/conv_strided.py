@@ -17,7 +17,7 @@ the TPU kernels' ``mxu_i8`` branches, ``sampling.strided_int8``): the input
 is requantised with one scale per quantisation group (an 8 × 16 output
 tile's input tile, halo included; for the down conv both time-parity
 streams of the TPU kernel share it), and ``out32 = float(acc) · (s_q ·
-w_scale[co]) + bias`` enters the float epilogue. The up kernel reads its
+w_scale[co]) + bias`` enters the float epilogue. Both kernels read their
 weights laid out [4, 4, C_out, C_in] (``wq_t``: ``prepare_params`` makes
 it once, else the wrapper per call).
 
@@ -31,8 +31,9 @@ four output parity classes from one staged input tile,
 ``tile_plan.conv_up_plan``); the fp32 down and up convs (training's) run
 them in split TF32 (three TF32 products a tap, fp32 accuracy); the
 geometries those do not take run on CUDA cores (what bounds each: the note
-at the top of ``csrc/conv_strided.cu``). The int8-tap up conv is a
-persistent kernel (``tile_plan.conv_up_int8_plan``). Statistics come from
+at the top of ``csrc/conv_strided.cu``). The int8-tap up and down convs are
+persistent kernels (``tile_plan.conv_up_int8_plan``,
+``tile_plan.conv_down_int8_plan``). Statistics come from
 per-block partials finished by ``torch.sum`` (deterministic).
 """
 
@@ -65,6 +66,7 @@ from .conv_flat import (
 )
 from .tile_plan import (
     VARIANT_MMA,
+    conv_down_int8_plan,
     conv_down_plan,
     conv_up_int8_plan,
     conv_up_plan,
@@ -202,8 +204,8 @@ def _int8_lib():
 
 def _strided_int8(x, wq, w_scale, bias, residual, *, c_in, c_out, up,
                   want_stats, name, wq_t=None):
-    """Checks, allocation and launch of csrc/conv_strided_int8.cu (up: wq_t
-    the [4, 4, C_out, C_in] weights, made here when not given)."""
+    """Checks, allocation and launch of csrc/conv_strided_int8.cu (wq_t the
+    [4, 4, C_out, C_in] weights, made here when not given)."""
     b, t, f = _geometry(x, c_in, name)
     if c_in % 32 or c_out % 32:
         raise ValueError(f"{name} kernel: needs C_in and C_out % 32 == 0, "
@@ -221,25 +223,23 @@ def _strided_int8(x, wq, w_scale, bias, residual, *, c_in, c_out, up,
                   shape=(c_out,))
     check_operand(residual, "residual", device=dev, dtype=x.dtype,
                   shape=out_shape)
-    if up:
-        plan = conv_up_int8_plan(t, f, c_in, c_out, bool(bf16), b)
-        if plan.variant != VARIANT_MMA:
-            raise ValueError(f"{name} kernel: no kernel takes C_in={c_in}, "
-                             f"C_out={c_out} (C_in <= 256)")
-        if wq_t is None:
-            wq_t = int8_weights_co_ci(wq)
-        check_operand(wq_t, "wq_t", device=dev, dtype=torch.int8,
-                      shape=(4, 4, c_out, c_in))
+    plan = (conv_up_int8_plan if up else conv_down_int8_plan)(
+        t, f, c_in, c_out, bool(bf16), b)
+    if plan.variant != VARIANT_MMA:
+        raise ValueError(f"{name} kernel: no kernel takes C_in={c_in}, "
+                         f"C_out={c_out} (C_in <= 256)")
+    if wq_t is None:
+        wq_t = int8_weights_co_ci(wq)
+    check_operand(wq_t, "wq_t", device=dev, dtype=torch.int8,
+                  shape=(4, 4, c_out, c_in))
     bias = _bias(bias, c_out, dev)
     out = torch.empty(out_shape, dtype=x.dtype, device=dev)
     with torch.cuda.device(dev):
         lib = _int8_lib()
         stats = None
         if want_stats:
-            tiles = (plan.tiles if up
-                     else lib.ddim_strided_int8_tiles(t_out, f_out))
-            stats = torch.empty((b, tiles, 2, c_out), dtype=torch.float32,
-                                device=dev)
+            stats = torch.empty((b, plan.tiles, 2, c_out),
+                                dtype=torch.float32, device=dev)
         if up:
             err = lib.ddim_conv_up_int8(
                 ptr(x), ptr(wq_t), ptr(w_scale), ptr(bias), ptr(residual),
@@ -247,8 +247,9 @@ def _strided_int8(x, wq, w_scale, bias, residual, *, c_in, c_out, up,
                 stream_ptr(x))
         else:
             err = lib.ddim_conv_down_int8(
-                ptr(x), ptr(wq), ptr(w_scale), ptr(bias), ptr(out),
-                ptr(stats), b, t, f, c_in, c_out, bf16, stream_ptr(x))
+                ptr(x), ptr(wq), ptr(wq_t), ptr(w_scale), ptr(bias),
+                ptr(out), ptr(stats), b, t, f, c_in, c_out, bf16,
+                stream_ptr(x))
     check(err, name)
     if not want_stats:
         return out
@@ -257,12 +258,15 @@ def _strided_int8(x, wq, w_scale, bias, residual, *, c_in, c_out, up,
 
 
 def conv_down_flat_int8(x, wq, w_scale, bias, *, c_in: int, c_out: int,
-                        want_stats: bool = False):
+                        want_stats: bool = False, wq_t=None):
     """``conv_down_flat`` with int8 × int8 → int32 taps (module docstring).
-    wq, w_scale: ``quantize_strided_weights_int8``. On a CUDA tensor this
-    launches ``csrc/conv_strided_int8.cu`` (C_in, C_out % 32 == 0); on a CPU
-    tensor the twin runs with the kernel's group, or with the one set by
-    ``ops.twin_route``."""
+    wq, w_scale: ``quantize_strided_weights_int8``; wq_t:
+    ``int8_weights_co_ci(wq)``, the [4, 4, C_out, C_in] layout the kernel
+    reads (made here when not given; ``models.unet.prepare_params`` makes it
+    once). On a CUDA tensor this launches ``csrc/conv_strided_int8.cu`` (C_in,
+    C_out % 32 == 0, C_in <= 256; the persistent kernel at C_in 32 and 64);
+    on a CPU tensor the twin runs with the kernel's group, or with the one
+    set by ``ops.twin_route``."""
     kw = dict(c_in=c_in, c_out=c_out, want_stats=want_stats)
     if use_twin(x):
         q_tile, q_halo = twin_int8_group("strided") or (STRIDED_INT8_TILE,
@@ -271,9 +275,9 @@ def conv_down_flat_int8(x, wq, w_scale, bias, *, c_in: int, c_out: int,
                                         q_halo=q_halo, **kw)
         return twin_result("conv_down_flat_int8", ref, x,
                            lambda: conv_down_flat_int8(x, wq, w_scale, bias,
-                                                       **kw))
+                                                       wq_t=wq_t, **kw))
     res = _strided_int8(x, wq, w_scale, bias, None, up=False,
-                        name="conv_down_flat_int8", **kw)
+                        name="conv_down_flat_int8", wq_t=wq_t, **kw)
     conv_down_flat_int8.launches += 1
     return res
 
@@ -315,14 +319,16 @@ def _geometry(x, c_in: int, name: str):
 
 
 def conv_down_flat(x, w, bias, *, c_in: int, c_out: int,
-                   want_stats: bool = False, w_scale=None):
+                   want_stats: bool = False, w_scale=None, wq_t=None):
     """x: [B, T, F·C_in] → [B, T/2, (F/2)·C_out]; w: [4, 4, C_in, C_out] HWIO
     in x's dtype; bias: [C_out] fp32. Returns out, or (out, sum [B, C_out],
-    sum² [B, C_out]) when want_stats. With w_scale (w then the int8 weights)
-    the taps run in int8: ``conv_down_flat_int8``."""
+    sum² [B, C_out]) when want_stats. With w_scale (w then the int8 weights,
+    wq_t optionally their kernel layout) the taps run in int8:
+    ``conv_down_flat_int8``."""
     if w_scale is not None:
         return conv_down_flat_int8(x, w, w_scale, bias, c_in=c_in,
-                                   c_out=c_out, want_stats=want_stats)
+                                   c_out=c_out, want_stats=want_stats,
+                                   wq_t=wq_t)
     if use_twin(x):
         kw = dict(c_in=c_in, c_out=c_out, want_stats=want_stats)
         return twin_result("conv_down_flat",

@@ -14,7 +14,8 @@ The backward of each flat conv is two more flat ops:
   the design: the note at the top of that file), on a CPU tensor its plain
   PyTorch twin (``*_plain``). No fallback from one to the other. The kernels
   write HWIO fp32 directly (per-block partial sums finished by
-  ``torch.sum``: no atomics, the same bits run to run).
+  ``torch.sum``: no atomics, the same bits run to run); the fp32 down conv's
+  runs split TF32 on the tensor cores (``tile_plan.conv_down_dw_plan``).
 
 ``conv3x3_flat_t`` / ``conv_down_flat_t`` / ``conv_up_flat_t`` tie forward,
 dx and dW together as ``torch.autograd.Function``s. They take the fp32

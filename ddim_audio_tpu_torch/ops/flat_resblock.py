@@ -81,8 +81,9 @@ def conv_taps(conv, dtype, int8: bool):
 
 
 def conv3x3_taps(conv, dtype, int8: bool):
-    """``conv_taps`` of a resblock conv as ``conv3x3_flat`` takes it, or of an
-    up transition as ``conv_up_flat`` does: (w, {"w_scale": …, "wq_t": …}),
+    """``conv_taps`` of a resblock conv as ``conv3x3_flat`` takes it, or of a
+    transition as ``conv_down_flat`` / ``conv_up_flat`` do: (w, {"w_scale":
+    …, "wq_t": …}),
     wq_t the int8 kernel's [kh, kw, C_out, C_in] copy of the int8 weights
     where ``prepare_params`` made one (else the wrapper makes it per
     call)."""

@@ -1,15 +1,18 @@
 """Tile plans of the conv3x3, up-conv, down-conv, int8-tap conv3x3, int8-tap
-up-conv, int8-storage conv3x3, head and tail kernels, in Python.
+up and down conv, int8-storage conv3x3, head and tail kernels and of the
+down conv's weight gradient, in Python.
 
 A model of ``csrc/conv_plan.h``: which variant a call takes (0: CUDA cores,
 1: tensor cores, 2: tensor cores in split TF32, -1: no kernel takes the
 shape), the block's spatial tile,
 the spatial tiles per sample (the second dimension of the statistics
 partials, which the wrappers size from here), the output-channel groups, how
-many blocks share a tile's groups (``split``, grid.z) and the dynamic shared
-memory. ``tests/test_torch_conv_redesign.py`` holds the model against the C
+many blocks share a tile's groups (``split``, grid.z), the dynamic shared
+memory and, for a persistent kernel, its blocks along grid.x (``grid``).
+``tests/test_torch_conv_redesign.py`` holds the model against the C
 functions (``ddim_conv3x3_plan``, ``ddim_conv_up_plan``,
 ``ddim_conv_down_plan``, ``ddim_conv_up_int8_plan``,
+``ddim_conv_down_int8_plan``, ``ddim_conv_down_dw_plan``,
 ``ddim_conv3x3_int8_plan``,
 ``ddim_conv3x3_store_plan``, ``ddim_conv_head_plan``,
 ``ddim_conv_tail_plan``, ``ddim_residual_affine_tiles``) built by the host
@@ -30,6 +33,15 @@ TF32_MAX_SPLIT = 8       # its K split over a cluster of blocks, at most
 UP_TF32_POS = 64         # split-TF32 up: input positions a block and
 UP_TF32_OFFS = 2         # tap offsets a stage of its ring
 UP_I8_CO = 32            # int8-tap up: output channels a block
+DOWN_I8_HALO = 18 * 34   # int8-tap down: input positions of a group
+DOWN_I8_MAX_BLOCKS = 2   # its resident blocks an SM, at most
+DW_CI = 32               # first dW kernels: input channels a block,
+DW_TARGET_BLOCKS = 528   # and the blocks they aim at
+DW_TF32_CI = 16          # split-TF32 down dW: input channels,
+DW_TF32_CO = 32          # output channels and
+DW_TF32_POS = 64         # base positions a block's tile
+DW_TF32_XP = DW_TF32_CI + 8  # floats a position of its x planes,
+DW_TF32_GP = DW_TF32_CO + 8  # of its g planes
 CONV_STAGES = 3          # conv3x3 weight ring: stages of a tap row each
 UP_STAGES = 3            # up weight ring: stages of one tap per class
 DOWN_STAGES = 3          # down weight ring: stages of DOWN_TAPS taps
@@ -60,6 +72,7 @@ class TilePlan(NamedTuple):
     groups: int
     split: int
     smem: int
+    grid: int = 0
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -252,6 +265,95 @@ def conv_up_int8_plan(t_in: int, f_in: int, c_in: int, c_out: int,
           and c_out % UP_I8_CO == 0 and smem <= SMEM_LIMIT)
     return TilePlan(VARIANT_MMA if ok else VARIANT_NONE, q_t, q_f, tiles,
                     groups, groups, smem if ok else 0)
+
+
+def conv_down_int8_smem(c_in: int, co: int, bf16: bool) -> int:
+    """The int8-tap down conv's shared memory: the 16 taps' weights, the
+    int8 halo, the raw halo in x's dtype, the statistics and amax scratch."""
+    return (16 * co * c_in + DOWN_I8_HALO * c_in
+            + DOWN_I8_HALO * c_in * (2 if bf16 else 4) + 4 * (8 * 2 * co + 8))
+
+
+def down_int8_resident(smem: int) -> int:
+    """Resident blocks an SM of the int8-tap down conv: as many as the
+    shared memory leaves room for, 1 … DOWN_I8_MAX_BLOCKS."""
+    return max(1, min(DOWN_I8_MAX_BLOCKS, SMEM_PER_SM // (smem + 1024)))
+
+
+def conv_down_int8_plan(t_in: int, f_in: int, c_in: int, c_out: int,
+                        bf16: bool, batch: int = 1) -> TilePlan:
+    """The plan of ``ddim_conv_down_int8`` for an input [batch, t_in, f_in,
+    c_in]: one quantisation group (an 8 × 16 output tile) a tile and a
+    statistics partial, 64 output channels a block where C_out allows and
+    the shared memory fits, else 32 (``split`` = ``groups`` on grid.z). At
+    C_in 32 or 64 the persistent kernel: ``grid`` = its blocks along grid.x
+    (the resident blocks of every SM shared by the groups, at most one a
+    group); at C_in 96 … 256 the two-pass kernel (``grid`` 0: a block a
+    group)."""
+    q_t, q_f = INT8_GROUP
+    tiles = _cdiv(t_in // 2, q_t) * _cdiv(f_in // 2, q_f)
+    co = 64 if c_out % 64 == 0 else 32
+    if conv_down_int8_smem(c_in, co, bf16) > SMEM_LIMIT:
+        co = 32
+    groups = _cdiv(c_out, co) if c_out > 0 else 0
+    smem = conv_down_int8_smem(c_in, co, bf16)
+    if not (0 < c_in <= 256 and c_in % 32 == 0 and c_out > 0
+            and c_out % 32 == 0):
+        return TilePlan(VARIANT_NONE, q_t, q_f, tiles, groups, groups, 0)
+    if c_in not in (32, 64) or smem > SMEM_LIMIT:  # the two-pass kernel
+        co = 64 if c_out % 64 == 0 else 32
+        smem = (_cdiv(DOWN_I8_HALO * (c_in + 16), 16) * 16
+                + max(16 * co * (32 + 16), 128 * (co + 8) * 4))
+        return TilePlan(VARIANT_MMA, q_t, q_f, tiles, c_out // co,
+                        c_out // co, smem)
+    per_z = max(1, down_int8_resident(smem) * SMS // groups)
+    return TilePlan(VARIANT_MMA, q_t, q_f, tiles, groups, groups, smem,
+                    min(batch * tiles, per_z))
+
+
+def _dw_first_plan(tb: int, fb: int, np_: int, ttm: int, c_in: int,
+                   c_out: int, bf16: bool, batch: int) -> TilePlan:
+    """The first weight-gradient kernels' plan (CUDA cores, or bf16 WMMA):
+    base grid tb × fb, np_ base positions a CUDA-core tile, ttm rows of 16 a
+    WMMA tile; ``tiles`` the batch's, ``split`` the position shares."""
+    mma = bf16 and fb >= 16 and c_in % 32 == 0 and c_out % 32 == 0
+    ft = 16 if mma else (16 if fb >= 16 else 8)
+    tt = ttm if mma else np_ // ft
+    tiles = batch * _cdiv(tb, tt) * _cdiv(fb, ft)
+    groups = _cdiv(c_in, DW_CI) * _cdiv(c_out, 32)
+    per = max(1, _cdiv(tiles, _cdiv(DW_TARGET_BLOCKS, groups)))
+    return TilePlan(VARIANT_MMA if mma else VARIANT_FMA, tt, ft, tiles,
+                    groups, _cdiv(tiles, per), 0)
+
+
+def dw_down_tf32_smem(tt: int, ft: int) -> int:
+    """The split-TF32 down dW's shared memory: the raw x halo and g tile
+    and their hi and lo planes."""
+    hx, hg = (2 * tt + 2) * (2 * ft + 2), tt * ft
+    return 4 * (hx * (DW_TF32_CI + 2 * DW_TF32_XP)
+                + hg * (DW_TF32_CO + 2 * DW_TF32_GP))
+
+
+def conv_down_dw_plan(t_in: int, f_in: int, c_in: int, c_out: int,
+                      bf16: bool, batch: int = 1) -> TilePlan:
+    """The plan of ``ddim_conv_dw`` in mode 1 (the down conv's weight
+    gradient) for x [batch, t_in, f_in, c_in]: fp32 at C_in % 16 == C_out %
+    32 == 0 runs split TF32 (a block all 16 taps × DW_TF32_CI × DW_TF32_CO
+    channels, ``groups`` such blocks, over tiles of DW_TF32_POS base
+    positions 16 or 8 wide, ``split`` shares of the batch's ``tiles`` so
+    that groups · split stays within FILL_BLOCKS); else the first kernels.
+    ``split`` is the partials' first dimension."""
+    tb, fb = t_in // 2, f_in // 2
+    if (bf16 or c_in <= 0 or c_out <= 0 or c_in % DW_TF32_CI
+            or c_out % DW_TF32_CO):
+        return _dw_first_plan(tb, fb, 32, 4, c_in, c_out, bf16, batch)
+    ft = 16 if fb >= 16 else 8
+    tt = DW_TF32_POS // ft
+    tiles = batch * _cdiv(tb, tt) * _cdiv(fb, ft)
+    groups = (c_in // DW_TF32_CI) * (c_out // DW_TF32_CO)
+    per = max(1, _cdiv(tiles, max(1, FILL_BLOCKS // groups)))
+    return TilePlan(VARIANT_TF32, tt, ft, tiles, groups, _cdiv(tiles, per),
+                    dw_down_tf32_smem(tt, ft))
 
 
 def store_tiles(t: int, f: int) -> int:

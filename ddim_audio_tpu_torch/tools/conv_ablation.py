@@ -1,11 +1,11 @@
 """Where the time of the bf16 tensor-core conv3x3, up and down kernels, of
 the int8-tap conv3x3, of the int8-storage conv3x3, of the head and tail
-convs, of the fp32 conv3x3, up and down convs (training's) and of the
-int8-tap up conv goes, on the card: each kernel built again with one piece
-of its work taken out.
+convs, of the fp32 conv3x3, up and down convs (training's), of the int8-tap
+up and down convs and of the fp32 down-conv weight gradient goes, on the
+card: each kernel built again with one piece of its work taken out.
 
     python -m ddim_audio_tpu_torch.tools.conv_ablation [--out FILE]
-        [--kernels conv3x3,up,down,int8,store,head,tail,down32,upi8,conv32,up32]
+        [--kernels conv3x3,up,down,int8,store,head,tail,down32,upi8,conv32,up32,downi8,downdw32]
         [--csrc DIR]
 
 Copies ``csrc`` (or ``--csrc``, another checkout's kernel sources, e.g. a
@@ -41,14 +41,27 @@ weights (the split-TF32 ring after its first stages), ``no_halo`` the halo
 kernels' raw chunk copies after the first), ``no_epilogue`` add or bias,
 residual, SiLU, statistics and stores, and for the split-TF32 kernels
 ``no_split`` (the split at staging: the chunk into the hi plane as it is),
-which a checkout without it builds unedited. Builds
+which a checkout without it builds unedited. ``downi8`` (the int8-tap down
+conv in bf16 at 32->64, with statistics) takes ``upi8``'s edits, which
+list alternatives for the two-pass down kernel first written and for the
+persistent one (``no_halo``: the amax pass over global memory, the
+prefetch of the next group's raw halo; ``no_requant`` the requant;
+``no_weights`` the weights restaged per chunk, staged once a block).
+``downdw32`` (the fp32 down-conv weight gradient at the five training
+transitions, against one fp32 ``conv2d_weight`` with TF32 off, the
+partials' sum included as the wrapper does it) takes ``no_mma`` (the FMAs
+or MMAs), ``no_halo`` (the x halo's staging), ``no_weights`` (the other
+operand: the g tile's staging), ``no_epilogue`` (the partials' stores) and
+``no_split`` (the split into TF32 hi and lo planes), and the unedited
+build without the wrapper's sum of the partials (``no_reduce``). Builds
 ``conv3x3.cu``, ``conv_strided.cu``, ``conv_strided_int8.cu``,
-``conv3x3_int8.cu``, ``conv3x3_store.cu``, ``conv_head_tail.cu`` and
-``conv_plan.cu`` of each copy with nvcc, all at once, and times the C entry
-points (``ddim_conv3x3``, ``ddim_conv_up``, ``ddim_conv_down``,
-``ddim_conv3x3_int8``, ``ddim_conv3x3_store``, ``ddim_conv_head``,
-``ddim_conv_tail``, and ``ddim_conv_up_int8`` or, in a checkout that
-predates it, ``ddim_conv_strided_int8``) with CUDA events, the card held
+``conv3x3_int8.cu``, ``conv3x3_store.cu``, ``conv_head_tail.cu``,
+``conv_dw.cu`` and ``conv_plan.cu`` of each copy with nvcc, all at once,
+and times the C entry points (``ddim_conv3x3``, ``ddim_conv_up``,
+``ddim_conv_down``, ``ddim_conv3x3_int8``, ``ddim_conv3x3_store``,
+``ddim_conv_head``, ``ddim_conv_tail``, ``ddim_conv_down_int8``,
+``ddim_conv_dw``, and ``ddim_conv_up_int8`` or, in a checkout that predates
+it, ``ddim_conv_strided_int8``) with CUDA events, the card held
 busy while the host queues the timed calls, at the audio.yml
 shapes (the storage conv at s0-s3, int8 x with its scales, ``quant_out``;
 the head with statistics and the tail with its residual at 8192 x 256), B =
@@ -79,6 +92,7 @@ from pathlib import Path
 
 import torch
 import torch.nn.functional as F
+from torch.nn.grad import conv2d_weight
 
 from ..ops import _cuda
 from ..ops.conv_flat import quantize_store
@@ -104,9 +118,10 @@ UPS_I8 = [(4096, 128, 64, 32), (256, 8, 256, 192)]
 TRAIN_STAGES = [(1024, 256, 32), (512, 128, 64), (256, 64, 96), (128, 32, 128),
                 (64, 16, 192), (32, 8, 256)]
 TRAIN_UPS = [(t // 2, f // 2, co, ci) for t, f, ci, co in TRAIN_DOWNS]
+DOWNS_I8 = [(8192, 256, 32, 64)]
 SOURCES = ("conv3x3.cu", "conv_strided.cu", "conv_strided_int8.cu",
            "conv3x3_int8.cu", "conv3x3_store.cu", "conv_head_tail.cu",
-           "conv_plan.cu")
+           "conv_dw.cu", "conv_plan.cu")
 _MMA = ("warp_mma_k16(acc, aa,", "if (s < 0) warp_mma_k16(acc, aa,")
 _RING3 = (r"if \(s \+ kConvStages - 1 < nsteps\)\n      Blk::load_stage",
           "if (false)\n      Blk::load_stage")
@@ -310,7 +325,8 @@ UPI8_EDITS = {
         ((r"idx < 16 \* 8 \* \(CO / 4\); idx \+= kThreads",
           "idx < 0; idx += kThreads"),
          (r"i < 16 \* CO \* \(CI / 16\); i \+= kThreads",
-          "i < 0; i += kThreads")),
+          "i < 0; i += kThreads"),
+         (r"i < 16 \* CO \* NP; i \+= kThreads", "i < 0; i += kThreads")),
     ],
     "no_halo": [
         # the amax pass over global memory; the next group's raw halo
@@ -321,7 +337,8 @@ UPI8_EDITS = {
           "      const Vec8 v = load8(x + xb + ((size_t)t * f_in + f) * c_in + ch);"
           "\n#pragma unroll\n      for (int k = 0; k < 8; ++k) am"),
          (r"if \(grp \+ gridDim.x < n_groups\) load_raw",
-          "if (false) load_raw")),
+          "if (false) load_raw"),
+         (r"if \(more\) load_raw", "if (false) load_raw")),
     ],
     "no_requant": [
         # the second global pass that requantises; the requant from the
@@ -329,25 +346,68 @@ UPI8_EDITS = {
         ((r"uint32_t lo = 0, hi = 0;\n    if \(t >= 0",
           "uint32_t lo = 0, hi = 0;\n    if (t < 0 && t >= 0"),
          (r"if \(i < kItems\) \{  // requantise",
-          "if (i < 0) {  // requantise")),
+          "if (i < 0) {  // requantise"),
+         (r"put_q\(i, ", "if (i < 0) put_q(i, ")),
     ],
     "no_epilogue": [
         # dequant, residual, statistics and stores
         ((r"if \(t < t_out && f < f_out\) \{\n        const size_t off",
           "if (t < t_out && f < f_out && c_in < 0) {\n        const size_t off"),
          (r"if \(ok\[r\]\) \{  // the lane's 8 channels",
-          "if (ok[r] && c_out < 0) {  // the lane's 8 channels")),
+          "if (ok[r] && c_out < 0) {  // the lane's 8 channels"),
+         (r"if \(t < t_out && f < f_out\) \{  // the lane's 8 channels",
+          "if (t < t_out && f < f_out && c_out < 0) {  // the lane's 8 "
+          "channels")),
+    ],
+}
+# The fp32 down-conv weight gradient (conv_dw.cu): the CUDA-core kernel
+# first written (all three modes share its loops) and the split-TF32 one
+_DW_COPY = (r"i < {n} \* \({c} / 4\); i \+= kThreads\) \{{\n"
+            r"      const int {p} = i / \({c} / 4\), q = i % \({c} / 4\);\n"
+            r"      const int t = ")
+DW32_EDITS = {
+    "no_mma": [
+        ((r"for \(int p = 0; p < G::NP; \+\+p\) \{",
+          "for (int p = 0; p < G::NP * (c_in < 0); ++p) {"),
+         (r"mma_tf32x3\(sum\[u\]\[nt\]", "if (tile < 0) mma_tf32x3(sum[u][nt]")),
+    ],
+    "no_weights": [
+        # g: the CUDA-core kernel's staging; the split-TF32 one's copies
+        ((r"idx < gr \* gw \* kCoTile; idx \+= kThreads",
+          "idx < 0; idx += kThreads"),
+         (_DW_COPY.format(n="hg", c="CO", p="gp"),
+          "i < 0; i += kThreads) {\n"
+          "      const int gp = i / (CO / 4), q = i % (CO / 4);\n"
+          "      const int t = ")),
+    ],
+    "no_halo": [
+        ((r"idx < hr \* hw \* kDwCi; idx \+= kThreads",
+          "idx < 0; idx += kThreads"),
+         (_DW_COPY.format(n="hx", c="CI", p="hp"),
+          "i < 0; i += kThreads) {\n"
+          "      const int hp = i / (CI / 4), q = i % (CI / 4);\n"
+          "      const int t = ")),
+    ],
+    "no_epilogue": [
+        ((r"if \(ci < c_in && co < c_out\)\n        part\[",
+          "if (ci < c_in && co < c_out && c_in < 0)\n        part["),
+         (r"\*reinterpret_cast<float2\*>\(dst",
+          "if (c_in < 0) *reinterpret_cast<float2*>(dst")),
     ],
 }
 ALT_EDITS = {"conv_head_tail.cu": HEAD_TAIL_EDITS,
              "conv_strided.cu": DOWN32_EDITS,
              "conv_strided_int8.cu": UPI8_EDITS,
              "conv3x3.cu": CONV32_EDITS,
-             "conv_mma.cuh": TF32_SPLIT_EDITS}
+             "conv_mma.cuh": TF32_SPLIT_EDITS,
+             "conv_dw.cu": DW32_EDITS}
 KERNELS = ("conv3x3", "up", "down", "int8", "store", "head", "tail", "down32",
-           "upi8", "conv32", "up32")
+           "upi8", "conv32", "up32", "downi8", "downdw32")
 # the variants each fp32 / int8 kind's own edits add
 KIND_EDITS = {"down32": DOWN32_EDITS, "upi8": UPI8_EDITS,
+              "downi8": UPI8_EDITS,
+              # the split at staging: conv_mma.cuh's store_split_tf32
+              "downdw32": {**DW32_EDITS, **TF32_SPLIT_EDITS},
               "conv32": {**CONV32_EDITS, **TF32_SPLIT_EDITS},
               "up32": {**DOWN32_EDITS, **TF32_SPLIT_EDITS}}
 
@@ -382,7 +442,8 @@ def build(root: Path, csrc: Path, variants) -> dict:
         d = root / name
         shutil.copytree(csrc, d)
         for fn in ("conv3x3.cu", "conv_strided.cu", "conv_strided_int8.cu",
-                   "conv3x3_int8.cu", "conv3x3_store.cu", "conv_head_tail.cu"):
+                   "conv3x3_int8.cu", "conv3x3_store.cu", "conv_head_tail.cu",
+                   "conv_dw.cu"):
             q = d / fn
             q.write_text(q.read_text()
                          .replace("static bool raised = false;",
@@ -390,7 +451,9 @@ def build(root: Path, csrc: Path, variants) -> dict:
                          .replace("static int raised = 48 * 1024;",
                                   "int raised = 48 * 1024;")
                          .replace("static int grid_cap = 0;",
-                                  "int grid_cap = 0;"))
+                                  "int grid_cap = 0;")
+                         .replace("static int resident = 0;",
+                                  "int resident = 0;"))
         for fn, pat, rep in VARIANTS.get(name, ()):
             q = d / fn
             text, n = re.subn(pat, rep, q.read_text())
@@ -422,6 +485,13 @@ def build(root: Path, csrc: Path, variants) -> dict:
             + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         lib.ddim_conv_tail.argtypes = [ctypes.c_void_p] * 5 \
             + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        # the persistent kernel's library takes wq and wq_t
+        lib.ddim_conv_down_int8.argtypes = [ctypes.c_void_p] * (
+            7 if down_int8_takes_t(lib) else 6) + [ctypes.c_int] * 6 \
+            + [ctypes.c_void_p]
+        lib.ddim_conv_dw.argtypes = [ctypes.c_void_p] * 3 \
+            + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        lib.ddim_conv_dw_splits.argtypes = [ctypes.c_int] * 7
         if hasattr(lib, "ddim_conv_up_int8"):  # the persistent up kernel
             lib.ddim_conv_up_int8.argtypes = [ctypes.c_void_p] * 7 \
                 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
@@ -442,6 +512,12 @@ def up_weight(w):
     channels-last ConvTranspose2d weight cuDNN takes."""
     return w.permute(2, 3, 0, 1).flip(2, 3).contiguous(
         memory_format=torch.channels_last)
+
+
+def down_int8_takes_t(lib) -> bool:
+    """Whether the library's int8 down conv also takes the [4, 4, C_out,
+    C_in] weights (the persistent kernel's: its plan query exists)."""
+    return hasattr(lib, "ddim_conv_down_int8_plan")
 
 
 def cuda_ms(fn, n: int = 20, warmup: int = 3) -> float:
@@ -704,6 +780,63 @@ def main(argv=None) -> int:
                 lib_ms = cuda_ms(lambda: F.conv_transpose2d(xn, wl, stride=2,
                                                             padding=1))
                 row.append(f"cudnn {lib_ms:.4f}")
+                emit(" | ".join(row))
+            for t, f, ci, co in DOWNS_I8 if "downi8" in todo else ():
+                x = rnd(bsz, t, f * ci).bfloat16()
+                w = rnd(4, 4, ci, co, scale=(16 * ci) ** -0.5)
+                wq = torch.randint(-127, 128, (4, 4, ci, co), generator=g,
+                                   device="cuda").to(torch.int8)
+                wq_t = wq.permute(0, 1, 3, 2).contiguous()
+                s_w = w.abs().amax(dim=(0, 1, 2)) / 127
+                bias = rnd(co)
+                out = torch.empty(bsz, t // 2, (f // 2) * co, device="cuda",
+                                  dtype=torch.bfloat16)
+                stats = torch.empty(bsz, -(-t // 16) * -(-f // 32), 2, co,
+                                    device="cuda")
+                row = [f"downi8 B{bsz} T{t} F{f} {ci}->{co}"]
+                for name, lib in libs.items():
+                    def run(lib=lib):
+                        # the persistent kernel reads [4, 4, C_out, C_in]
+                        # weights too
+                        w = ((wq.data_ptr(), wq_t.data_ptr())
+                             if down_int8_takes_t(lib) else (wq.data_ptr(),))
+                        err = lib.ddim_conv_down_int8(
+                            x.data_ptr(), *w, s_w.data_ptr(), bias.data_ptr(),
+                            out.data_ptr(), stats.data_ptr(), bsz, t, f, ci,
+                            co, 1, st)
+                        if err:
+                            raise RuntimeError(f"int8 down {name}: {err}")
+                    row.append(f"{name} {cuda_ms(run):.4f}")
+                wl = w.bfloat16().permute(3, 2, 0, 1).contiguous(
+                    memory_format=torch.channels_last)
+                xn = x.view(bsz, t, f, ci).permute(0, 3, 1, 2)
+                lib_ms = cuda_ms(lambda: F.conv2d(xn, wl, stride=2, padding=1))
+                row.append(f"cudnn {lib_ms:.4f}")
+                emit(" | ".join(row))
+            for t, f, ci, co in TRAIN_DOWNS if "downdw32" in todo else ():
+                x, gr = rnd(bsz, t, f * ci), rnd(bsz, t // 2, (f // 2) * co)
+                row = [f"downdw32 B{bsz} T{t} F{f} {ci}->{co}"]
+                for name, lib in libs.items():
+                    splits = lib.ddim_conv_dw_splits(1, bsz, t, f, ci, co, 0)
+                    part = torch.empty(splits, 4, 4, ci, co, device="cuda")
+
+                    def run(lib=lib, part=part, reduce=True):
+                        err = lib.ddim_conv_dw(
+                            x.data_ptr(), gr.data_ptr(), part.data_ptr(), 1,
+                            bsz, t, f, ci, co, 0, st)
+                        if err:
+                            raise RuntimeError(f"down dW fp32 {name}: {err}")
+                        if reduce:  # as the wrapper finishes the partials
+                            part.sum(dim=0)
+                    row.append(f"{name} {cuda_ms(run):.4f}")
+                    if name == "full":
+                        row.append("no_reduce "
+                                   f"{cuda_ms(lambda: run(reduce=False)):.4f}")
+                xn = x.view(bsz, t, f, ci).permute(0, 3, 1, 2)
+                gn = gr.view(bsz, t // 2, f // 2, co).permute(0, 3, 1, 2)
+                lib_ms = cuda_ms(lambda: conv2d_weight(
+                    xn, (co, ci, 4, 4), gn, stride=2, padding=1))
+                row.append(f"conv2d_weight_fp32 {lib_ms:.4f}")
                 emit(" | ".join(row))
             for t, f, c in STAGES[:3] if "int8" in todo else ():
                 x, res = rnd(bsz, t, f * c).bfloat16(), rnd(bsz, t, f * c).bfloat16()

@@ -1,14 +1,16 @@
 """Time the bf16 down conv, the int8-tap conv3x3, the int8-storage conv3x3,
-the head and tail convs, the fp32 down, conv3x3 and up convs (training's)
-and the int8-tap up conv of a checkout, on the card, at the audio.yml
-shapes, B = 1 and 2, against one cuDNN call of the bare conv; for comparing
-two checkouts of this package in one machine, in turns.
+the head and tail convs, the fp32 down, conv3x3 and up convs (training's),
+the int8-tap up and down convs and the fp32 down-conv weight gradient of a
+checkout, on the card, at the audio.yml shapes, B = 1 and 2, against one
+cuDNN call of the bare conv; for comparing two checkouts of this package in
+one machine, in turns.
 
     python3 -m ddim_audio_tpu_torch.tools.kernel_pair LABEL [KINDS]
     (cd <other checkout> && python3 <this checkout>/ddim_audio_tpu_torch/tools/kernel_pair.py LABEL [KINDS])
 
 KINDS is a comma-separated subset of
-down,int8,store,head,tail,down32,upi8,conv32,up32 (default: all nine).
+down,int8,store,head,tail,down32,upi8,conv32,up32,downi8,downdw32 (default:
+all eleven).
 ``down32`` is the fp32 down conv at the five training transitions of one
 microbatch [1, 2, 1024, 256] with statistics, against one fp32 cuDNN call
 (TF32 off); ``conv32`` the fp32 conv3x3 at its six stages with every fusion
@@ -18,7 +20,10 @@ at its five transitions with the skip residual and statistics, likewise
 against fp32 cuDNN; ``upi8`` the int8-tap up conv in bf16 at
 64 -> 32 and 256 -> 192 with the skip residual and statistics, its weights
 laid out as ``prepare_params`` gives them (where the checkout's wrapper
-takes ``wq_t``).
+takes ``wq_t``); ``downi8`` the int8-tap down conv in bf16 at 32 -> 64 with
+statistics, likewise; ``downdw32`` the fp32 down-conv weight gradient
+(``conv_down_dw_flat``, its partials' sum included) at the five training
+transitions, against one fp32 ``torch.nn.grad.conv2d_weight`` (TF32 off).
 
 The package is imported from the current directory, so the same file times
 whichever checkout it is run in (one that predates the ``wq_t`` argument of
@@ -54,8 +59,9 @@ UPS_I8 = [(4096, 128, 64, 32), (256, 8, 256, 192)]
 TRAIN_STAGES = [(1024, 256, 32), (512, 128, 64), (256, 64, 96), (128, 32, 128),
                 (64, 16, 192), (32, 8, 256)]
 TRAIN_UPS = [(t // 2, f // 2, co, ci) for t, f, ci, co in TRAIN_DOWNS]
+DOWNS_I8 = [(8192, 256, 32, 64)]
 KINDS = ("down", "int8", "store", "head", "tail", "down32", "upi8", "conv32",
-         "up32")
+         "up32", "downi8", "downdw32")
 
 
 # Cycles the card sleeps before the timed calls (~25-35 ms), so that the
@@ -107,7 +113,10 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("kernel_pair: needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    from ddim_audio_tpu_torch.ops import conv_flat, conv_head_tail, conv_strided
+    from torch.nn.grad import conv2d_weight
+
+    from ddim_audio_tpu_torch.ops import (conv_flat, conv_head_tail,
+                                          conv_strided, flat_grad)
 
     torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -119,6 +128,8 @@ def main(argv=None) -> int:
         conv_flat.conv3x3_flat_int8).parameters
     up_takes_t = "wq_t" in inspect.signature(
         conv_strided.conv_up_flat_int8).parameters
+    down_takes_t = "wq_t" in inspect.signature(
+        conv_strided.conv_down_flat_int8).parameters
     sums: dict = {}
 
     def add(key, v):
@@ -202,6 +213,35 @@ def main(argv=None) -> int:
             add(("upi8", bsz), k)
             add(("upi8 cudnn", bsz), lib)
             print(f"{label} upi8 B{bsz} {ci}->{co} kernel {k:.4f} cudnn "
+                  f"{lib:.4f} ratio {k / lib:.2f}", flush=True)
+        for t, f, ci, co in DOWNS_I8 if "downi8" in kinds else ():
+            x = rnd(bsz, t, f * ci).bfloat16()
+            w = rnd(4, 4, ci, co, scale=(16 * ci) ** -0.5)
+            wq, s_w = conv_strided.quantize_strided_weights_int8(w)
+            b = rnd(co)
+            extra = ({"wq_t": conv_flat.int8_weights_co_ci(wq)}
+                     if down_takes_t else {})
+            k = cuda_ms(torch, lambda: conv_strided.conv_down_flat_int8(
+                x, wq, s_w, b, c_in=ci, c_out=co, want_stats=True, **extra))
+            wl = w.bfloat16().permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            xn = x.view(bsz, t, f, ci).permute(0, 3, 1, 2)
+            lib = cuda_ms(torch, lambda: F.conv2d(xn, wl, stride=2, padding=1))
+            add(("downi8", bsz), k)
+            add(("downi8 cudnn", bsz), lib)
+            print(f"{label} downi8 B{bsz} {ci}->{co} kernel {k:.4f} cudnn "
+                  f"{lib:.4f} ratio {k / lib:.2f}", flush=True)
+        for t, f, ci, co in TRAIN_DOWNS if "downdw32" in kinds else ():
+            x, gr = rnd(bsz, t, f * ci), rnd(bsz, t // 2, (f // 2) * co)
+            k = cuda_ms(torch, lambda: flat_grad.conv_down_dw_flat(
+                x, gr, c_in=ci, c_out=co))
+            xn = x.view(bsz, t, f, ci).permute(0, 3, 1, 2)
+            gn = gr.view(bsz, t // 2, f // 2, co).permute(0, 3, 1, 2)
+            lib = cuda_ms(torch, lambda: conv2d_weight(
+                xn, (co, ci, 4, 4), gn, stride=2, padding=1))
+            add(("downdw32", bsz), k)
+            add(("downdw32 cudnn", bsz), lib)
+            print(f"{label} downdw32 B{bsz} {ci}->{co} kernel {k:.4f} cudnn "
                   f"{lib:.4f} ratio {k / lib:.2f}", flush=True)
         for t, f, c in INT8_STAGES if "int8" in kinds else ():
             x, res = rnd(bsz, t, f * c).bfloat16(), rnd(bsz, t, f * c).bfloat16()

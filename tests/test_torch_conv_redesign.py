@@ -43,6 +43,8 @@ from ddim_audio_tpu_torch.ops.tile_plan import (
     conv3x3_int8_plan,
     conv3x3_plan,
     conv3x3_store_plan,
+    conv_down_dw_plan,
+    conv_down_int8_plan,
     conv_down_plan,
     conv_head_plan,
     conv_tail_plan,
@@ -92,17 +94,20 @@ def plan_lib(tmp_path_factory):
                     ("ddim_conv_down_plan", 6), ("ddim_conv_up_int8_plan", 6),
                     ("ddim_conv3x3_int8_plan", 5),
                     ("ddim_conv3x3_store_plan", 6), ("ddim_conv_head_plan", 6),
-                    ("ddim_conv_tail_plan", 6)):
+                    ("ddim_conv_tail_plan", 6),
+                    ("ddim_conv_down_int8_plan", 6),
+                    ("ddim_conv_down_dw_plan", 6)):
         getattr(lib, name).argtypes = [ctypes.c_int] * n + [ctypes.c_void_p]
     return lib
 
 
 def test_tile_plans_match_the_c_plans(plan_lib):
     """Every production shape (B = 1, 2; bf16 and fp32) and a sweep of small
-    and ragged ones: variant, tile, tiles, groups, split and shared memory as
-    conv_plan.h computes them; the production bf16 calls all take the
-    tensor-core variant, the fp32 conv3x3, up and down ones split TF32 on
-    the tensor cores."""
+    and ragged ones: variant, tile, tiles, groups, split, shared memory and
+    grid as conv_plan.h computes them; the production bf16 calls all take
+    the tensor-core variant, the fp32 conv3x3, up and down ones (and the down
+    conv's weight gradient) split TF32 on the tensor cores; the int8 down
+    conv is persistent."""
     c3 = [(t, f, c) for t in (1, 7, 16, 33) for f in (1, 8, 12, 16, 40)
           for c in (16, 32, 48, 64, 96, 128, 192, 256, 512, 1024)] + STAGES \
         + TRAIN_STAGES
@@ -164,6 +169,33 @@ def test_tile_plans_match_the_c_plans(plan_lib):
                 assert conv3x3_int8_plan(t, f, c, bool(bf16), b) == want
                 assert want.variant == (VARIANT_MMA if c in (32, 64, 96)
                                         else VARIANT_NONE)
+    down_i8 = [(t, f, ci, co) for t in (2, 16, 18, 34) for f in (2, 16, 30, 66)
+               for ci, co in ((32, 64), (64, 96), (64, 128), (32, 32),
+                              (96, 128), (48, 64), (64, 48), (32, 512),
+                              (256, 256), (288, 64))] \
+        + [DOWNS[0]]
+    for t, f, ci, co in down_i8:
+        for bf16 in (0, 1):
+            for b in (1, 2, 3):
+                want = library_plan(plan_lib.ddim_conv_down_int8_plan, t, f,
+                                    ci, co, bf16, b)
+                assert conv_down_int8_plan(t, f, ci, co, bool(bf16), b) == \
+                    want, (t, f, ci, co)
+                # persistent (grid > 0) at C_in 32 and 64, else two-pass
+                assert want.variant == (VARIANT_MMA if ci % 32 == 0
+                                        and ci <= 256 and co % 32 == 0
+                                        else VARIANT_NONE)
+                assert (want.grid > 0) == (ci in (32, 64) and co % 32 == 0)
+    down_dw = [(t, f, ci, co) for t in (2, 10, 16, 34) for f in (2, 8, 16, 34)
+               for ci, co in ((32, 64), (64, 96), (96, 128), (192, 256),
+                              (48, 64), (64, 48), (8, 32))] + TRAIN_DOWNS
+    for t, f, ci, co in down_dw:
+        for bf16 in (0, 1):
+            for b in (1, 2, 3):
+                want = library_plan(plan_lib.ddim_conv_down_dw_plan, t, f, ci,
+                                    co, bf16, b)
+                assert conv_down_dw_plan(t, f, ci, co, bool(bf16), b) == \
+                    want, (t, f, ci, co)
     st = [(t, f, c) for t in (1, 8, 9, 17, 33) for f in (1, 8, 16, 17, 40)
           for c in (16, 32, 48, 64, 96, 128, 192, 256, 480, 512)] + STORE_STAGES
     for t, f, c in st:
@@ -277,6 +309,22 @@ def test_tile_plans_match_the_c_plans(plan_lib):
     assert conv3x3_plan(256, 8, 256, True, 1).split == 4
     assert conv3x3_plan(8192, 256, 32, True, 1).split == 1
     assert conv_up_plan(256, 8, 256, 192, True, 1).split == 6
+    # the int8 down conv at 32→64: 64 output channels a block, two blocks an
+    # SM in bf16 (one in fp32), its grid one wave of them over 4,096 groups
+    for b in (1, 2):
+        assert conv_down_int8_plan(*DOWNS[0], True, b)[1:] == (
+            8, 16, 4096, 1, 1, 95_648, 264)
+        assert conv_down_int8_plan(*DOWNS[0], False, b).grid == 132
+    # the fp32 down dW at the training shapes: split TF32, 64 base
+    # positions a tile (8 × 8 at base F = 8), the shares planned per shape
+    # so that groups · split stays within two blocks an SM
+    plans = [conv_down_dw_plan(*s, False, 1) for s in TRAIN_DOWNS]
+    assert all(p.variant == VARIANT_TF32 for p in plans)
+    assert [(p.tile_t, p.tile_f, p.tiles, p.groups, p.split) for p in plans] \
+        == [(4, 16, 1024, 4, 64), (4, 16, 256, 12, 22), (4, 16, 64, 24, 11),
+            (4, 16, 16, 48, 4), (8, 8, 4, 96, 2)]
+    assert all(conv_down_dw_plan(*s, True, 1).variant != VARIANT_TF32
+               for s in TRAIN_DOWNS)
 
 
 def _tile_origin(plan: TilePlan, tile: int, f_len: int):
