@@ -18,7 +18,9 @@ phase on its own lines:
    of audio.yml): conv3x3 (float taps, and int8 taps at the three stages that
    run them, against the twin with the kernel's own quantisation group), the
    down and up transitions, the head and the tail (also at one small ragged
-   shape). Each bf16 case prints the kernel's and the twin's time from CUDA
+   shape; in fp32 the head and tail, still on their first, CUDA-core
+   design, also beside one fp32 cuDNN call with TF32 off). Each bf16 case
+   prints the kernel's and the twin's time from CUDA
    events (the card held busy while the host queues the timed calls, so
    they are the card's time, not the wrappers' Python), its bound (the
    larger of bytes moved / 3.35 TB/s and operations / the peak rate of the
@@ -94,10 +96,12 @@ phase on its own lines:
    at every stage shape of the training geometry (microbatch 1 of
    [2, 1024, 256]), fp32 and bf16: agreement, the same kernel twice bit for
    bit, the kernel's and the plain version's time, the bound, and the one
-   PyTorch call (``torch.nn.grad.conv2d_weight``; fp32 with TF32 off); the
-   down conv's (``conv_down_dw_flat``) plan equal to the Python model and,
-   in fp32, split TF32 on the tensor cores, its bound that of three TF32
-   products an operation with the CUDA-core one beside it;
+   PyTorch call (``torch.nn.grad.conv2d_weight``; fp32 with TF32 off); each
+   call's plan (``ddim_conv3x3_dw_plan``, ``ddim_conv_down_dw_plan``,
+   ``ddim_conv_up_dw_plan``) equal to the Python model and to the
+   library's partial count, and in fp32 split TF32 on the tensor cores, its
+   bound that of three TF32 products an operation with the CUDA-core one
+   beside it, each kernel's fp32 sums;
    then the float-tap conv3x3, down and up kernels in fp32 at the same
    shapes (``[train-kernels]``: the variants training runs, all three in
    split TF32 on the tensor cores, whose plans must equal the Python model
@@ -248,7 +252,7 @@ TOL_BF16_LOSS = 2e-2
 
 # Published H100 SXM peaks: HBM bytes/s and dense operations/s by operand type
 # (fp32 outside the tensor cores; "tf32x3": the split-TF32 fp32 conv3x3, up
-# and down convs and the down conv's weight gradient, three TF32 tensor-core
+# and down convs and the three weight gradients, three TF32 tensor-core
 # products an fp32 one, 495 / 3 TFLOP/s).
 PEAK_BYTES = 3.35e12
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12,
@@ -256,6 +260,7 @@ PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12,
 VARIANT_NAMES = {0: "fma", 1: "mma", 2: "tf32x3"}
 # the wrappers whose fp32 calls run split TF32 on the tensor cores
 TF32_KERNELS = ("conv3x3_flat", "conv_up_flat", "conv_down_flat")
+HEAD_TAIL_KERNELS = ("conv_head_flat", "conv_tail_flat")
 
 # Production stage shapes at [1, 2, 8192, 256] (T, F, C), and transitions
 # (T_in, F_in, C_in, C_out) of the down path.
@@ -731,6 +736,10 @@ def phase_kernels(summary):
                     line += (f", cuDNN bf16 conv {lib_ms:.3f} ms: kernel / "
                              f"cuDNN {ms / lib_ms:.2f}x, bound / kernel "
                              f"{bnd / ms:.1%} ({by})")
+                elif name in HEAD_TAIL_KERNELS:  # fp32 keeps its first design
+                    lib32 = cuda_time(case["lib"](pos, kw), prefill=True)
+                    line += (f", cuDNN fp32 conv (TF32 off) {lib32:.3f} ms: "
+                             f"kernel / cuDNN {ms / lib32:.2f}x")
                 if dtype == torch.bfloat16 and bsz == 2:  # the main path
                     entry["ms"] += ms
                     entry["plain_ms"] += plain_ms
@@ -1442,7 +1451,8 @@ def phase_float_path(summary, config, cfg, params):
 def _dw_cases(torch):
     """The weight-gradient kernels at every stage shape of one training
     microbatch: (name, label, kernel, plain, make(dtype) -> (x, g, kwargs),
-    lib(x, g) -> the one PyTorch call, base F, taps·C_in·C_out, positions)."""
+    lib(x, g) -> the one PyTorch call, base F, channels, operations, the
+    ``ddim_conv_dw`` mode, its plan's name and x's (T, F))."""
     from torch.nn.grad import conv2d_weight
 
     from ddim_audio_tpu_torch.ops import flat_grad as fg
@@ -1461,7 +1471,8 @@ def _dw_cases(torch):
             make=lambda dt, x=x, g=g, c=c: (x.to(dt), g.to(dt), dict(c=c)),
             lib=lambda x, g, c=c: lambda: conv2d_weight(
                 _nchw(x, c), (c, c, 3, 3), _nchw(g, c), padding=1),
-            fb=f, c_in=c, c_out=c, ops=2.0 * 9 * c * c * t * f))
+            fb=f, c_in=c, c_out=c, ops=2.0 * 9 * c * c * t * f,
+            mode=0, plan="conv3x3_dw", x_tf=(t, f)))
         if i + 1 == len(TRAIN_STAGES):
             break
         t2, f2, c2 = TRAIN_STAGES[i + 1]
@@ -1474,7 +1485,7 @@ def _dw_cases(torch):
             lib=lambda x, g, c=c, c2=c2: lambda: conv2d_weight(
                 _nchw(x, c), (c2, c, 4, 4), _nchw(g, c2), stride=2, padding=1),
             fb=f2, c_in=c, c_out=c2, ops=2.0 * 16 * c * c2 * t2 * f2,
-            x_tf=(t, f)))
+            mode=1, plan="conv_down_dw", x_tf=(t, f)))
         xu, gu = rnd(1, t2, f2 * c2), rnd(1, t, f * c)
         # the transposed conv is the adjoint of the strided conv c -> c2, so
         # its weight gradient is that conv's, with g as the input
@@ -1485,7 +1496,8 @@ def _dw_cases(torch):
                 x.to(dt), g.to(dt), dict(c_in=c2, c_out=c)),
             lib=lambda x, g, c=c, c2=c2: lambda: conv2d_weight(
                 _nchw(g, c), (c2, c, 4, 4), _nchw(x, c2), stride=2, padding=1),
-            fb=f2, c_in=c2, c_out=c, ops=2.0 * 16 * c * c2 * t2 * f2))
+            fb=f2, c_in=c2, c_out=c, ops=2.0 * 16 * c * c2 * t2 * f2,
+            mode=2, plan="conv_up_dw", x_tf=(t2, f2)))
     return cases
 
 
@@ -1715,37 +1727,41 @@ def phase_int8_store(summary, cfg, params):
                     f"SNR {snr:.2f} < {SNR_I8_CLI_TWIN_DB} dB")
 
 
-def check_dw_plan(case, bsz, bf16) -> str:
-    """The down conv's weight gradient: the library's plan equals the
-    Python model, fp32 takes the split-TF32 variant and the library sizes
-    the partials from it. Returns the note for the line."""
+def check_dw_plan(case, bsz, bf16):
+    """A weight-gradient kernel's call: the library's plan equals the Python
+    model, fp32 takes the split-TF32 variant and the library sizes the
+    partials from the plan. Returns (the plan, the note for the line)."""
     from ddim_audio_tpu_torch.ops import _cuda, tile_plan
 
     lib = _cuda.kernels()
     t, f = case["x_tf"]
     shape = (t, f, case["c_in"], case["c_out"])
-    model = tile_plan.conv_down_dw_plan(*shape, bool(bf16), bsz)
-    got = tile_plan.library_plan(lib.ddim_conv_down_dw_plan, *shape, bf16,
-                                 bsz)
+    kind = case["plan"]
+    model = getattr(tile_plan, f"{kind}_plan")(*shape, bool(bf16), bsz)
+    got = tile_plan.library_plan(getattr(lib, f"ddim_{kind}_plan"), *shape,
+                                 bf16, bsz)
     tag = f"{case['name']} B{bsz} {case['label']} bf16={bf16}"
     require(got == model, f"{tag}: library plan {got} != Python model {model}")
-    require(lib.ddim_conv_dw_splits(1, bsz, *shape, bf16) == got.split,
-            f"{tag}: partials differ from the plan's split")
+    require(lib.ddim_conv_dw_splits(case["mode"], bsz, *shape, bf16) ==
+            got.split, f"{tag}: partials differ from the plan's split")
     if not bf16:
         require(got.variant == tile_plan.VARIANT_TF32,
                 f"{tag}: variant {got.variant}, want split TF32")
-    return (f", plan {VARIANT_NAMES[got.variant]} tile {got.tile_t}x"
-            f"{got.tile_f} blocks {got.groups}x{got.split}")
+    return got, (f", plan {VARIANT_NAMES[got.variant]} tile {got.tile_t}x"
+                 f"{got.tile_f} blocks {got.groups}x{got.split}")
 
 
 def phase_dw_kernels(summary):
     import torch
 
+    from ddim_audio_tpu_torch.ops import tile_plan
+
     for case in _dw_cases(torch):
         name, label = case["name"], "B1 " + case["label"]
         entry = summary.setdefault(name, {
             "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-            "library_ms": 0.0, "_bytes": 0.0, "_ops": 0.0})
+            "library_ms": 0.0, "_bytes": 0.0, "_ops": 0.0,
+            "_fma_bound": 0.0})
         for dtype, dt in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
             x, g, kw = case["make"](dtype)
             out = case["kernel"](x, g, **kw)
@@ -1758,24 +1774,21 @@ def phase_dw_kernels(summary):
                     f"{name} {label} {dt}: two runs differ")
             require(rel <= TOL_DW, f"{name} {label} {dt}: rel err {rel:.3e} > "
                     f"{TOL_DW}")
-            note = ""
-            if name == "conv_down_dw_flat":
-                note = check_dw_plan(case, 1, int(dtype == torch.bfloat16))
+            plan, note = check_dw_plan(case, 1, int(dtype == torch.bfloat16))
             ms = cuda_time(lambda: case["kernel"](x, g, **kw), prefill=True)
             plain_ms = cuda_time(lambda: case["plain"](x, g, **kw), n=5,
                                  warmup=1, prefill=True)
             lib_ms = cuda_time(case["lib"](x, g), prefill=True)
-            # the unit the kernel uses: tensor cores for bf16 where the
-            # variant with them applies, split TF32 for the fp32 down dW,
-            # CUDA cores otherwise (their bound beside the split-TF32 one)
-            mma = (dtype == torch.bfloat16 and case["fb"] >= 16
-                   and case["c_in"] % 32 == 0 and case["c_out"] % 32 == 0)
-            tf32x3 = note != "" and dtype == torch.float32
-            kind = "bf16" if mma else "tf32x3" if tf32x3 else "fp32"
+            # the unit the plan's variant uses: bf16 or split-TF32 tensor
+            # cores, or CUDA cores (their bound beside the split-TF32 one)
+            tf32x3 = plan.variant == tile_plan.VARIANT_TF32
+            kind = ("tf32x3" if tf32x3 else "bf16"
+                    if plan.variant == tile_plan.VARIANT_MMA else "fp32")
             bnd, by = bound_ms([x, g, out], case["ops"], kind)
             if tf32x3:
                 fma_bnd, _ = bound_ms([x, g, out], case["ops"], "fp32")
                 note += f" | CUDA-core bound {fma_bnd:.3f} ms"
+                entry["_fma_bound"] += fma_bnd
             tf32 = "" if dtype == torch.bfloat16 else ", TF32 off"
             log(f"[kernels] {name:17s} {label:23s} {dt} max_abs {err:.3e} rel "
                 f"{rel:.3e} (<= {TOL_DW}), twice bit-equal{note} | kernel "
@@ -1795,7 +1808,8 @@ def phase_dw_kernels(summary):
         entry["bound_by"] = ("bytes" if entry.pop("_bytes") >= entry.pop("_ops")
                              else "operations")
         log(f"[kernels] sum B1 fp32 {name:17s} kernel {entry['ms']:.3f} / "
-            f"bound {entry['bound_ms']:.3f} / conv2d_weight "
+            f"bound {entry['bound_ms']:.3f} (split TF32; CUDA cores "
+            f"{entry.pop('_fma_bound'):.3f}) / conv2d_weight "
             f"{entry['library_ms']:.3f} / plain {entry['plain_ms']:.3f} ms: "
             f"kernel / library {entry['ms'] / entry['library_ms']:.2f}x")
 

@@ -25,20 +25,20 @@
 // What bounds it on an H100: the contraction is long (T·F positions, 262,144
 // at the first stage of the training geometry) and the result small
 // (taps·C_in·C_out), so at the wide-and-shallow first stages the operations
-// bound it (fp32 on CUDA cores, 67 TFLOP/s) and at the narrow-and-deep last
-// stages the launch and the partials' write. The TPU kernel carries its sum
-// in one output block over a sequential grid; here the positions are split
-// over blocks instead. Block (x, y) owns one 32 × 32 (ci, co) tile of all
-// taps and the y-th share of the position tiles; it stages each tile's x
-// halo and g tile in shared memory once and accumulates every tap from
-// them, then writes its partial sums to part[y]. The wrapper finishes with
-// torch.sum over y. No atomics: the result is the same bits run to run.
+// bound it (fp32 as three TF32 tensor-core products, 495 TFLOP/s; 67 on
+// CUDA cores) and at the narrow-and-deep last stages the launch and the
+// partials' write. The TPU kernel carries its sum in one output block over
+// a sequential grid; here the positions are split over blocks instead.
+// Block (x, y) owns one (ci, co) tile of all taps and the y-th share of the
+// position tiles; it stages each tile's x halo and g tile in shared memory
+// once and accumulates every tap from them, then writes its partial sums to
+// part[y]. The wrapper finishes with torch.sum over y. No atomics: the
+// result is the same bits run to run.
 //
 // Three variants, chosen per call by the plan (conv_plan.h: dw_first_plan,
-// conv_down_dw_plan):
-// - conv_dw_tf32_kernel (fp32, mode 1, C_in % 16 == C_out % 32 == 0; written
-//   for any mode of four taps a row, so that mode 2 can take it too): split
-//   TF32 on the tensor cores, below;
+// conv3x3_dw_plan, conv_down_dw_plan, conv_up_dw_plan):
+// - conv_dw_tf32_kernel (fp32, every mode, C_in % 16 == C_out % 32 == 0):
+//   split TF32 on the tensor cores, below;
 // - conv_dw_mma_kernel (bf16 operands, base F >= 16, C_in % 32 == C_out % 32
 //   == 0): WMMA 16×16×16 bf16 products, fp32 accumulation. For a tap, the
 //   A operand is xᵀ: 16 channels × 16 consecutive base positions of a row,
@@ -46,23 +46,25 @@
 //   is g: 16 positions × 16 channels, row-major (leading dimension GS·32).
 //   The taps·4 (tap, ci half, co half) fragment jobs are dealt to the 8
 //   warps round-robin.
-// - conv_dw_kernel (fp32, and bf16 at narrow F): CUDA cores. Lane l owns
-//   output channel co0 + l, warp w input channels ci0 + 4w … 4w + 3; per
-//   position and tap one float4 broadcast read of x and one conflict-free
-//   read of g feed 4 FMAs, with taps·4 fp32 accumulators per thread.
+// - conv_dw_kernel (bf16 at narrow F or channels no multiple of 32, fp32
+//   at channels the split-TF32 kernel does not take): CUDA cores. Lane l
+//   owns output channel co0 + l, warp w input channels ci0 + 4w … 4w + 3;
+//   per position and tap one float4 broadcast read of x and one
+//   conflict-free read of g feed 4 FMAs, with taps·4 fp32 accumulators per
+//   thread.
 //
-// The fp32 down-conv weight gradient (training's: 70 launches an optimizer
-// step) took 0.862 ms summed over the five training transitions on CUDA
-// cores against one fp32 conv2d_weight's 0.546 (an H100 80GB HBM3 at
-// 700 W, PERF.md). It has the multiply-adds of the fp32 down conv,
-// 2·16·C_in·C_out·T/2·F/2, which runs split TF32 since (conv_strided.cu);
-// so does conv_dw_tf32_kernel:
+// Training runs all three weight gradients in fp32 (an optimizer step: 924
+// launches of mode 0, 70 of modes 1 and 2). On CUDA cores they took 0.836,
+// 0.862 and 0.813 ms summed over the training shapes against one fp32
+// conv2d_weight's 0.896, 0.546 and 0.549 (an H100 80GB HBM3 at 700 W,
+// PERF.md). Each has the multiply-adds of its forward conv (2·taps·C_in·
+// C_out·base positions), which runs split TF32 (conv3x3.cu,
+// conv_strided.cu); so does conv_dw_tf32_kernel:
 // * the GEMM per tap: K = the base positions, M = C_in, N = C_out;
-// * a block owns all 16 taps × kDwTf32Ci input channels × kDwTf32Co output
+// * a block owns all the taps × kDwTf32Ci input channels × kDwTf32Co output
 //   channels (grid.x) and a contiguous share of the batch's position tiles
 //   (grid.y: the partials' first dimension, planned per shape so that the
-//   grid is about two blocks an SM: 256 base positions at 192→256 give 4
-//   tiles, 65,536 at 32→64 give 1,024);
+//   grid is about two blocks an SM);
 // * per tile, the raw x halo and g tile are copied once by cp.async (the
 //   next tile's while this one's products run), and one pass splits every
 //   value into TF32 hi and lo planes laid out [position][channel]: each
@@ -72,14 +74,27 @@
 //   floats makes the fragments' scalar 32-bit loads conflict-free (ldmatrix
 //   has no transpose for 32-bit elements, and both operands are read with
 //   K = position contiguous in the fragment);
-// * warp w takes taps (w / 2, w % 2) and (w / 2, w % 2 + 2), which read the
-//   same g positions in modes 1 and 2: per k8 step four B fragments (hi and
-//   lo) serve both taps' A fragments, and each pair gives three
-//   mma.sync.m16n8k8 products (lo·hi + hi·lo + hi·hi);
+// * the tile: 64 base positions in modes 1 and 2, 128 in mode 0, its rows
+//   halved until two blocks fit an SM's shared memory. Mode 2's g tile is
+//   four times its base tile (at 64 positions 142 KB with the x halo, raw
+//   and split, one block an SM), so it runs 32 positions (76 KB); mode 0's
+//   halo at stride 1 takes 103 KB at 128 (56 KB at 64);
+// * the warp map (DwTf32Map): in modes 1 and 2 warp w takes taps (w / 2,
+//   w % 2) and (w / 2, w % 2 + 2), which read the same g positions: per k8
+//   step four B fragments (hi and lo) serve both taps' A fragments. Mode
+//   0's nine taps all read the same g, and one warp cannot hold them (9 ×
+//   16 accumulators and as many for a tile's sum): warp w takes the three
+//   taps of row w % 3, so that one B fragment pair serves three A
+//   fragments (the shared-memory loads a product: 40 / 36, against 32 / 24
+//   in modes 1 and 2), and two sets of three warps take a tile's even and
+//   odd k8 steps; set 1 hands its totals to set 0 through shared memory
+//   at the end. Each fragment pair gives three mma.sync.m16n8k8 products
+//   (lo·hi + hi·lo + hi·hi);
 // * each tile's sum is folded into the block's total by IEEE fp32 additions
-//   (the tensor cores' accumulation is not round-to-nearest), and the
-//   partials are summed by the wrapper in a fixed order: fp32 accuracy and
-//   the same bits run to run.
+//   (the tensor cores' accumulation is not round-to-nearest), the K sets'
+//   totals and the partials are summed in a fixed order (the wrapper's
+//   torch.sum, none where the plan has one share): fp32 accuracy and the
+//   same bits run to run.
 #include <mma.h>
 
 #include "conv_mma.cuh"
@@ -94,9 +109,9 @@ struct DwGeom {
   static constexpr int GS = MODE == 2 ? 2 : 1;
   static constexpr int XOMAX = MODE == 1 ? 2 : 1;  // max xo; min xo is −1
   // base positions per tile of the CUDA-core variant
-  static constexpr int NP = MODE == 0 ? 64 : 32;
+  static constexpr int NP = dw_first_np(MODE);
   // rows of 16 base positions per tile of the tensor-core variant
-  static constexpr int TTM = MODE == 0 ? 8 : 4;
+  static constexpr int TTM = dw_first_ttm(MODE);
   __host__ __device__ static constexpr int halo(int n) {
     return XS * (n - 1) + XOMAX + 2;
   }
@@ -111,15 +126,16 @@ __host__ __device__ __forceinline__ int dw_go(int k) {
   return MODE == 2 ? (k & 1) : 0;
 }
 
-// The plan of a call: the split-TF32 kernel's for the fp32 down conv, else
-// the first kernels'.
+// The plan of a call (conv_plan.h): the split-TF32 kernel's for fp32 where
+// the channels allow it, else the first kernels'.
 template <int MODE>
 TilePlan dw_plan(int batch, int t_len, int f_len, int c_in, int c_out,
                  int bf16) {
-  using G = DwGeom<MODE>;
+  if (MODE == 0)
+    return conv3x3_dw_plan(t_len, f_len, c_in, c_out, bf16, batch);
   if (MODE == 1)
     return conv_down_dw_plan(t_len, f_len, c_in, c_out, bf16, batch);
-  return dw_first_plan(t_len, f_len, G::NP, G::TTM, c_in, c_out, bf16, batch);
+  return conv_up_dw_plan(t_len, f_len, c_in, c_out, bf16, batch);
 }
 
 template <typename T, int MODE>
@@ -320,17 +336,41 @@ __device__ __forceinline__ int dw_slot(int r, int c, int w) {
   return S == 2 ? r * w + (c & 1) * (w / 2) + (c >> 1) : r * w + c;
 }
 
+// The split-TF32 kernel's warp map. Modes 1 and 2: warp w takes the U = 2
+// taps (w / 2, w % 2) and (w / 2, w % 2 + 2), which read the same g
+// positions (go(kw) = go(kw + 2)); eight warps cover the 16 taps. Mode 0,
+// whose nine taps all read the same g (go = 0): warp w takes the U = 3 taps
+// of row w % 3, (w % 3, 0 … 2), so that one B fragment pair serves three A
+// fragments, and the k8 steps s of each tile with s % KSETS == w / 3:
+// KSETS sets of three warps share a tile, each set with totals of its own,
+// which set 0 adds in set order at the end.
 template <int MODE>
-__global__ void __launch_bounds__(kThreads, 2)
+struct DwTf32Map {
+  static constexpr int U = MODE == 0 ? 3 : 2;      // taps a warp
+  static constexpr int KWS = MODE == 0 ? 1 : 2;    // kw step between them
+  static constexpr int KSETS = MODE == 0 ? kDw3KSets : 1;
+  static constexpr int THREADS = dw_tf32_threads(MODE);
+  __device__ static int kh(int warp) {
+    return MODE == 0 ? warp % 3 : warp >> 1;
+  }
+  __device__ static int kw0(int warp) { return MODE == 0 ? 0 : warp & 1; }
+  __device__ static int kset(int warp) { return MODE == 0 ? warp / 3 : 0; }
+};
+
+template <int MODE>
+__global__ void __launch_bounds__(DwTf32Map<MODE>::THREADS, kDwTf32Blocks)
     conv_dw_tf32_kernel(const float* __restrict__ x,
                         const float* __restrict__ g, float* __restrict__ part,
                         int batch, int t_len, int f_len, int c_in, int c_out,
                         int tt, int ft, int per_block) {
   using G = DwGeom<MODE>;
-  constexpr int XS = G::XS, GS = G::GS;
+  using M = DwTf32Map<MODE>;
+  constexpr int KH = G::KH, XS = G::XS, GS = G::GS, U = M::U;
+  constexpr int NTH = M::THREADS;
   constexpr int CI = kDwTf32Ci, CO = kDwTf32Co;
   constexpr int XP = kDwTf32XP, GP = kDwTf32GP;
-  static_assert(G::KH == 4, "a warp takes taps (kh, kw) and (kh, kw + 2)");
+  static_assert(NTH / 32 * U == G::TAPS * M::KSETS,
+                "the warps take every tap once a K set");
   extern __shared__ __align__(16) float smem_dw[];
   const int hw = G::halo(ft), hx = G::halo(tt) * hw;  // the x halo
   const int gw = GS * ft, hg = GS * tt * gw;           // the g tile
@@ -352,7 +392,9 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int co0 = (blockIdx.x % co_groups) * CO;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gid = lane >> 2, tig = lane & 3;
-  const int kh = warp >> 1, kw0 = warp & 1;
+  const int kh = M::kh(warp), kw0 = M::kw0(warp), kset = M::kset(warp);
+  const int fs = ft == 16 ? 1 : 0;  // log2 of the k8 steps a row
+  const int steps = tt << fs;
 
   // A tile's raw x halo (rows XS·t0 − 1 …, columns XS·f0 − 1 …, zero
   // outside) and g tile (zero outside: positions past the array add
@@ -361,7 +403,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     const int b = tile / tiles, r = tile % tiles;
     const int t0 = (r / tiles_f) * tt, f0 = (r % tiles_f) * ft;
     const float* xb = x + (size_t)b * t_len * f_len * c_in + ci0;
-    for (int i = threadIdx.x; i < hx * (CI / 4); i += kThreads) {
+    for (int i = threadIdx.x; i < hx * (CI / 4); i += NTH) {
       const int hp = i / (CI / 4), q = i % (CI / 4);
       const int t = XS * t0 - 1 + hp / hw, f = XS * f0 - 1 + hp % hw;
       const bool in = t >= 0 && t < t_len && f >= 0 && f < f_len;
@@ -370,7 +412,7 @@ __global__ void __launch_bounds__(kThreads, 2)
                        in);
     }
     const float* gb = g + (size_t)b * tg_len * fg_len * c_out + co0;
-    for (int i = threadIdx.x; i < hg * (CO / 4); i += kThreads) {
+    for (int i = threadIdx.x; i < hg * (CO / 4); i += NTH) {
       const int gp = i / (CO / 4), q = i % (CO / 4);
       const int t = GS * t0 + gp / gw, f = GS * f0 + gp % gw;
       const bool in = t < tg_len && f < fg_len;
@@ -380,7 +422,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
   };
 
-  float acc[2][kNT][4];
+  float acc[U][kNT][4];
   zero_acc(acc);
   const int first = blockIdx.y * per_block;
   const int last = first + per_block < total ? first + per_block : total;
@@ -391,13 +433,13 @@ __global__ void __launch_bounds__(kThreads, 2)
     cp_async_wait<0>();
     __syncthreads();  // the raw tile landed; every warp is done with the planes
     // The split: every value once into its hi and lo planes.
-    for (int i = threadIdx.x; i < hx * (CI / 4); i += kThreads) {
+    for (int i = threadIdx.x; i < hx * (CI / 4); i += NTH) {
       const int hp = i / (CI / 4), q = i % (CI / 4);
       const int sl = dw_slot<XS>(hp / hw, hp % hw, hw) * XP + 4 * q;
       store_split_tf32(xh + sl, xl + sl,
                        *reinterpret_cast<const float4*>(xr + hp * CI + 4 * q));
     }
-    for (int i = threadIdx.x; i < hg * (CO / 4); i += kThreads) {
+    for (int i = threadIdx.x; i < hg * (CO / 4); i += NTH) {
       const int gp = i / (CO / 4), q = i % (CO / 4);
       const int sl = dw_slot<GS>(gp / gw, gp % gw, gw) * GP + 4 * q;
       store_split_tf32(gh + sl, gl + sl,
@@ -407,59 +449,93 @@ __global__ void __launch_bounds__(kThreads, 2)
     if (tile + 1 < last) load_raw(tile + 1);
     cp_async_commit();
 
-    // The tile's products: k8 step = base positions (i, j0 … j0 + 7).
-    float sum[2][kNT][4];
+    // The tile's products: k8 step s = base positions (i, j0 … j0 + 7),
+    // this warp's K set's steps.
+    float sum[U][kNT][4];
     zero_acc(sum);
 #pragma unroll 1
-    for (int i = 0; i < tt; ++i) {
-#pragma unroll 1
-      for (int j0 = 0; j0 < ft; j0 += 8) {
-        // B (both taps): g at (GS·i + go(kh), GS·j + go(kw0)), k = j − j0
-        const int gs = dw_slot<GS>(GS * i + dw_go<MODE>(kh),
-                                   GS * j0 + dw_go<MODE>(kw0), gw);
-        uint32_t bh[kNT][2], bl[kNT][2];
+    for (int s = kset; s < steps; s += M::KSETS) {
+      const int i = s >> fs, j0 = (s & fs) << 3;
+      // B (every tap of the warp): g at (GS·i + go(kh), GS·j + go(kw0)),
+      // k = j − j0
+      const int gs = dw_slot<GS>(GS * i + dw_go<MODE>(kh),
+                                 GS * j0 + dw_go<MODE>(kw0), gw);
+      uint32_t bh[kNT][2], bl[kNT][2];
 #pragma unroll
-        for (int nt = 0; nt < kNT; ++nt) {
-          const int o = (gs + tig) * GP + nt * 8 + gid;
-          bh[nt][0] = __float_as_uint(gh[o]);
-          bh[nt][1] = __float_as_uint(gh[o + 4 * GP]);
-          bl[nt][0] = __float_as_uint(gl[o]);
-          bl[nt][1] = __float_as_uint(gl[o + 4 * GP]);
-        }
+      for (int nt = 0; nt < kNT; ++nt) {
+        const int o = (gs + tig) * GP + nt * 8 + gid;
+        bh[nt][0] = __float_as_uint(gh[o]);
+        bh[nt][1] = __float_as_uint(gh[o + 4 * GP]);
+        bl[nt][0] = __float_as_uint(gl[o]);
+        bl[nt][1] = __float_as_uint(gl[o + 4 * GP]);
+      }
 #pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          // A (tap (kh, kw0 + 2u)): x at (XS·i + xo(kh), XS·j + xo(kw)),
-          // m = input channel
-          const int kw = kw0 + 2 * u;
-          const int xs = dw_slot<XS>(XS * i + dw_xo<MODE>(kh) + 1,
-                                     XS * j0 + dw_xo<MODE>(kw) + 1, hw);
-          const int o = (xs + tig) * XP + gid;
-          const uint32_t ah[4] = {
-              __float_as_uint(xh[o]), __float_as_uint(xh[o + 8]),
-              __float_as_uint(xh[o + 4 * XP]),
-              __float_as_uint(xh[o + 4 * XP + 8])};
-          const uint32_t al[4] = {
-              __float_as_uint(xl[o]), __float_as_uint(xl[o + 8]),
-              __float_as_uint(xl[o + 4 * XP]),
-              __float_as_uint(xl[o + 4 * XP + 8])};
+      for (int u = 0; u < U; ++u) {
+        // A (tap (kh, kw0 + KWS·u)): x at (XS·i + xo(kh), XS·j + xo(kw)),
+        // m = input channel
+        const int kw = kw0 + M::KWS * u;
+        const int xs = dw_slot<XS>(XS * i + dw_xo<MODE>(kh) + 1,
+                                   XS * j0 + dw_xo<MODE>(kw) + 1, hw);
+        const int o = (xs + tig) * XP + gid;
+        const uint32_t ah[4] = {
+            __float_as_uint(xh[o]), __float_as_uint(xh[o + 8]),
+            __float_as_uint(xh[o + 4 * XP]),
+            __float_as_uint(xh[o + 4 * XP + 8])};
+        const uint32_t al[4] = {
+            __float_as_uint(xl[o]), __float_as_uint(xl[o + 8]),
+            __float_as_uint(xl[o + 4 * XP]),
+            __float_as_uint(xl[o + 4 * XP + 8])};
 #pragma unroll
-          for (int nt = 0; nt < kNT; ++nt)
-            mma_tf32x3(sum[u][nt], ah, al, bh[nt], bl[nt]);
-        }
+        for (int nt = 0; nt < kNT; ++nt)
+          mma_tf32x3(sum[u][nt], ah, al, bh[nt], bl[nt]);
       }
     }
     fold_acc(acc, sum);
   }
 
+  if constexpr (M::KSETS > 1) {
+    // Set 0 adds the other sets' totals, in set order, through the shared
+    // memory ([set − 1][u][nt][thread of the set] float4s).
+    constexpr int SET = NTH / M::KSETS;  // threads a set
+    cp_async_wait<0>();
+    __syncthreads();  // every warp is done with the planes
+    float4* red = reinterpret_cast<float4*>(smem_dw);
+    const int me = threadIdx.x % SET;
+    if (kset > 0) {
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt)
+          red[(((kset - 1) * U + u) * kNT + nt) * SET + me] =
+              make_float4(acc[u][nt][0], acc[u][nt][1], acc[u][nt][2],
+                          acc[u][nt][3]);
+    }
+    __syncthreads();
+    if (kset > 0) return;
+    for (int k = 1; k < M::KSETS; ++k) {
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) {
+          const float4 v = red[(((k - 1) * U + u) * kNT + nt) * SET + me];
+          acc[u][nt][0] = __fadd_rn(acc[u][nt][0], v.x);
+          acc[u][nt][1] = __fadd_rn(acc[u][nt][1], v.y);
+          acc[u][nt][2] = __fadd_rn(acc[u][nt][2], v.z);
+          acc[u][nt][3] = __fadd_rn(acc[u][nt][3], v.w);
+        }
+    }
+  }
+
   // The block's partial: D row = input channel, column = output channel.
 #pragma unroll
-  for (int u = 0; u < 2; ++u) {
-    const int tap = kh * 4 + kw0 + 2 * u;
+  for (int u = 0; u < U; ++u) {
+    const int tap = kh * KH + kw0 + M::KWS * u;
 #pragma unroll
     for (int nt = 0; nt < kNT; ++nt) {
-      float* dst =
-          part + (((size_t)blockIdx.y * 16 + tap) * c_in + ci0 + gid) * c_out +
-          co0 + nt * 8 + 2 * tig;
+      float* dst = part +
+                   (((size_t)blockIdx.y * G::TAPS + tap) * c_in + ci0 + gid) *
+                       c_out +
+                   co0 + nt * 8 + 2 * tig;
       *reinterpret_cast<float2*>(dst) =
           make_float2(acc[u][nt][0], acc[u][nt][1]);
       *reinterpret_cast<float2*>(dst + 8 * c_out) =
@@ -472,6 +548,7 @@ template <int MODE>
 cudaError_t launch_dw_tf32(const TilePlan& p, const float* x, const float* g,
                            float* part, int batch, int t_len, int f_len,
                            int c_in, int c_out, cudaStream_t s) {
+  constexpr int NTH = DwTf32Map<MODE>::THREADS;
   static int raised = 48 * 1024;  // per instantiation; one card per process
   if (p.smem > raised) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -480,9 +557,21 @@ cudaError_t launch_dw_tf32(const TilePlan& p, const float* x, const float* g,
     if (err != cudaSuccess) return err;
     raised = p.smem;
   }
+  // The plan keeps kDwTf32Blocks blocks an SM: the card must keep them
+  // resident (registers and shared memory), or its grid would not be the
+  // one planned. Checked at the largest shared memory asked for so far.
+  static int checked = 0;
+  if (p.smem > checked) {
+    int resident = 0;
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &resident, conv_dw_tf32_kernel<MODE>, NTH, p.smem);
+    if (err != cudaSuccess) return err;
+    if (resident < kDwTf32Blocks) return cudaErrorInvalidConfiguration;
+    checked = p.smem;
+  }
   if (p.split == 0) return cudaSuccess;
   const int per = (p.tiles + p.split - 1) / p.split;
-  conv_dw_tf32_kernel<MODE><<<dim3(p.groups, p.split), kThreads, p.smem, s>>>(
+  conv_dw_tf32_kernel<MODE><<<dim3(p.groups, p.split), NTH, p.smem, s>>>(
       x, g, part, batch, t_len, f_len, c_in, c_out, p.tile_t, p.tile_f, per);
   return cudaGetLastError();
 }
@@ -491,12 +580,10 @@ template <int MODE>
 int dw_launch(const void* x, const void* g, float* part, int batch, int t_len,
               int f_len, int c_in, int c_out, int bf16, cudaStream_t s) {
   const TilePlan p = dw_plan<MODE>(batch, t_len, f_len, c_in, c_out, bf16);
-  if constexpr (DwGeom<MODE>::KH == 4) {  // the split-TF32 kernel's taps
-    if (p.variant == kVariantTf32)
-      return static_cast<int>(launch_dw_tf32<MODE>(
-          p, static_cast<const float*>(x), static_cast<const float*>(g), part,
-          batch, t_len, f_len, c_in, c_out, s));
-  }
+  if (p.variant == kVariantTf32)
+    return static_cast<int>(launch_dw_tf32<MODE>(
+        p, static_cast<const float*>(x), static_cast<const float*>(g), part,
+        batch, t_len, f_len, c_in, c_out, s));
   if (p.split == 0) return static_cast<int>(cudaSuccess);
   const int per = (p.tiles + p.split - 1) / p.split;
   const dim3 grid(p.groups, p.split);

@@ -1,5 +1,5 @@
 // The tile-plan queries of ddim_conv3x3, ddim_conv_up, ddim_conv_down,
-// ddim_conv_up_int8, ddim_conv_down_int8, ddim_conv_dw (mode 1),
+// ddim_conv_up_int8, ddim_conv_down_int8, ddim_conv_dw (modes 0, 1, 2),
 // ddim_conv3x3_int8, ddim_conv3x3_store, ddim_conv_head, ddim_conv_tail and
 // ddim_residual_affine, and the
 // storage group of int8 activations (conv_plan.h).
@@ -87,15 +87,30 @@ int ddim_conv_down_int8_plan(int t_in, int f_in, int c_in, int c_out,
       ddim::conv_down_int8_plan(t_in, f_in, c_in, c_out, bf16, batch), out);
 }
 
-// The plan of ddim_conv_dw in mode 1 (the down conv's weight gradient), in
-// x's geometry (T, F, C_in, C_out, bf16, B): `tiles` the batch's position
-// tiles, `groups` × `split` the grid, `split` the partials' first
-// dimension.
+// The plans of ddim_conv_dw in mode 0 (the 3×3 conv's weight gradient), 1
+// (the down conv's) and 2 (the up conv's), each in x's geometry (T, F,
+// C_in, C_out, bf16, B): `tiles` the batch's position tiles, `groups` ×
+// `split` the grid, `split` the partials' first dimension.
+int ddim_conv3x3_dw_plan(int t_len, int f_len, int c_in, int c_out, int bf16,
+                         int batch, int* out) {
+  return write_plan(
+      ddim::conv3x3_dw_plan(t_len, f_len, c_in, c_out, bf16, batch), out);
+}
+
 int ddim_conv_down_dw_plan(int t_in, int f_in, int c_in, int c_out, int bf16,
                            int batch, int* out) {
   return write_plan(
       ddim::conv_down_dw_plan(t_in, f_in, c_in, c_out, bf16, batch), out);
 }
+
+int ddim_conv_up_dw_plan(int t_in, int f_in, int c_in, int c_out, int bf16,
+                         int batch, int* out) {
+  return write_plan(
+      ddim::conv_up_dw_plan(t_in, f_in, c_in, c_out, bf16, batch), out);
+}
+
+// Threads a block of the split-TF32 weight-gradient kernel in a mode.
+int ddim_dw_tf32_threads(int mode) { return ddim::dw_tf32_threads(mode); }
 
 // The same for ddim_conv3x3_int8 (T, F, C, bf16 storage, B).
 int ddim_conv3x3_int8_plan(int t_len, int f_len, int c, int bf16, int batch,

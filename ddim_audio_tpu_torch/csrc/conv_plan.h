@@ -446,24 +446,61 @@ DDIM_HD TilePlan conv3x3_int8_plan(int t, int f, int c, int bf16, int batch) {
 // shapes allow, else CUDA cores) give a block one 32 × 32 (ci, co) tile of
 // every tap and a share of the position tiles (64 base positions on CUDA
 // cores, 4 or 8 rows of 16 with WMMA), aiming at kDwTargetBlocks blocks.
-// The down conv's fp32 weight gradient runs split TF32 on the tensor cores
-// (conv_dw_tf32_kernel, variant 2): a block owns all 16 taps × kDwTf32Ci
-// input channels × kDwTf32Co output channels (`groups` = such tiles) and a
-// share of the position tiles of kDwTf32Pos base positions (16 columns wide
-// where the base grid is, else 8), `split` shares (grid.y: the partials'
-// first dimension) sized so that groups · split stays within two blocks an
-// SM. Shared memory: the tile's raw x halo and g tile and their TF32 hi and
-// lo planes (pitch kDwTf32XP / kDwTf32GP floats a position: 8 mod 32, so the
-// fragments' scalar loads are conflict-free).
+// fp32 at C_in % kDwTf32Ci == C_out % kDwTf32Co == 0 runs split TF32 on the
+// tensor cores (conv_dw_tf32_kernel, variant 2), every mode: a block owns
+// all the taps × kDwTf32Ci input channels × kDwTf32Co output channels
+// (`groups` = such tiles) and a share of the position tiles of
+// dw_tf32_pos(mode) base positions (16 columns wide where the base grid is,
+// else 8; rows halved until kDwTf32Blocks blocks fit an SM's shared
+// memory), `split` shares (grid.y: the partials' first dimension) sized so
+// that groups · split stays within two blocks an SM. Shared memory: the
+// tile's raw x halo and g tile and their TF32 hi and lo planes (pitch
+// kDwTf32XP / kDwTf32GP floats a position: 8 mod 32, so the fragments'
+// scalar loads are conflict-free); in mode 0 at least the scratch in which
+// its K sets add their totals. Warps a block (dw_tf32_threads): modes 1 and
+// 2 eight (a warp two taps × 32 output channels), mode 0 three a K set (a
+// warp a tap row of three taps × 32 output channels), kDw3KSets sets.
 constexpr int kDwCi = 32;             // first kernels: input channels a block
 constexpr int kDwTargetBlocks = 528;  // first kernels: 4 blocks an SM
-constexpr int kDwTf32Ci = 16, kDwTf32Co = 32, kDwTf32Pos = 64;
+constexpr int kDwTf32Ci = 16, kDwTf32Co = 32;
 constexpr int kDwTf32XP = kDwTf32Ci + 8, kDwTf32GP = kDwTf32Co + 8;
+// base positions a tile aims at: modes 1 and 2, mode 0
+constexpr int kDwTf32Pos = 64, kDw3Tf32Pos = 128;
+constexpr int kDwTf32Blocks = 2;  // resident blocks an SM the plan keeps
+constexpr int kDw3KSets = 2;      // mode 0: warp sets over a tile's k8 steps
 
-DDIM_HD int dw_down_tf32_smem(int tt, int ft) {
-  const int hx = (2 * tt + 2) * (2 * ft + 2), hg = tt * ft;
-  return 4 * (hx * (kDwTf32Ci + 2 * kDwTf32XP) +
-              hg * (kDwTf32Co + 2 * kDwTf32GP));
+DDIM_HD int dw_tf32_pos(int mode) {
+  return mode == 0 ? kDw3Tf32Pos : kDwTf32Pos;
+}
+
+DDIM_HD constexpr int dw_tf32_threads(int mode) {
+  return mode == 0 ? 3 * 32 * kDw3KSets : kThreads;
+}
+
+// The first kernels' tiles: base positions a CUDA-core tile, rows of 16 a
+// WMMA tile.
+DDIM_HD constexpr int dw_first_np(int mode) { return mode == 0 ? 64 : 32; }
+DDIM_HD constexpr int dw_first_ttm(int mode) { return mode == 0 ? 8 : 4; }
+
+// x halo positions and g positions of a tt × ft base tile, by mode: the
+// 3×3 conv's halo at stride 1 and its g tile; the down conv's halo at
+// stride 2 and g's tile; the up conv's halo at stride 1 and g's 2tt × 2ft.
+DDIM_HD int dw_tf32_halo(int mode, int tt, int ft) {
+  return mode == 1 ? (2 * tt + 2) * (2 * ft + 2) : (tt + 2) * (ft + 2);
+}
+DDIM_HD int dw_tf32_gpos(int mode, int tt, int ft) {
+  return mode == 2 ? 4 * tt * ft : tt * ft;
+}
+
+DDIM_HD int dw_tf32_smem(int mode, int tt, int ft) {
+  const int hx = dw_tf32_halo(mode, tt, ft), hg = dw_tf32_gpos(mode, tt, ft);
+  const int stage = 4 * (hx * (kDwTf32Ci + 2 * kDwTf32XP) +
+                         hg * (kDwTf32Co + 2 * kDwTf32GP));
+  // mode 0: the K sets but the first leave their totals (a set's three
+  // warps, each 3 taps × kDwTf32Ci × kDwTf32Co) for set 0 to add
+  const int reduce =
+      mode == 0 ? 4 * (kDw3KSets - 1) * 9 * kDwTf32Ci * kDwTf32Co : 0;
+  return stage > reduce ? stage : reduce;
 }
 
 // The first kernels' plan, every mode: a base grid tb × fb, np base
@@ -485,23 +522,57 @@ DDIM_HD TilePlan dw_first_plan(int tb, int fb, int np, int ttm, int c_in,
   return p;
 }
 
-DDIM_HD TilePlan conv_down_dw_plan(int t_in, int f_in, int c_in, int c_out,
-                                   int bf16, int batch) {
-  const int tb = t_in / 2, fb = f_in / 2;  // the base grid: g's
-  if (bf16 || c_in <= 0 || c_out <= 0 || c_in % kDwTf32Ci ||
-      c_out % kDwTf32Co)
-    return dw_first_plan(tb, fb, 32, 4, c_in, c_out, bf16, batch);
+// The split-TF32 plan of a mode over its base grid tb × fb.
+DDIM_HD TilePlan dw_tf32_plan(int mode, int tb, int fb, int c_in, int c_out,
+                              int batch) {
   TilePlan p;
   p.variant = kVariantTf32;
   p.tile_f = fb >= 16 ? 16 : 8;
-  p.tile_t = kDwTf32Pos / p.tile_f;
+  p.tile_t = dw_tf32_pos(mode) / p.tile_f;
+  while (p.tile_t > 1 &&
+         kDwTf32Blocks * (dw_tf32_smem(mode, p.tile_t, p.tile_f) + 1024) >
+             kSmemPerSm)
+    p.tile_t /= 2;
   p.tiles = batch * cdiv(tb, p.tile_t) * cdiv(fb, p.tile_f);
   p.groups = (c_in / kDwTf32Ci) * (c_out / kDwTf32Co);
-  p.smem = dw_down_tf32_smem(p.tile_t, p.tile_f);
+  p.smem = dw_tf32_smem(mode, p.tile_t, p.tile_f);
   const int want = kFillBlocks / p.groups > 1 ? kFillBlocks / p.groups : 1;
   const int per = cdiv(p.tiles, want) > 1 ? cdiv(p.tiles, want) : 1;
   p.split = cdiv(p.tiles, per);
   return p;
+}
+
+DDIM_HD bool dw_tf32_takes(int c_in, int c_out, int bf16) {
+  return !bf16 && c_in > 0 && c_out > 0 && c_in % kDwTf32Ci == 0 &&
+         c_out % kDwTf32Co == 0;
+}
+
+// The plans of ddim_conv_dw, each in x's geometry: mode 0 (the 3×3 conv;
+// base grid T × F), mode 1 (the down conv; g's T/2 × F/2) and mode 2 (the
+// up conv; x's T × F, g at 2T × 2F).
+DDIM_HD TilePlan conv3x3_dw_plan(int t, int f, int c_in, int c_out, int bf16,
+                                 int batch) {
+  if (!dw_tf32_takes(c_in, c_out, bf16))
+    return dw_first_plan(t, f, dw_first_np(0), dw_first_ttm(0), c_in, c_out,
+                         bf16, batch);
+  return dw_tf32_plan(0, t, f, c_in, c_out, batch);
+}
+
+DDIM_HD TilePlan conv_down_dw_plan(int t_in, int f_in, int c_in, int c_out,
+                                   int bf16, int batch) {
+  const int tb = t_in / 2, fb = f_in / 2;
+  if (!dw_tf32_takes(c_in, c_out, bf16))
+    return dw_first_plan(tb, fb, dw_first_np(1), dw_first_ttm(1), c_in, c_out,
+                         bf16, batch);
+  return dw_tf32_plan(1, tb, fb, c_in, c_out, batch);
+}
+
+DDIM_HD TilePlan conv_up_dw_plan(int t_in, int f_in, int c_in, int c_out,
+                                 int bf16, int batch) {
+  if (!dw_tf32_takes(c_in, c_out, bf16))
+    return dw_first_plan(t_in, f_in, dw_first_np(2), dw_first_ttm(2), c_in,
+                         c_out, bf16, batch);
+  return dw_tf32_plan(2, t_in, f_in, c_in, c_out, batch);
 }
 
 // ------------------------------------------------------- head and tail --

@@ -90,7 +90,10 @@ _SIGNATURES = {
     # T, F, Cin, Cout, bf16, B, out[8]
     "ddim_conv_down_int8_plan": (_I,) * 6 + (_P,),
     # x's T, F, Cin, Cout, bf16, B, out[8]
+    "ddim_conv3x3_dw_plan": (_I,) * 6 + (_P,),
     "ddim_conv_down_dw_plan": (_I,) * 6 + (_P,),
+    "ddim_conv_up_dw_plan": (_I,) * 6 + (_P,),
+    "ddim_dw_tf32_threads": (_I,),
     # x, wq_t, w_scale, bias, res, out, stats, B, T, F, Cin, Cout, bf16,
     # stream
     "ddim_conv_up_int8": (_P,) * 7 + (_I,) * 6 + (_P,),

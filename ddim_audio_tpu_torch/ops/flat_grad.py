@@ -14,8 +14,9 @@ The backward of each flat conv is two more flat ops:
   the design: the note at the top of that file), on a CPU tensor its plain
   PyTorch twin (``*_plain``). No fallback from one to the other. The kernels
   write HWIO fp32 directly (per-block partial sums finished by
-  ``torch.sum``: no atomics, the same bits run to run); the fp32 down conv's
-  runs split TF32 on the tensor cores (``tile_plan.conv_down_dw_plan``).
+  ``torch.sum``: no atomics, the same bits run to run); in fp32 all three
+  run split TF32 on the tensor cores (``tile_plan.conv3x3_dw_plan``,
+  ``conv_down_dw_plan``, ``conv_up_dw_plan``).
 
 ``conv3x3_flat_t`` / ``conv_down_flat_t`` / ``conv_up_flat_t`` tie forward,
 dx and dW together as ``torch.autograd.Function``s. They take the fp32
@@ -127,7 +128,8 @@ def _launch_dw(wrapper, mode: int, x, g, c_in: int, c_out: int):
                                c_out, bf16, stream_ptr(x))
     check(err, name)
     wrapper.launches += 1
-    return part.sum(dim=0)
+    # one share: the partial is the sum, with no launch of torch.sum
+    return part[0] if splits == 1 else part.sum(dim=0)
 
 
 def conv_dw_flat(x, g, *, c: int):

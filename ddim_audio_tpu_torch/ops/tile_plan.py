@@ -1,6 +1,6 @@
 """Tile plans of the conv3x3, up-conv, down-conv, int8-tap conv3x3, int8-tap
 up and down conv, int8-storage conv3x3, head and tail kernels and of the
-down conv's weight gradient, in Python.
+three convs' weight gradients, in Python.
 
 A model of ``csrc/conv_plan.h``: which variant a call takes (0: CUDA cores,
 1: tensor cores, 2: tensor cores in split TF32, -1: no kernel takes the
@@ -12,7 +12,8 @@ memory and, for a persistent kernel, its blocks along grid.x (``grid``).
 ``tests/test_torch_conv_redesign.py`` holds the model against the C
 functions (``ddim_conv3x3_plan``, ``ddim_conv_up_plan``,
 ``ddim_conv_down_plan``, ``ddim_conv_up_int8_plan``,
-``ddim_conv_down_int8_plan``, ``ddim_conv_down_dw_plan``,
+``ddim_conv_down_int8_plan``, ``ddim_conv3x3_dw_plan``,
+``ddim_conv_down_dw_plan``, ``ddim_conv_up_dw_plan``,
 ``ddim_conv3x3_int8_plan``,
 ``ddim_conv3x3_store_plan``, ``ddim_conv_head_plan``,
 ``ddim_conv_tail_plan``, ``ddim_residual_affine_tiles``) built by the host
@@ -37,9 +38,12 @@ DOWN_I8_HALO = 18 * 34   # int8-tap down: input positions of a group
 DOWN_I8_MAX_BLOCKS = 2   # its resident blocks an SM, at most
 DW_CI = 32               # first dW kernels: input channels a block,
 DW_TARGET_BLOCKS = 528   # and the blocks they aim at
-DW_TF32_CI = 16          # split-TF32 down dW: input channels,
-DW_TF32_CO = 32          # output channels and
-DW_TF32_POS = 64         # base positions a block's tile
+DW_TF32_CI = 16          # split-TF32 dW: input channels,
+DW_TF32_CO = 32          # output channels a block,
+DW_TF32_POS = 64         # base positions a tile aims at (modes 1, 2),
+DW3_TF32_POS = 128       # (mode 0),
+DW_TF32_BLOCKS = 2       # resident blocks an SM the plan keeps,
+DW3_KSETS = 2            # mode 0's warp sets over a tile's k8 steps,
 DW_TF32_XP = DW_TF32_CI + 8  # floats a position of its x planes,
 DW_TF32_GP = DW_TF32_CO + 8  # of its g planes
 CONV_STAGES = 3          # conv3x3 weight ring: stages of a tap row each
@@ -326,34 +330,88 @@ def _dw_first_plan(tb: int, fb: int, np_: int, ttm: int, c_in: int,
                     groups, _cdiv(tiles, per), 0)
 
 
-def dw_down_tf32_smem(tt: int, ft: int) -> int:
-    """The split-TF32 down dW's shared memory: the raw x halo and g tile
-    and their hi and lo planes."""
-    hx, hg = (2 * tt + 2) * (2 * ft + 2), tt * ft
-    return 4 * (hx * (DW_TF32_CI + 2 * DW_TF32_XP)
-                + hg * (DW_TF32_CO + 2 * DW_TF32_GP))
+def dw_tf32_threads(mode: int) -> int:
+    """Threads a block of the split-TF32 dW kernel: three warps a K set in
+    mode 0 (a warp a tap row), eight in modes 1 and 2 (a warp two taps)."""
+    return 96 * DW3_KSETS if mode == 0 else 256
 
 
-def conv_down_dw_plan(t_in: int, f_in: int, c_in: int, c_out: int,
-                      bf16: bool, batch: int = 1) -> TilePlan:
-    """The plan of ``ddim_conv_dw`` in mode 1 (the down conv's weight
-    gradient) for x [batch, t_in, f_in, c_in]: fp32 at C_in % 16 == C_out %
-    32 == 0 runs split TF32 (a block all 16 taps × DW_TF32_CI × DW_TF32_CO
-    channels, ``groups`` such blocks, over tiles of DW_TF32_POS base
-    positions 16 or 8 wide, ``split`` shares of the batch's ``tiles`` so
-    that groups · split stays within FILL_BLOCKS); else the first kernels.
-    ``split`` is the partials' first dimension."""
-    tb, fb = t_in // 2, f_in // 2
-    if (bf16 or c_in <= 0 or c_out <= 0 or c_in % DW_TF32_CI
-            or c_out % DW_TF32_CO):
-        return _dw_first_plan(tb, fb, 32, 4, c_in, c_out, bf16, batch)
+def dw_tf32_smem(mode: int, tt: int, ft: int) -> int:
+    """The split-TF32 dW's shared memory for a tt × ft base tile: the raw x
+    halo (stride 1 in modes 0 and 2, 2 in mode 1) and g tile (2tt × 2ft in
+    mode 2) and their hi and lo planes; in mode 0 at least the scratch in
+    which the K sets but the first leave their totals."""
+    hx = ((2 * tt + 2) * (2 * ft + 2) if mode == 1
+          else (tt + 2) * (ft + 2))
+    hg = 4 * tt * ft if mode == 2 else tt * ft
+    stage = 4 * (hx * (DW_TF32_CI + 2 * DW_TF32_XP)
+                 + hg * (DW_TF32_CO + 2 * DW_TF32_GP))
+    reduce = (4 * (DW3_KSETS - 1) * 9 * DW_TF32_CI * DW_TF32_CO
+              if mode == 0 else 0)
+    return max(stage, reduce)
+
+
+def _dw_tf32_plan(mode: int, tb: int, fb: int, c_in: int, c_out: int,
+                  batch: int) -> TilePlan:
+    """Split TF32 over the base grid tb × fb: a block all the taps ×
+    DW_TF32_CI × DW_TF32_CO channels (``groups`` such blocks), tiles of
+    DW3_TF32_POS (mode 0) or DW_TF32_POS base positions 16 or 8 wide, rows
+    halved until DW_TF32_BLOCKS blocks fit an SM, ``split`` shares of the
+    batch's ``tiles`` so that groups · split stays within FILL_BLOCKS."""
     ft = 16 if fb >= 16 else 8
-    tt = DW_TF32_POS // ft
+    tt = (DW3_TF32_POS if mode == 0 else DW_TF32_POS) // ft
+    while (tt > 1 and DW_TF32_BLOCKS * (dw_tf32_smem(mode, tt, ft) + 1024)
+           > SMEM_PER_SM):
+        tt //= 2
     tiles = batch * _cdiv(tb, tt) * _cdiv(fb, ft)
     groups = (c_in // DW_TF32_CI) * (c_out // DW_TF32_CO)
     per = max(1, _cdiv(tiles, max(1, FILL_BLOCKS // groups)))
     return TilePlan(VARIANT_TF32, tt, ft, tiles, groups, _cdiv(tiles, per),
-                    dw_down_tf32_smem(tt, ft))
+                    dw_tf32_smem(mode, tt, ft))
+
+
+def _dw_first_tile(mode: int) -> tuple[int, int]:
+    """The first kernels' base positions a CUDA-core tile and rows of 16 a
+    WMMA tile."""
+    return (64, 8) if mode == 0 else (32, 4)
+
+
+def _dw_tf32_takes(c_in: int, c_out: int, bf16: bool) -> bool:
+    return (not bf16 and c_in > 0 and c_out > 0 and c_in % DW_TF32_CI == 0
+            and c_out % DW_TF32_CO == 0)
+
+
+def conv3x3_dw_plan(t: int, f: int, c_in: int, c_out: int, bf16: bool,
+                    batch: int = 1) -> TilePlan:
+    """The plan of ``ddim_conv_dw`` in mode 0 (the 3×3 conv's weight
+    gradient) for x [batch, t, f, c_in]: fp32 at C_in % 16 == C_out % 32 ==
+    0 runs split TF32 (``_dw_tf32_plan``, base grid T × F); else the first
+    kernels. ``split`` is the partials' first dimension."""
+    if not _dw_tf32_takes(c_in, c_out, bf16):
+        return _dw_first_plan(t, f, *_dw_first_tile(0), c_in, c_out, bf16,
+                              batch)
+    return _dw_tf32_plan(0, t, f, c_in, c_out, batch)
+
+
+def conv_down_dw_plan(t_in: int, f_in: int, c_in: int, c_out: int,
+                      bf16: bool, batch: int = 1) -> TilePlan:
+    """The same in mode 1 (the down conv's weight gradient; base grid g's
+    T/2 × F/2)."""
+    tb, fb = t_in // 2, f_in // 2
+    if not _dw_tf32_takes(c_in, c_out, bf16):
+        return _dw_first_plan(tb, fb, *_dw_first_tile(1), c_in, c_out,
+                              bf16, batch)
+    return _dw_tf32_plan(1, tb, fb, c_in, c_out, batch)
+
+
+def conv_up_dw_plan(t_in: int, f_in: int, c_in: int, c_out: int,
+                    bf16: bool, batch: int = 1) -> TilePlan:
+    """The same in mode 2 (the up conv's weight gradient; base grid x's
+    T × F, g at 2T × 2F)."""
+    if not _dw_tf32_takes(c_in, c_out, bf16):
+        return _dw_first_plan(t_in, f_in, *_dw_first_tile(2), c_in, c_out,
+                              bf16, batch)
+    return _dw_tf32_plan(2, t_in, f_in, c_in, c_out, batch)
 
 
 def store_tiles(t: int, f: int) -> int:

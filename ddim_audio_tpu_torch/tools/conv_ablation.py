@@ -1,11 +1,12 @@
 """Where the time of the bf16 tensor-core conv3x3, up and down kernels, of
 the int8-tap conv3x3, of the int8-storage conv3x3, of the head and tail
 convs, of the fp32 conv3x3, up and down convs (training's), of the int8-tap
-up and down convs and of the fp32 down-conv weight gradient goes, on the
-card: each kernel built again with one piece of its work taken out.
+up and down convs and of the fp32 weight gradients of the down, 3×3 and up
+convs goes, on the card: each kernel built again with one piece of its work
+taken out.
 
     python -m ddim_audio_tpu_torch.tools.conv_ablation [--out FILE]
-        [--kernels conv3x3,up,down,int8,store,head,tail,down32,upi8,conv32,up32,downi8,downdw32]
+        [--kernels conv3x3,up,down,int8,store,head,tail,down32,upi8,conv32,up32,downi8,downdw32,dw32,updw32]
         [--csrc DIR]
 
 Copies ``csrc`` (or ``--csrc``, another checkout's kernel sources, e.g. a
@@ -49,11 +50,19 @@ prefetch of the next group's raw halo; ``no_requant`` the requant;
 ``no_weights`` the weights restaged per chunk, staged once a block).
 ``downdw32`` (the fp32 down-conv weight gradient at the five training
 transitions, against one fp32 ``conv2d_weight`` with TF32 off, the
-partials' sum included as the wrapper does it) takes ``no_mma`` (the FMAs
-or MMAs), ``no_halo`` (the x halo's staging), ``no_weights`` (the other
-operand: the g tile's staging), ``no_epilogue`` (the partials' stores) and
-``no_split`` (the split into TF32 hi and lo planes), and the unedited
-build without the wrapper's sum of the partials (``no_reduce``). Builds
+partials' sum included as the wrapper does it), ``dw32`` (the fp32 3×3
+weight gradient at the six training stages) and ``updw32`` (the fp32
+up-conv weight gradient at the five up transitions, x at the lower stage)
+take ``no_mma`` (the FMAs or MMAs), ``no_halo`` (the x halo's staging),
+``no_g`` (the other operand: the g tile's staging), ``no_epilogue`` (the
+partials' stores) and ``no_split`` (the split into TF32 hi and lo planes),
+and the unedited build without the wrapper's sum of the partials
+(``no_reduce``); ``dw32`` and ``updw32`` also the designs not taken:
+``tile64`` (the 3×3 dW on tiles of 64 base positions, not 128),
+``ksets1`` (its three warps a block, not two sets of three over a tile's
+k8 steps) and ``up64`` (the up dW on tiles of 64 base positions at one
+block an SM, not 32 at two), each of which a checkout without them builds
+unedited. Builds
 ``conv3x3.cu``, ``conv_strided.cu``, ``conv_strided_int8.cu``,
 ``conv3x3_int8.cu``, ``conv3x3_store.cu``, ``conv_head_tail.cu``,
 ``conv_dw.cu`` and ``conv_plan.cu`` of each copy with nvcc, all at once,
@@ -312,7 +321,7 @@ TF32_SPLIT_EDITS = {
           "\n  const uint4 l = make_uint4(0u, 0u, 0u, 0u);"),),
     ],
 }
-OPTIONAL = ("no_split",)
+OPTIONAL = ("no_split", "tile64", "ksets1", "up64")
 UPI8_EDITS = {
     "no_mma": [
         # the int8 MMAs of the two-pass kernel; of the persistent one
@@ -360,9 +369,10 @@ UPI8_EDITS = {
           "channels")),
     ],
 }
-# The fp32 down-conv weight gradient (conv_dw.cu): the CUDA-core kernel
-# first written (all three modes share its loops) and the split-TF32 one
-_DW_COPY = (r"i < {n} \* \({c} / 4\); i \+= kThreads\) \{{\n"
+# The fp32 weight gradients (conv_dw.cu): the CUDA-core kernel first
+# written (all three modes share its loops) and the split-TF32 one (its
+# copies stride kThreads, since it takes every mode NTH)
+_DW_COPY = (r"i < {n} \* \({c} / 4\); i \+= (?:kThreads|NTH)\) \{{\n"
             r"      const int {p} = i / \({c} / 4\), q = i % \({c} / 4\);\n"
             r"      const int t = ")
 DW32_EDITS = {
@@ -371,7 +381,7 @@ DW32_EDITS = {
           "for (int p = 0; p < G::NP * (c_in < 0); ++p) {"),
          (r"mma_tf32x3\(sum\[u\]\[nt\]", "if (tile < 0) mma_tf32x3(sum[u][nt]")),
     ],
-    "no_weights": [
+    "no_g": [
         # g: the CUDA-core kernel's staging; the split-TF32 one's copies
         ((r"idx < gr \* gw \* kCoTile; idx \+= kThreads",
           "idx < 0; idx += kThreads"),
@@ -395,19 +405,39 @@ DW32_EDITS = {
           "if (c_in < 0) *reinterpret_cast<float2*>(dst")),
     ],
 }
+# The split-TF32 weight gradients' designs not taken (conv_plan.h, and the
+# occupancy check conv_dw.cu makes against the plan), timed as variants:
+# ``tile64`` the 3×3 dW (mode 0) on tiles of 64 base positions (56 KB)
+# rather than 128 (103 KB); ``ksets1`` its three warps a block rather than
+# two sets of three over a tile's k8 steps; ``up64`` the up dW (mode 2) on
+# tiles of 64 base positions at one block an SM (142 KB) rather than 32 at
+# two. A checkout without them builds these variants unedited.
+DW_DESIGN_EDITS = {
+    "tile64": [((r"kDw3Tf32Pos = 128;", "kDw3Tf32Pos = 64;"),)],
+    "ksets1": [((r"kDw3KSets = 2;", "kDw3KSets = 1;"),)],
+    "up64": [((r"while \(p\.tile_t > 1 &&\n         kDwTf32Blocks \*",
+               "while (p.tile_t > 1 &&\n         (mode == 2 ? 1 : kDwTf32Blocks) *"),)],
+}
+DW_DESIGN_CHECK = {
+    "up64": [((r"if \(resident < kDwTf32Blocks\)",
+               "if (resident < (MODE == 2 ? 1 : kDwTf32Blocks))"),)],
+}
 ALT_EDITS = {"conv_head_tail.cu": HEAD_TAIL_EDITS,
              "conv_strided.cu": DOWN32_EDITS,
              "conv_strided_int8.cu": UPI8_EDITS,
              "conv3x3.cu": CONV32_EDITS,
              "conv_mma.cuh": TF32_SPLIT_EDITS,
-             "conv_dw.cu": DW32_EDITS}
+             "conv_dw.cu": {**DW32_EDITS, **DW_DESIGN_CHECK},
+             "conv_plan.h": DW_DESIGN_EDITS}
 KERNELS = ("conv3x3", "up", "down", "int8", "store", "head", "tail", "down32",
-           "upi8", "conv32", "up32", "downi8", "downdw32")
+           "upi8", "conv32", "up32", "downi8", "downdw32", "dw32", "updw32")
 # the variants each fp32 / int8 kind's own edits add
 KIND_EDITS = {"down32": DOWN32_EDITS, "upi8": UPI8_EDITS,
               "downi8": UPI8_EDITS,
               # the split at staging: conv_mma.cuh's store_split_tf32
               "downdw32": {**DW32_EDITS, **TF32_SPLIT_EDITS},
+              "dw32": {**DW32_EDITS, **TF32_SPLIT_EDITS, **DW_DESIGN_EDITS},
+              "updw32": {**DW32_EDITS, **TF32_SPLIT_EDITS, **DW_DESIGN_EDITS},
               "conv32": {**CONV32_EDITS, **TF32_SPLIT_EDITS},
               "up32": {**DOWN32_EDITS, **TF32_SPLIT_EDITS}}
 
@@ -813,29 +843,48 @@ def main(argv=None) -> int:
                 lib_ms = cuda_ms(lambda: F.conv2d(xn, wl, stride=2, padding=1))
                 row.append(f"cudnn {lib_ms:.4f}")
                 emit(" | ".join(row))
-            for t, f, ci, co in TRAIN_DOWNS if "downdw32" in todo else ():
-                x, gr = rnd(bsz, t, f * ci), rnd(bsz, t // 2, (f // 2) * co)
-                row = [f"downdw32 B{bsz} T{t} F{f} {ci}->{co}"]
+            dw_shapes = (
+                [("downdw32", 1, t, f, ci, co) for t, f, ci, co in TRAIN_DOWNS
+                 if "downdw32" in todo]
+                + [("dw32", 0, t, f, c, c) for t, f, c in TRAIN_STAGES
+                   if "dw32" in todo]
+                + [("updw32", 2, t, f, ci, co) for t, f, ci, co in TRAIN_UPS
+                   if "updw32" in todo])
+            for kind, mode, t, f, ci, co in dw_shapes:
+                # g: the base grid's (mode 0), half x's (mode 1), 2T × 2F
+                # (mode 2)
+                tg, fg = {0: (t, f), 1: (t // 2, f // 2),
+                          2: (2 * t, 2 * f)}[mode]
+                x, gr = rnd(bsz, t, f * ci), rnd(bsz, tg, fg * co)
+                k = 3 if mode == 0 else 4
+                row = [f"{kind} B{bsz} T{t} F{f} {ci}->{co}"]
                 for name, lib in libs.items():
-                    splits = lib.ddim_conv_dw_splits(1, bsz, t, f, ci, co, 0)
-                    part = torch.empty(splits, 4, 4, ci, co, device="cuda")
+                    splits = lib.ddim_conv_dw_splits(mode, bsz, t, f, ci, co,
+                                                     0)
+                    part = torch.empty(splits, k, k, ci, co, device="cuda")
 
-                    def run(lib=lib, part=part, reduce=True):
+                    def run(lib=lib, part=part, reduce=True, mode=mode):
                         err = lib.ddim_conv_dw(
-                            x.data_ptr(), gr.data_ptr(), part.data_ptr(), 1,
-                            bsz, t, f, ci, co, 0, st)
+                            x.data_ptr(), gr.data_ptr(), part.data_ptr(),
+                            mode, bsz, t, f, ci, co, 0, st)
                         if err:
-                            raise RuntimeError(f"down dW fp32 {name}: {err}")
-                        if reduce:  # as the wrapper finishes the partials
+                            raise RuntimeError(f"{kind} {name}: {err}")
+                        if reduce and part.shape[0] > 1:  # as the wrapper
                             part.sum(dim=0)
                     row.append(f"{name} {cuda_ms(run):.4f}")
                     if name == "full":
                         row.append("no_reduce "
                                    f"{cuda_ms(lambda: run(reduce=False)):.4f}")
                 xn = x.view(bsz, t, f, ci).permute(0, 3, 1, 2)
-                gn = gr.view(bsz, t // 2, f // 2, co).permute(0, 3, 1, 2)
+                gn = gr.view(bsz, tg, fg, co).permute(0, 3, 1, 2)
+                # mode 2: the weight gradient of the strided conv that maps
+                # g to x
+                inp, shape, gout, stride = {
+                    0: (xn, (co, ci, 3, 3), gn, 1),
+                    1: (xn, (co, ci, 4, 4), gn, 2),
+                    2: (gn, (ci, co, 4, 4), xn, 2)}[mode]
                 lib_ms = cuda_ms(lambda: conv2d_weight(
-                    xn, (co, ci, 4, 4), gn, stride=2, padding=1))
+                    inp, shape, gout, stride=stride, padding=1))
                 row.append(f"conv2d_weight_fp32 {lib_ms:.4f}")
                 emit(" | ".join(row))
             for t, f, c in STAGES[:3] if "int8" in todo else ():

@@ -1,16 +1,16 @@
 """Time the bf16 down conv, the int8-tap conv3x3, the int8-storage conv3x3,
 the head and tail convs, the fp32 down, conv3x3 and up convs (training's),
-the int8-tap up and down convs and the fp32 down-conv weight gradient of a
-checkout, on the card, at the audio.yml shapes, B = 1 and 2, against one
-cuDNN call of the bare conv; for comparing two checkouts of this package in
-one machine, in turns.
+the int8-tap up and down convs and the fp32 weight gradients of the down,
+3×3 and up convs of a checkout, on the card, at the audio.yml shapes, B = 1
+and 2, against one cuDNN call of the bare conv; for comparing two checkouts
+of this package in one machine, in turns.
 
     python3 -m ddim_audio_tpu_torch.tools.kernel_pair LABEL [KINDS]
     (cd <other checkout> && python3 <this checkout>/ddim_audio_tpu_torch/tools/kernel_pair.py LABEL [KINDS])
 
 KINDS is a comma-separated subset of
-down,int8,store,head,tail,down32,upi8,conv32,up32,downi8,downdw32 (default:
-all eleven).
+down,int8,store,head,tail,down32,upi8,conv32,up32,downi8,downdw32,dw32,updw32
+(default: all thirteen).
 ``down32`` is the fp32 down conv at the five training transitions of one
 microbatch [1, 2, 1024, 256] with statistics, against one fp32 cuDNN call
 (TF32 off); ``conv32`` the fp32 conv3x3 at its six stages with every fusion
@@ -23,7 +23,12 @@ laid out as ``prepare_params`` gives them (where the checkout's wrapper
 takes ``wq_t``); ``downi8`` the int8-tap down conv in bf16 at 32 -> 64 with
 statistics, likewise; ``downdw32`` the fp32 down-conv weight gradient
 (``conv_down_dw_flat``, its partials' sum included) at the five training
-transitions, against one fp32 ``torch.nn.grad.conv2d_weight`` (TF32 off).
+transitions, against one fp32 ``torch.nn.grad.conv2d_weight`` (TF32 off);
+``dw32`` the fp32 3×3 weight gradient (``conv_dw_flat``) at the six
+training stages and ``updw32`` the fp32 up-conv weight gradient
+(``conv_up_dw_flat``) at the five up transitions (x at the lower stage, g
+at 2T × 2F), likewise (the up conv's is the weight gradient of the strided
+conv that maps g to x).
 
 The package is imported from the current directory, so the same file times
 whichever checkout it is run in (one that predates the ``wq_t`` argument of
@@ -61,7 +66,7 @@ TRAIN_STAGES = [(1024, 256, 32), (512, 128, 64), (256, 64, 96), (128, 32, 128),
 TRAIN_UPS = [(t // 2, f // 2, co, ci) for t, f, ci, co in TRAIN_DOWNS]
 DOWNS_I8 = [(8192, 256, 32, 64)]
 KINDS = ("down", "int8", "store", "head", "tail", "down32", "upi8", "conv32",
-         "up32", "downi8", "downdw32")
+         "up32", "downi8", "downdw32", "dw32", "updw32")
 
 
 # Cycles the card sleeps before the timed calls (~25-35 ms), so that the
@@ -242,6 +247,29 @@ def main(argv=None) -> int:
             add(("downdw32", bsz), k)
             add(("downdw32 cudnn", bsz), lib)
             print(f"{label} downdw32 B{bsz} {ci}->{co} kernel {k:.4f} cudnn "
+                  f"{lib:.4f} ratio {k / lib:.2f}", flush=True)
+        for t, f, c in TRAIN_STAGES if "dw32" in kinds else ():
+            x, gr = rnd(bsz, t, f * c), rnd(bsz, t, f * c)
+            k = cuda_ms(torch, lambda: flat_grad.conv_dw_flat(x, gr, c=c))
+            xn = x.view(bsz, t, f, c).permute(0, 3, 1, 2)
+            gn = gr.view(bsz, t, f, c).permute(0, 3, 1, 2)
+            lib = cuda_ms(torch, lambda: conv2d_weight(
+                xn, (c, c, 3, 3), gn, padding=1))
+            add(("dw32", bsz), k)
+            add(("dw32 cudnn", bsz), lib)
+            print(f"{label} dw32 B{bsz} C{c} kernel {k:.4f} cudnn "
+                  f"{lib:.4f} ratio {k / lib:.2f}", flush=True)
+        for t, f, ci, co in TRAIN_UPS if "updw32" in kinds else ():
+            x, gr = rnd(bsz, t, f * ci), rnd(bsz, 2 * t, 2 * f * co)
+            k = cuda_ms(torch, lambda: flat_grad.conv_up_dw_flat(
+                x, gr, c_in=ci, c_out=co))
+            xn = x.view(bsz, t, f, ci).permute(0, 3, 1, 2)
+            gn = gr.view(bsz, 2 * t, 2 * f, co).permute(0, 3, 1, 2)
+            lib = cuda_ms(torch, lambda: conv2d_weight(
+                gn, (ci, co, 4, 4), xn, stride=2, padding=1))
+            add(("updw32", bsz), k)
+            add(("updw32 cudnn", bsz), lib)
+            print(f"{label} updw32 B{bsz} {ci}->{co} kernel {k:.4f} cudnn "
                   f"{lib:.4f} ratio {k / lib:.2f}", flush=True)
         for t, f, c in INT8_STAGES if "int8" in kinds else ():
             x, res = rnd(bsz, t, f * c).bfloat16(), rnd(bsz, t, f * c).bfloat16()

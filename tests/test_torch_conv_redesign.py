@@ -40,6 +40,7 @@ from ddim_audio_tpu_torch.ops.tile_plan import (
     VARIANT_NONE,
     VARIANT_TF32,
     TilePlan,
+    conv3x3_dw_plan,
     conv3x3_int8_plan,
     conv3x3_plan,
     conv3x3_store_plan,
@@ -48,8 +49,10 @@ from ddim_audio_tpu_torch.ops.tile_plan import (
     conv_down_plan,
     conv_head_plan,
     conv_tail_plan,
+    conv_up_dw_plan,
     conv_up_int8_plan,
     conv_up_plan,
+    dw_tf32_threads,
     library_plan,
 )
 
@@ -96,8 +99,10 @@ def plan_lib(tmp_path_factory):
                     ("ddim_conv3x3_store_plan", 6), ("ddim_conv_head_plan", 6),
                     ("ddim_conv_tail_plan", 6),
                     ("ddim_conv_down_int8_plan", 6),
-                    ("ddim_conv_down_dw_plan", 6)):
+                    ("ddim_conv_down_dw_plan", 6),
+                    ("ddim_conv3x3_dw_plan", 6), ("ddim_conv_up_dw_plan", 6)):
         getattr(lib, name).argtypes = [ctypes.c_int] * n + [ctypes.c_void_p]
+    lib.ddim_dw_tf32_threads.argtypes = [ctypes.c_int]
     return lib
 
 
@@ -105,8 +110,8 @@ def test_tile_plans_match_the_c_plans(plan_lib):
     """Every production shape (B = 1, 2; bf16 and fp32) and a sweep of small
     and ragged ones: variant, tile, tiles, groups, split, shared memory and
     grid as conv_plan.h computes them; the production bf16 calls all take
-    the tensor-core variant, the fp32 conv3x3, up and down ones (and the down
-    conv's weight gradient) split TF32 on the tensor cores; the int8 down
+    the tensor-core variant, the fp32 conv3x3, up and down ones (and the
+    three weight gradients) split TF32 on the tensor cores; the int8 down
     conv is persistent."""
     c3 = [(t, f, c) for t in (1, 7, 16, 33) for f in (1, 8, 12, 16, 40)
           for c in (16, 32, 48, 64, 96, 128, 192, 256, 512, 1024)] + STAGES \
@@ -189,13 +194,28 @@ def test_tile_plans_match_the_c_plans(plan_lib):
     down_dw = [(t, f, ci, co) for t in (2, 10, 16, 34) for f in (2, 8, 16, 34)
                for ci, co in ((32, 64), (64, 96), (96, 128), (192, 256),
                               (48, 64), (64, 48), (8, 32))] + TRAIN_DOWNS
-    for t, f, ci, co in down_dw:
-        for bf16 in (0, 1):
-            for b in (1, 2, 3):
-                want = library_plan(plan_lib.ddim_conv_down_dw_plan, t, f, ci,
-                                    co, bf16, b)
-                assert conv_down_dw_plan(t, f, ci, co, bool(bf16), b) == \
-                    want, (t, f, ci, co)
+    # the 3×3 conv's (C_in = C_out in the model; the kernel takes any) and
+    # the up conv's, in x's geometry
+    dw = {"down": (plan_lib.ddim_conv_down_dw_plan, conv_down_dw_plan,
+                   down_dw),
+          "3x3": (plan_lib.ddim_conv3x3_dw_plan, conv3x3_dw_plan,
+                  [(t, f, c, c) for t in (1, 7, 16, 33) for f in (1, 8, 16, 20)
+                   for c in (16, 32, 48, 64, 96, 192, 256)]
+                  + [(12, 24, 32, 64), (12, 24, 64, 32)]
+                  + [(t, f, c, c) for t, f, c in TRAIN_STAGES]),
+          "up": (plan_lib.ddim_conv_up_dw_plan, conv_up_dw_plan,
+                 [(t, f, ci, co) for t in (1, 5, 8, 17) for f in (1, 8, 16, 18)
+                  for ci, co in ((64, 32), (96, 64), (256, 192), (48, 32),
+                                 (64, 48), (8, 32))] + TRAIN_UPS)}
+    for query, model, shapes in dw.values():
+        for t, f, ci, co in shapes:
+            for bf16 in (0, 1):
+                for b in (1, 2, 3):
+                    want = library_plan(query, t, f, ci, co, bf16, b)
+                    assert model(t, f, ci, co, bool(bf16), b) == want, \
+                        (t, f, ci, co)
+    assert [plan_lib.ddim_dw_tf32_threads(m) for m in (0, 1, 2)] == \
+        [dw_tf32_threads(m) for m in (0, 1, 2)] == [192, 256, 256]
     st = [(t, f, c) for t in (1, 8, 9, 17, 33) for f in (1, 8, 16, 17, 40)
           for c in (16, 32, 48, 64, 96, 128, 192, 256, 480, 512)] + STORE_STAGES
     for t, f, c in st:
@@ -325,6 +345,29 @@ def test_tile_plans_match_the_c_plans(plan_lib):
             (4, 16, 16, 48, 4), (8, 8, 4, 96, 2)]
     assert all(conv_down_dw_plan(*s, True, 1).variant != VARIANT_TF32
                for s in TRAIN_DOWNS)
+    # the 3×3 dW at the training stages: split TF32, 128 base positions a
+    # tile (8 × 16, 16 × 8 at F = 8), 103 KB (two blocks an SM) with the
+    # K sets' scratch inside; the up dW at the up transitions (x's grid): 32
+    # base positions (2 × 16, 4 × 8 at F = 8), as 64 would take 142 KB (one
+    # block an SM)
+    plans = [conv3x3_dw_plan(t, f, c, c, False, 1)
+             for t, f, c in TRAIN_STAGES]
+    assert all(p.variant == VARIANT_TF32 and p.smem == 103_424
+               for p in plans)
+    assert [(p.tile_t, p.tile_f, p.tiles, p.groups, p.split) for p in plans] \
+        == [(8, 16, 2048, 2, 128), (8, 16, 512, 8, 32), (8, 16, 128, 18, 13),
+            (8, 16, 32, 32, 8), (8, 16, 8, 72, 3), (16, 8, 2, 128, 2)]
+    plans = [conv_up_dw_plan(*s, False, 1) for s in TRAIN_UPS]
+    assert [p.variant for p in plans] == [VARIANT_TF32] * 5
+    assert [(p.tile_t, p.tile_f, p.tiles, p.groups, p.split, p.smem)
+            for p in plans] == [
+        (2, 16, 2048, 4, 64, 75_776), (2, 16, 512, 12, 22, 75_776),
+        (2, 16, 128, 24, 11, 75_776), (2, 16, 32, 48, 5, 75_776),
+        (4, 8, 8, 96, 2, 72_704)]
+    assert all(plan.variant != VARIANT_TF32 for plan in
+               [conv3x3_dw_plan(t, f, c, c, True, 1) for t, f, c in
+                TRAIN_STAGES] + [conv_up_dw_plan(*s, True, 1)
+                                 for s in TRAIN_UPS])
 
 
 def _tile_origin(plan: TilePlan, tile: int, f_len: int):
