@@ -18,8 +18,9 @@ phase on its own lines:
    of audio.yml): conv3x3 (float taps, and int8 taps at the three stages that
    run them, against the twin with the kernel's own quantisation group), the
    down and up transitions, the head and the tail (also at one small ragged
-   shape; in fp32 the head and tail, still on their first, CUDA-core
-   design, also beside one fp32 cuDNN call with TF32 off). Each bf16 case
+   shape; in fp32 the head, in split TF32 on the bf16 head's persistent
+   block, and the tail, still on its first, CUDA-core design, also beside
+   one fp32 cuDNN call with TF32 off). Each bf16 case
    prints the kernel's and the twin's time from CUDA
    events (the card held busy while the host queues the timed calls, so
    they are the card's time, not the wrappers' Python), its bound (the
@@ -34,7 +35,9 @@ phase on its own lines:
    ``ddim_conv_up_variant``, ``ddim_conv_down_variant``,
    ``ddim_conv_head_variant``, ``ddim_conv_tail_variant``; 192->256 at
    f_out = 8 included) and fp32 the split-TF32 tensor-core one (conv3x3,
-   up and down; the CUDA-core one for the head and tail), that the int8
+   up, down and, at the production shape, the head, whose small ragged
+   shape takes the variant its plan picks, printed; the CUDA-core one for
+   the tail), that the int8
    taps keep
    their 8 x 16 quantisation group (``ddim_conv3x3_int8_geometry``), and
    that the same call twice gives the same bits. Each kernel's sums at B = 2 in bf16 close the phase: kernel /
@@ -52,10 +55,15 @@ phase on its own lines:
    tiles of whole 8 x 16 storage groups), the int8 up and down convs' plans
    (the library's equal to the Python model, one partial an 8 x 16 group;
    the down conv's grid persistent, its resident blocks on every SM) and
-   their outputs bit-equal to the twin's, and for bf16 the kernel's, the
+   their outputs bit-equal to the twin's, ``residual_affine_flat``'s plan
+   (the library's equal to the Python model: persistent blocks over whole
+   storage groups, one partial a block, fewer blocks than groups at
+   s0-s2) and its int8 outputs, scales and float outputs bit-equal to the
+   twin's, and for bf16 the kernel's, the
    twin's, the bound's and the one PyTorch call's time with kernel / cuDNN
    (``residual_affine_flat`` has none: no single call dequantises, adds and
-   requantises per group), then each kernel's B = 2 sum;
+   requantises per group; its lines give the share of the bound), then
+   each kernel's B = 2 sum;
 4. full-width forward of the audio.yml model (47,155,266 params, seed-made
    weights with non-zero final GroupNorm weights) at [1, 2, 8192, 256]: the
    production forward (bf16, int8 taps, as audio.yml ships it) and the
@@ -258,8 +266,10 @@ PEAK_BYTES = 3.35e12
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12,
             "tf32x3": 495e12 / 3}
 VARIANT_NAMES = {0: "fma", 1: "mma", 2: "tf32x3"}
-# the wrappers whose fp32 calls run split TF32 on the tensor cores
-TF32_KERNELS = ("conv3x3_flat", "conv_up_flat", "conv_down_flat")
+# the wrappers whose fp32 calls run split TF32 on the tensor cores (the
+# head where its plan takes the shape: audio.yml's)
+TF32_KERNELS = ("conv3x3_flat", "conv_up_flat", "conv_down_flat",
+                "conv_head_flat")
 HEAD_TAIL_KERNELS = ("conv_head_flat", "conv_tail_flat")
 
 # Production stage shapes at [1, 2, 8192, 256] (T, F, C), and transitions
@@ -649,7 +659,9 @@ def check_plan(case, bsz, bf16) -> str:
     conv3x3_flat_int8, conv_head_flat, conv_tail_flat): the library's tile
     plan equals the Python model the wrapper sizes its partials from, and
     the variant is the tensor-core kernel in bf16 (in fp32 the split-TF32
-    one for conv3x3, up and down, the CUDA-core one for the head and tail;
+    one for conv3x3, up, down and the head at its production shape, the
+    head's small ragged shape whichever its plan picks, the CUDA-core one
+    for the tail;
     the int8 taps run on the tensor cores in both, over the quantisation
     group the geometry query reports, 8 × 16 with a 1-position halo).
     Returns the plan's note for the kernel's line."""
@@ -670,6 +682,8 @@ def check_plan(case, bsz, bf16) -> str:
         variant = getattr(lib, f"ddim_{kind}_variant")(*shape, bf16)
         want = (tile_plan.VARIANT_MMA if bf16 else tile_plan.VARIANT_TF32
                 if case["name"] in TF32_KERNELS else tile_plan.VARIANT_FMA)
+        if case["name"] == "conv_head_flat" and not bf16 and not case["prod"]:
+            want = model.variant  # the small ragged shape: the plan's pick
     require(variant == want == got.variant,
             f"{tag}: variant {variant}, want {want}")
     return (f" | {VARIANT_NAMES[variant]} tile {got.tile_t}x{got.tile_f}"
@@ -736,10 +750,11 @@ def phase_kernels(summary):
                     line += (f", cuDNN bf16 conv {lib_ms:.3f} ms: kernel / "
                              f"cuDNN {ms / lib_ms:.2f}x, bound / kernel "
                              f"{bnd / ms:.1%} ({by})")
-                elif name in HEAD_TAIL_KERNELS:  # fp32 keeps its first design
+                elif name in HEAD_TAIL_KERNELS:  # the head split TF32
                     lib32 = cuda_time(case["lib"](pos, kw), prefill=True)
                     line += (f", cuDNN fp32 conv (TF32 off) {lib32:.3f} ms: "
-                             f"kernel / cuDNN {ms / lib32:.2f}x")
+                             f"kernel / cuDNN {ms / lib32:.2f}x, bound / "
+                             f"kernel {bnd / ms:.1%} ({by})")
                 if dtype == torch.bfloat16 and bsz == 2:  # the main path
                     entry["ms"] += ms
                     entry["plain_ms"] += plain_ms
@@ -845,7 +860,8 @@ def _int8_cases(torch, bsz):
                     twin=residual_affine_flat_plain, make=make,
                     layout=(("q", "scales") if qo else ("out",))
                     + ("stats", "stats"), io=io_of, lib=None, kind="fp32",
-                    timed=xk == "int8" and qo, ops=4.0 * bsz * t * f * c))
+                    timed=xk == "int8" and qo, ops=4.0 * bsz * t * f * c,
+                    resaff_plan=(t, f, c)))
     for up, shapes in ((False, DOWNS_I8), (True, UPS_I8)):
         for t, f, ci, co in shapes:
             x = rnd(bsz, t, f * ci)
@@ -971,6 +987,36 @@ def check_strided_int8_plan(case, bsz, bf16, outs, refs) -> str:
             "bit-equal to the twin")
 
 
+def check_resaff_plan(case, bsz, pos, outs, refs) -> str:
+    """residual_affine_flat: the library's plan equals the Python model the
+    wrapper sizes its partials from (persistent blocks over whole 8 × 16
+    storage groups, one partial a block; at s0-s2 fewer blocks than groups,
+    so that each walks several), and its int8 outputs, scales and float
+    outputs equal the twin's bit for bit. Returns the note for the line."""
+    import torch
+
+    from ddim_audio_tpu_torch.ops import _cuda, tile_plan
+
+    t, f, c = case["resaff_plan"]
+    kinds = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+    shape = (t, f, c, kinds[pos[0].dtype], kinds[pos[1].dtype])
+    model = tile_plan.residual_affine_plan(*shape, bsz)
+    got = tile_plan.library_plan(_cuda.kernels().ddim_residual_affine_plan,
+                                 *shape, bsz)
+    tag = f"{case['name']} B{bsz} {case['label']} x kind {shape[3]}"
+    require(got == model, f"{tag}: library plan {got} != Python model {model}")
+    groups = tile_plan.store_tiles(t, f)
+    require(got.variant == tile_plan.VARIANT_FMA and got[1:3] == (8, 16)
+            and got.tiles == got.grid <= groups
+            and (t < 2048 or got.grid < groups),
+            f"{tag}: plan {got} is not persistent over {groups} groups")
+    n = sum(k != "stats" for k in case["layout"])
+    require(all(torch.equal(o, r) for o, r in zip(outs[:n], refs[:n])),
+            f"{tag}: outputs differ from the twin's")
+    return (f" | persistent grid {got.grid} x {bsz} x {got.groups} over "
+            f"{groups} groups a sample, bit-equal to the twin")
+
+
 def phase_int8_kernels(summary):
     """The int8-storage kernels (conv3x3 storage modes, residual_affine) and
     the int8 strided taps against their twins (the kernels' own groups) at
@@ -1012,6 +1058,8 @@ def phase_int8_kernels(summary):
                     line += check_strided_int8_plan(case, bsz,
                                                     int(dt == "bf16"),
                                                outs, refs)
+                if "resaff_plan" in case:
+                    line += check_resaff_plan(case, bsz, pos, outs, refs)
                 require(same, f"{name} {label} {dt}: two runs differ")
                 require(mx <= 1 and eq >= INT8_EQUAL_SHARE,
                         f"{name} {label} {dt}: int8 outputs equal {eq:.6f}, "
@@ -1038,8 +1086,9 @@ def phase_int8_kernels(summary):
                     line += (f", cuDNN bf16 conv {lib_ms:.3f} ms: kernel / "
                              f"cuDNN {ms / lib_ms:.2f}x")
                 else:
-                    line += (", library — (no single PyTorch call dequantises, "
-                             "adds and requantises per group)")
+                    line += (f", bound / kernel {bnd / ms:.1%} ({by}), library "
+                             "— (no single PyTorch call dequantises, adds and "
+                             "requantises per group)")
                 if bsz == 2 and case["timed"]:  # the main path, each shape once
                     entry["ms"] += ms
                     entry["plain_ms"] += plain_ms

@@ -14,10 +14,12 @@
 //       `_tail_kernel` (wrapper `conv_tail_flat`).
 //
 // What bounds them on an H100: bytes. The head writes 16× what it reads
-// (64 bytes an output position at C0 = 32, bf16), the tail reads 32× what it
-// writes (two C0-wide streams). bf16 runs the tensor-core kernels below
-// wherever their plan (conv_head_plan, conv_tail_plan in conv_plan.h)
-// takes the shape; fp32 runs the CUDA-core kernels.
+// (64 bytes an output position at C0 = 32, bf16; 128 in fp32), the tail
+// reads 32× what it writes (two C0-wide streams). bf16 runs the
+// tensor-core kernels below wherever their plan (conv_head_plan,
+// conv_tail_plan in conv_plan.h) takes the shape; the fp32 head at C0 = 32
+// runs conv_head_tf32_kernel (split TF32, the bf16 head's persistent block)
+// where its rows fit; the fp32 tail and the rest run the CUDA-core kernels.
 //
 // conv_head_mma_kernel (bf16, C0 = 32, Cin <= 4). Its products cannot stay
 // on the CUDA cores: 9·Cin·C0 = 576 FMAs an output position are 1.2 G FMA
@@ -77,8 +79,8 @@
 // holds it (0.059 → 0.039 ms without them; its MMAs and statistics cost
 // nothing measurable), the tail's input stream (0.102 → 0.064 ms).
 //
-// conv_head_kernel (fp32, and bf16 at C0 != 32) and conv_tail_kernel
-// (fp32), on CUDA cores:
+// conv_head_kernel (bf16 and fp32 at C0 != 32, fp32 rows too wide for
+// conv_head_tf32_kernel) and conv_tail_kernel (fp32), on CUDA cores:
 // - head: the block shape of conv3x3.cu's CUDA-core variant (64 positions ×
 //   32 output channels, lane = output channel, 8 positions per thread); all
 //   9·Cin·32 weights and the Cin-wide halo sit in shared memory, so the only
@@ -594,6 +596,221 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
+// The fp32 head on the bf16 head's persistent block in split TF32: each
+// fp32 x and w value is hi + lo, two TF32 values (cvt.rna), and each
+// product is lo·hi + hi·lo + hi·hi on mma.sync.m16n8k8 (fp32 accuracy).
+// K = 9·Cin (18 at Cin = 2) in whole k8 steps (24), N = C0 = 32 in four
+// n8 tiles whose columns are permuted as conv_head_mma_kernel's, M = the
+// tile's positions. Per tile: the raw halo (TT + 2 rows of Cin-wide positions
+// −1 … F, zero outside the array) lands by cp.async while the previous
+// tile computes, and is split once into a hi and a lo plane, from which
+// the lanes read their A values at per-lane offsets (9 taps read each
+// value); the sum of the k8 steps is taken from zero on the tensor cores
+// and the bias added by one IEEE add; a lane's 8 consecutive channels of a
+// position leave as two 16-byte stores (a warp's 16 positions are 2 KB of
+// contiguous output) while the block goes on; statistics stay in
+// registers across the block's tiles. Measured on an H100 80GB HBM3 at
+// 700 W (tools/conv_ablation.py, B = 1, 8192 × 256): 0.116 ms against a
+// byte bound of 0.085; the outputs staged for the bulk-copy engine as the
+// bf16 head does (which writes half the bytes) took 0.156, the same block
+// with its products on CUDA cores 0.201.
+template <int CIN>
+struct Head32K {
+  static constexpr int K = 9 * CIN;
+  static constexpr int KS = (K + 7) / 8;  // k8 steps
+};
+
+template <int CIN>
+__global__ void __launch_bounds__(kThreads, 2)
+    conv_head_tf32_kernel(const float* __restrict__ x,
+                          const float* __restrict__ w,
+                          const float* __restrict__ bias,
+                          float* __restrict__ out, float* __restrict__ stats,
+                          int t_len, int f_len, int tt) {
+  using HK = Head32K<CIN>;
+  constexpr int C0 = kHeadC0;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int b = blockIdx.y;
+  const int mtiles = (tt * f_len + 15) / 16;  // m16 tiles a tile
+  const int hp = head32_halo_pitch(f_len, CIN);
+  const int hrow = f_len * CIN;  // input floats a row
+  const int halo_n = (tt + 2) * hp;
+  const int n_tiles = (t_len + tt - 1) / tt;
+  extern __shared__ __align__(16) unsigned char smem[];
+  // raw [2][tt + 2][hp], hi, lo [tt + 2][hp], [8][2][C0]
+  float* raw = reinterpret_cast<float*>(smem);
+  float* hi = raw + 2 * halo_n;
+  float* lo = hi + halo_n;
+  float* red = lo + halo_n;
+  const float* xb = x + (size_t)b * t_len * hrow;
+  constexpr int P0 = kHead32Pad;  // position 0's first float in a halo row
+
+  // The copies fill positions 0 … F − 1 of the raw rows; the pad, the zero
+  // columns and the pitch's tail are written once.
+  for (int i = threadIdx.x; i < 2 * halo_n; i += kThreads) raw[i] = 0.f;
+  __syncthreads();
+  const bool words = hrow % 4 == 0;
+  auto load_halo = [&](int tile, int buf) {
+    const int t0 = tile * tt;
+    float* dst = raw + buf * halo_n;
+    if (words) {
+      const int nq = hrow / 4;
+      for (int i = threadIdx.x; i < (tt + 2) * nq; i += kThreads) {
+        const int r = i / nq, q = i % nq, t = t0 - 1 + r;
+        const bool inside = t >= 0 && t < t_len;
+        cp_async16_zfill(dst + r * hp + P0 + 4 * q,
+                         xb + (inside ? (size_t)t * hrow : 0) + 4 * q, inside);
+      }
+    } else {
+      for (int i = threadIdx.x; i < (tt + 2) * hrow; i += kThreads) {
+        const int r = i / hrow, e = i % hrow, t = t0 - 1 + r;
+        dst[r * hp + P0 + e] =
+            t >= 0 && t < t_len ? xb[(size_t)t * hrow + e] : 0.f;
+      }
+    }
+  };
+
+  // B fragments (hi, lo) once: B[k][n] = w[k·C0 + ch(n)], zero past K,
+  // ch(8·nt + 2·q + e) = 8·q + 2·nt + e as conv_head_mma_kernel's, so that
+  // lane (gid, tig)'s accumulators are channels 8·tig … 8·tig + 7 in order.
+  uint32_t bh[HK::KS][4][2], bl[HK::KS][4][2];
+  float bs[4][2];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    const int ch = 8 * (gid >> 1) + 2 * nt + (gid & 1);
+#pragma unroll
+    for (int s = 0; s < HK::KS; ++s)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int k = 8 * s + tig + 4 * h;
+        split_tf32(k < HK::K ? w[k * C0 + ch] : 0.f, bh[s][nt][h],
+                   bl[s][nt][h]);
+      }
+    bs[nt][0] = bias[8 * tig + 2 * nt];
+    bs[nt][1] = bias[8 * tig + 2 * nt + 1];
+  }
+  // The lane's im2col offsets: columns 8·s + tig (+ 4) of each k8 step.
+  int ok0[HK::KS], ok1[HK::KS];
+#pragma unroll
+  for (int s = 0; s < HK::KS; ++s) {
+    auto koff = [&](int k) {
+      if (k >= HK::K) return kZeroK;
+      const int tap = k / CIN, ci = k % CIN;
+      return (tap / 3) * hp + (tap % 3 - 1) * CIN + ci;
+    };
+    ok0[s] = koff(8 * s + tig);
+    ok1[s] = koff(8 * s + tig + 4);
+  }
+  float s1[8], s2[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) s1[k] = s2[k] = 0.f;
+  int r0[2], f0[2];  // tile row and column of the lane's first two rows
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int p = 16 * warp + gid + 8 * hh;
+    r0[hh] = p / f_len;
+    f0[hh] = p - r0[hh] * f_len;
+  }
+
+  int it = 0;
+  if ((int)blockIdx.x < n_tiles) load_halo(blockIdx.x, 0);
+  cp_async_commit();
+#pragma unroll 1
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++it) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile's halo landed; the last tile's planes are read
+    const int nxt = tile + gridDim.x;
+    if (nxt < n_tiles) load_halo(nxt, (it + 1) & 1);
+    cp_async_commit();
+    const float* src = raw + (it & 1) * halo_n;
+    for (int i = 4 * threadIdx.x; i < halo_n; i += 4 * kThreads)  // the split
+      store_split_tf32(hi + i, lo + i,
+                       *reinterpret_cast<const float4*>(src + i));
+    __syncthreads();
+    const int t0 = tile * tt;
+    const int valid = min(tt, t_len - t0) * f_len;  // positions in the array
+    float* out_t = out + ((size_t)b * t_len + t0) * f_len * C0 + 8 * tig;
+    // warp w: m16 tiles w, w + 8, …; rows gid and gid + 8 of each at tile
+    // row r[hh], column f[hh], carried from one m16 tile to the next
+    int r[2] = {r0[0], r0[1]}, f[2] = {f0[0], f0[1]};
+#pragma unroll 1
+    for (int m = warp; m < mtiles; m += kWarps) {
+      int base[2];
+      bool ok[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        ok[hh] = 16 * m + gid + 8 * hh < valid;
+        base[hh] = ok[hh] ? r[hh] * hp + P0 + f[hh] * CIN : P0;
+        for (f[hh] += 16 * kWarps; f[hh] >= f_len; f[hh] -= f_len) ++r[hh];
+      }
+      float acc[4][4];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) acc[nt][k] = 0.f;
+#pragma unroll
+      for (int s = 0; s < HK::KS; ++s) {
+        uint32_t ah[4], al[4];
+        const int o[4] = {base[0] + ok0[s], base[1] + ok0[s],
+                          base[0] + ok1[s], base[1] + ok1[s]};
+        const bool z[4] = {ok0[s] == kZeroK, ok0[s] == kZeroK,
+                           ok1[s] == kZeroK, ok1[s] == kZeroK};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          ah[j] = z[j] ? 0u : __float_as_uint(hi[o[j]]);
+          al[j] = z[j] ? 0u : __float_as_uint(lo[o[j]]);
+        }
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+          mma_tf32x3(acc[nt], ah, al, bh[s][nt], bl[s][nt]);
+      }
+      // + bias, statistics, stores: lane (gid, tig) writes channels
+      // 8·tig … 8·tig + 7 of its two positions as two 16-byte words
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float v[8];
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            v[2 * nt + e] = __fadd_rn(acc[nt][2 * hh + e], bs[nt][e]);
+            if (ok[hh]) {
+              s1[2 * nt + e] += v[2 * nt + e];
+              s2[2 * nt + e] += v[2 * nt + e] * v[2 * nt + e];
+            }
+          }
+        if (ok[hh]) {
+          float* dst = out_t + (size_t)(16 * m + gid + 8 * hh) * C0;
+          *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+          *reinterpret_cast<float4*>(dst + 4) =
+              make_float4(v[4], v[5], v[6], v[7]);
+        }
+      }
+    }
+  }
+  if (stats == nullptr) return;
+  // One partial a block: over the quad columns by shuffles, then over the
+  // warps in order.
+  sum_over_gid(s1);
+  sum_over_gid(s2);
+  if (gid == 0) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      red[(warp * 2) * C0 + 8 * tig + k] = s1[k];
+      red[(warp * 2 + 1) * C0 + 8 * tig + k] = s2[k];
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < 2 * C0) {
+    const int which = threadIdx.x / C0, c = threadIdx.x % C0;
+    float v = 0.f;
+#pragma unroll
+    for (int wi = 0; wi < kWarps; ++wi) v += red[(wi * 2 + which) * C0 + c];
+    stats[((size_t)b * gridDim.x + blockIdx.x) * 2 * C0 + which * C0 + c] = v;
+  }
+}
+
 // Eight bf16 sums of two 16-byte words, each the exact sum rounded once
 // (bf16x2 additions), which is the fp32 sum rounded to bf16.
 __device__ __forceinline__ uint4 add_bf16x8(uint4 a, uint4 b) {
@@ -814,6 +1031,25 @@ cudaError_t launch_head_mma(const TilePlan& p, const void* x, const void* w,
   return cudaGetLastError();
 }
 
+template <int CIN>
+cudaError_t launch_head_tf32(const TilePlan& p, const void* x, const void* w,
+                             const float* bias, void* out, float* stats,
+                             int batch, int t_len, int f_len, cudaStream_t s) {
+  static int raised = 48 * 1024;  // per instantiation; one card per process
+  if (p.smem > raised) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        conv_head_tf32_kernel<CIN>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+    if (err != cudaSuccess) return err;
+    raised = p.smem;
+  }
+  conv_head_tf32_kernel<CIN>
+      <<<dim3(p.tiles, batch), kThreads, p.smem, s>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w), bias,
+      static_cast<float*>(out), stats, t_len, f_len, p.tile_t);
+  return cudaGetLastError();
+}
+
 template <int COUT>
 cudaError_t launch_tail_mma(const TilePlan& p, const void* h, const void* res,
                             const void* w, const float* bias, void* out,
@@ -893,6 +1129,22 @@ int ddim_conv_head(const void* x, const void* w, const float* bias, void* out,
       case 4:
         return static_cast<int>(launch_head_mma<4>(p, x, w, bias, out, stats,
                                                    batch, t_len, f_len, s));
+    }
+  }
+  if (p.variant == kVariantTf32) {
+    switch (c_in) {
+      case 1:
+        return static_cast<int>(launch_head_tf32<1>(p, x, w, bias, out, stats,
+                                                    batch, t_len, f_len, s));
+      case 2:
+        return static_cast<int>(launch_head_tf32<2>(p, x, w, bias, out, stats,
+                                                    batch, t_len, f_len, s));
+      case 3:
+        return static_cast<int>(launch_head_tf32<3>(p, x, w, bias, out, stats,
+                                                    batch, t_len, f_len, s));
+      case 4:
+        return static_cast<int>(launch_head_tf32<4>(p, x, w, bias, out, stats,
+                                                    batch, t_len, f_len, s));
     }
   }
   if (p.variant != kVariantFma) return static_cast<int>(cudaErrorInvalidValue);

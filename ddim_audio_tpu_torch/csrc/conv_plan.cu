@@ -151,10 +151,14 @@ int ddim_conv_tail_variant(int t_len, int f_len, int c0, int c_out,
   return ddim::conv_tail_plan(t_len, f_len, c0, c_out, bf16, 1).variant;
 }
 
-// Spatial tiles per sample of ddim_residual_affine (its partials' second
-// dimension).
-int ddim_residual_affine_tiles(int t_len, int f_len) {
-  return ddim::residual_affine_tiles(t_len, f_len);
+// The same for ddim_residual_affine (T, F, C, x kind, s kind: 0 fp32, 1
+// bf16, 2 int8; B): `tiles` = `grid` is the partials' second dimension,
+// one a persistent block.
+int ddim_residual_affine_plan(int t_len, int f_len, int c, int x_kind,
+                              int s_kind, int batch, int* out) {
+  return write_plan(
+      ddim::residual_affine_plan(t_len, f_len, c, x_kind, s_kind, batch),
+      out);
 }
 
 // The storage group of int8 activations: i = 0 → time rows, i = 1 →

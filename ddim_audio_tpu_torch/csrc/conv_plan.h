@@ -588,9 +588,10 @@ DDIM_HD TilePlan conv_up_dw_plan(int t_in, int f_in, int c_in, int c_out,
 // Cin-wide halos of TT + 2 rows and the statistics scratch.
 // The tail (C0 -> Cout) in bf16: a block owns a band of `tile_t` whole
 // output rows and slides down it, one input row at a time (h and residual
-// staged kTailStages rows ahead by cp.async); `tiles` is grid.x. fp32 (and
-// the head in bf16 at another C0) runs the CUDA-core kernels; a bf16 shape
-// whose rows do not fit in shared memory has no kernel.
+// staged kTailStages rows ahead by cp.async); `tiles` is grid.x. The fp32
+// tail, the head at another C0 and an fp32 head whose rows do not fit run
+// the CUDA-core kernels; a bf16 shape whose rows do not fit in shared
+// memory has no kernel.
 constexpr int kHeadMaxCin = 4;   // input channels of the head kernels, at most
 constexpr int kHeadPos = 512;    // positions a head tile aims at,
 constexpr int kHeadRows = 64;    // in at most this many rows
@@ -600,6 +601,18 @@ constexpr int kHeadStages = 2;   // head: output staging tiles
 constexpr int kTailStages = 1;   // tail: input rows in flight
 constexpr int kTailTt = 8, kTailFt = 16;  // CUDA-core tail block: 8 x 16
 
+// The fp32 head at C0 = 32 (Cin <= 4) runs the same persistent block in
+// split TF32 (conv_head_tf32_kernel): tiles of TT = kHead32Pos / F whole
+// rows (at least one, at most kHeadRows); the raw halo double-buffered for
+// cp.async and split once a tile into a TF32 hi and a lo plane (four
+// planes of TT + 2 rows of head32_halo_pitch floats); each lane stores its
+// outputs straight to global memory (no staging tile: staged for the
+// bulk-copy engine as the bf16 head's, they took 35% longer on an H100).
+// Two blocks an SM (the kernel's registers). An fp32 shape whose rows do
+// not fit takes the CUDA-core kernel.
+constexpr int kHead32Pos = 256;  // positions an fp32 head tile aims at
+constexpr int kHead32Pad = 4;    // floats before position 0 of a halo row
+
 // Elements of a head halo row: Cin-wide positions -1 ... F with 8 elements
 // of pad before position 0 (16-byte aligned copies) and a pitch of 32 mod 64
 // elements (16 mod 32 words), so that rows dt and dt + 1 of an im2col read
@@ -608,14 +621,37 @@ DDIM_HD int head_halo_pitch(int f, int c_in) {
   return (f * c_in + 16 + 63) / 64 * 64 + 32;
 }
 
+// Floats of an fp32 head halo row: kHead32Pad floats of pad, positions
+// -1 ... F, rounded up to 32 words and 20 more (20 mod 32), so that the
+// A fragment reads of a warp that span two halo rows (taps 2 and 3 at
+// Cin = 2) fall in distinct banks.
+DDIM_HD int head32_halo_pitch(int f, int c_in) {
+  return (kHead32Pad + (f + 1) * c_in + 31) / 32 * 32 + 20;
+}
+
+DDIM_HD int head_tile_rows(int f, int pos) {
+  return f >= pos ? 1 : f * kHeadRows >= pos ? pos / f : kHeadRows;
+}
+
 DDIM_HD TilePlan conv_head_plan(int t, int f, int c_in, int c0, int bf16,
                                 int batch) {
   TilePlan p;
   const bool ok = c_in >= 1 && c_in <= kHeadMaxCin;
+  if (ok && !bf16 && c0 == kHeadC0) {
+    const int tt = head_tile_rows(f, kHead32Pos);
+    p.tile_t = tt;
+    p.tile_f = f;
+    const int tiles = cdiv(t, tt), cap = cdiv(kFillBlocks, batch);
+    p.tiles = tiles < cap ? tiles : cap;
+    p.groups = 1;
+    p.split = 1;
+    p.smem = 4 * (tt + 2) * head32_halo_pitch(f, c_in) * 4 + kMmaRed;
+    p.variant = kVariantTf32;
+    if (p.smem <= kSmemLimit) return p;  // else rows too wide: CUDA cores
+    p = TilePlan();
+  }
   if (ok && bf16 && c0 == kHeadC0) {
-    const int tt = f >= kHeadPos                ? 1
-                   : f * kHeadRows >= kHeadPos ? kHeadPos / f
-                                               : kHeadRows;
+    const int tt = head_tile_rows(f, kHeadPos);
     const int m = cdiv(tt * f, 16 * kHeadMU) * 16 * kHeadMU;
     p.variant = kVariantMma;
     p.tile_t = tt;
@@ -686,10 +722,48 @@ DDIM_HD int store_tiles(int t_len, int f_len) {
   return cdiv(t_len, kTtS) * cdiv(f_len, kFtS);
 }
 
-// residual_affine.cu: one block a storage group × 32 channels, so its
-// statistics partials are one a group.
-DDIM_HD int residual_affine_tiles(int t_len, int f_len) {
-  return store_tiles(t_len, f_len);
+// residual_affine.cu: persistent blocks of kResThreads threads, each on
+// one sample (grid.y) and one group of 32 channels (grid.z), walking the
+// sample's storage groups (kTtS × kFtS positions × those 32 channels, a
+// "unit") blockIdx.x, + gridDim.x, …, the next kResStages − 1 units' x, s
+// and scale rows in flight by cp.async. A stage holds one unit of x and s
+// (32 channels a position at their operand widths: kind 0 fp32, 1 bf16,
+// 2 int8) and both scale rows; kResRed bytes take the amax exchange and
+// the statistics. grid.x is as many blocks as stay resident on the card
+// (at most kResBlocks an SM, which the kernel's registers are bounded
+// for), spread over the batch and channel groups; each block writes one
+// statistics partial, so `tiles` = `grid` is the partials' second
+// dimension. Variant 0 (CUDA cores) at C % 32 == 0, else none.
+constexpr int kResThreads = 128;  // four warps: a unit's 16 columns
+constexpr int kResStages = 3;     // units a block has staged or in flight
+constexpr int kResBlocks = 4;     // resident blocks an SM, at most
+constexpr int kResRed = 1024;     // bytes of the amax and statistics scratch
+
+DDIM_HD int res_kind_bytes(int kind) {
+  return kind == 0 ? 4 : kind == 1 ? 2 : 1;
+}
+
+DDIM_HD int residual_affine_stage(int x_kind, int s_kind) {
+  return kTtS * kFtS * 32 * (res_kind_bytes(x_kind) + res_kind_bytes(s_kind)) +
+         2 * 32 * 4;
+}
+
+DDIM_HD TilePlan residual_affine_plan(int t, int f, int c, int x_kind,
+                                      int s_kind, int batch) {
+  TilePlan p;
+  p.variant = c > 0 && c % 32 == 0 ? kVariantFma : kVariantNone;
+  p.tile_t = kTtS;
+  p.tile_f = kFtS;
+  p.groups = cdiv(c, 32);
+  p.split = p.groups;
+  p.smem = kResStages * residual_affine_stage(x_kind, s_kind) + kResRed;
+  int per_sm = kSmemPerSm / (p.smem + 1024);
+  if (per_sm > kResBlocks) per_sm = kResBlocks;
+  const int units = store_tiles(t, f);
+  const int cap = cdiv(per_sm * kSMs, batch * p.groups);
+  p.grid = units < cap ? units : cap;
+  p.tiles = p.grid;
+  return p;
 }
 
 // Storage groups whose scales a conv3x3 tile of tile_t × kFtS positions

@@ -75,7 +75,8 @@ _SIGNATURES = {
     "ddim_store_geometry": (_I,),
     # T, F, C, bf16, B, int8 operands (x, residual), out[8]
     "ddim_conv3x3_store_plan": (_I,) * 6 + (_P,),
-    "ddim_residual_affine_tiles": (_I,) * 2,
+    # T, F, C, x kind, s kind, B, out[8]
+    "ddim_residual_affine_plan": (_I,) * 6 + (_P,),
     # x, x_scales, res, res_scales, pre_scale, pre_shift, w, add, out,
     # out_scales, stats, B, T, F, C, x_q, res_q, pre_silu, post_silu, bf16,
     # stream

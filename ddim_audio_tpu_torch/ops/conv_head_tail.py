@@ -20,11 +20,13 @@ bf16 takes the tensor-core kernels wherever their plan
 576 FMAs an output position would hold CUDA cores at 85% of its byte bound
 (1.2 G FMA a sample at 8192 × 256), so its products run as an im2col MMA
 (K = 9·C_in, N = C0 = 32), and the tail moves its three column taps into N
-(K = 3·C0, N = 3·C_out). fp32 keeps the CUDA-core kernels. The head's
-statistics are per-(sample, channel) [B, C0] sums of per-block partials
-(one a persistent block on the tensor cores, one a 64-position tile on CUDA
-cores) finished by ``torch.sum`` (deterministic); the TPU kernel's per-lane
-sums fold to the same thing.
+(K = 3·C0, N = 3·C_out). The fp32 head at C0 = 32 runs the same persistent
+block in split TF32 (hi + lo TF32 a value, three products: fp32 accuracy)
+wherever its rows fit, audio.yml's among them; the fp32 tail keeps the
+CUDA-core kernel. The head's statistics are per-(sample, channel) [B, C0]
+sums of per-block partials (one a persistent block on the tensor cores, one
+a 64-position tile on CUDA cores) finished by ``torch.sum``
+(deterministic); the TPU kernel's per-lane sums fold to the same thing.
 """
 
 from __future__ import annotations

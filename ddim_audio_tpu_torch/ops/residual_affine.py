@@ -13,8 +13,11 @@ scales, for the next block's conv); ``want_stats`` adds its per-channel
 GroupNorm's statistics).
 
 On a CUDA tensor ``residual_affine_flat`` launches the hand-written Hopper
-kernel (``csrc/residual_affine.cu``); on a CPU tensor it runs the plain twin
-``residual_affine_flat_plain``. No fallback from one to the other.
+kernel (``csrc/residual_affine.cu``: persistent blocks that walk storage
+groups with the next ones' operands in flight, one statistics partial a
+block, its plan ``tile_plan.residual_affine_plan``); on a CPU tensor it runs
+the plain twin ``residual_affine_flat_plain``. No fallback from one to the
+other.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ from .conv_flat import (
     per_sample,
     quantize_store,
 )
-from .tile_plan import residual_affine_tiles
+from .tile_plan import residual_affine_plan
 
 
 def _out_dtype(x, s, out_dtype):
@@ -87,7 +90,8 @@ def residual_affine_flat(x, s, affine=None, *, c: int, x_scales=None,
     out_dtype (default: s's dtype if float, else x's, else bf16), or with
     quant_out (int8 out, scales); want_stats appends (sum [B, C],
     sum² [B, C]) of the fp32 result. On a CUDA tensor this launches
-    ``csrc/residual_affine.cu`` (C % 32 == 0)."""
+    ``csrc/residual_affine.cu`` (C % 32 == 0; x, s and their scales 16-byte
+    aligned)."""
     kw = dict(c=c, x_scales=x_scales, s_scales=s_scales, quant_out=quant_out,
               want_stats=want_stats, out_dtype=out_dtype)
     if use_twin(x):
@@ -114,6 +118,9 @@ def residual_affine_flat(x, s, affine=None, *, c: int, x_scales=None,
         check_operand(v, name, device=dev, shape=x.shape)
         if sc is not None:
             _scales_operand(sc, b, t, f, c, f"{name}_scales", dev)
+        if any(u is not None and u.data_ptr() % 16 for u in (v, sc)):
+            raise ValueError(f"residual_affine_flat kernel: {name} and its "
+                             "scales must be 16-byte aligned")
     odt = torch.int8 if quant_out else _out_dtype(x, s, out_dtype)
     if odt not in kinds:
         raise TypeError(f"residual_affine_flat: out dtype {odt}")
@@ -127,12 +134,13 @@ def residual_affine_flat(x, s, affine=None, *, c: int, x_scales=None,
         out_scales = torch.empty((b, -(-t // STORE_GROUP[0]),
                                   -(-f // STORE_GROUP[1]), c),
                                  dtype=torch.float32, device=dev)
+    plan = residual_affine_plan(t, f, c, kinds[x.dtype], kinds[s.dtype], b)
     with torch.cuda.device(dev):
         lib = _store_lib()
         stats = None
-        if want_stats:
-            stats = torch.empty((b, residual_affine_tiles(t, f), 2, c),
-                                dtype=torch.float32, device=dev)
+        if want_stats:  # one partial a persistent block
+            stats = torch.empty((b, plan.tiles, 2, c), dtype=torch.float32,
+                                device=dev)
         err = lib.ddim_residual_affine(
             ptr(x), ptr(x_scales), ptr(s), ptr(s_scales), ptr(scale),
             ptr(shift), ptr(out), ptr(out_scales), ptr(stats), b, t, f, c,

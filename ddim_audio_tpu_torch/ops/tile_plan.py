@@ -1,6 +1,7 @@
 """Tile plans of the conv3x3, up-conv, down-conv, int8-tap conv3x3, int8-tap
-up and down conv, int8-storage conv3x3, head and tail kernels and of the
-three convs' weight gradients, in Python.
+up and down conv, int8-storage conv3x3, head and tail kernels, of the
+int8-storage resblock tail (``residual_affine``) and of the three convs'
+weight gradients, in Python.
 
 A model of ``csrc/conv_plan.h``: which variant a call takes (0: CUDA cores,
 1: tensor cores, 2: tensor cores in split TF32, -1: no kernel takes the
@@ -16,7 +17,7 @@ functions (``ddim_conv3x3_plan``, ``ddim_conv_up_plan``,
 ``ddim_conv_down_dw_plan``, ``ddim_conv_up_dw_plan``,
 ``ddim_conv3x3_int8_plan``,
 ``ddim_conv3x3_store_plan``, ``ddim_conv_head_plan``,
-``ddim_conv_tail_plan``, ``ddim_residual_affine_tiles``) built by the host
+``ddim_conv_tail_plan``, ``ddim_residual_affine_plan``) built by the host
 compiler; ``chip_smoke.py`` against the kernel library on the card.
 """
 
@@ -59,6 +60,8 @@ FMA_POS = 64             # positions per block of the CUDA-core kernels
 HEAD_MAX_CIN = 4         # input channels of the head kernels, at most
 HEAD_POS = 512           # positions a tensor-core head tile aims at,
 HEAD_ROWS = 64           # in at most this many rows
+HEAD32_POS = 256         # positions an fp32 head tile aims at
+HEAD32_PAD = 4           # floats before position 0 of its halo rows
 HEAD_C0 = 32             # output channels of the tensor-core head
 HEAD_MU = 2              # m16 tiles a head warp computes at once
 HEAD_STAGES = 2          # head: output staging tiles
@@ -66,6 +69,10 @@ TAIL_STAGES = 1          # tail: input rows in flight
 TAIL_FMA_TILE = (8, 16)  # the CUDA-core tail block's output tile
 SMS = 132                # an H100's SMs
 SMEM_PER_SM = 233_472    # shared memory of an SM
+RES_STAGES = 3           # residual_affine: units staged or in flight a
+                         # block,
+RES_BLOCKS = 4           # resident blocks an SM, at most,
+RES_RED = 1024           # bytes of its amax and statistics scratch
 
 
 class TilePlan(NamedTuple):
@@ -419,10 +426,31 @@ def store_tiles(t: int, f: int) -> int:
     return _cdiv(t, STORE_GROUP[0]) * _cdiv(f, STORE_GROUP[1])
 
 
-def residual_affine_tiles(t: int, f: int) -> int:
-    """Statistics partials per sample of ``ddim_residual_affine``: one a
-    storage group (its block is a group × 32 channels)."""
-    return store_tiles(t, f)
+def res_kind_bytes(kind: int) -> int:
+    """Bytes of a value of operand kind 0 (fp32), 1 (bf16) or 2 (int8)."""
+    return (4, 2, 1)[kind]
+
+
+def residual_affine_plan(t: int, f: int, c: int, x_kind: int, s_kind: int,
+                         batch: int = 1) -> TilePlan:
+    """The plan of ``ddim_residual_affine`` at [batch, t, f, c] with x and s
+    of kinds ``x_kind`` and ``s_kind`` (0 fp32, 1 bf16, 2 int8): persistent
+    blocks of 128 threads, one sample (grid.y) and one group of 32
+    channels (grid.z) a block, walking the sample's storage groups ("units"
+    of 8 × 16 positions × 32 channels) ``grid`` apart with RES_STAGES units
+    staged or in flight; ``grid`` as many blocks as stay resident (at most
+    RES_BLOCKS an SM) spread over batch and groups, and ``tiles`` = ``grid``
+    statistics partials a sample, one a block. Variant 0 (CUDA cores) at
+    C % 32 == 0, else none."""
+    q_t, q_f = STORE_GROUP
+    stage = q_t * q_f * 32 * (res_kind_bytes(x_kind)
+                              + res_kind_bytes(s_kind)) + 2 * 32 * 4
+    smem = RES_STAGES * stage + RES_RED
+    per_sm = min(SMEM_PER_SM // (smem + 1024), RES_BLOCKS)
+    groups = _cdiv(c, 32)
+    grid = min(store_tiles(t, f), _cdiv(per_sm * SMS, batch * groups))
+    variant = VARIANT_FMA if c > 0 and c % 32 == 0 else VARIANT_NONE
+    return TilePlan(variant, q_t, q_f, grid, groups, groups, smem, grid)
 
 
 def conv3x3_store_plan(t: int, f: int, c: int, bf16: bool, batch: int = 1,
@@ -458,15 +486,30 @@ def head_halo_pitch(f: int, c_in: int) -> int:
     return _cdiv(f * c_in + 16, 64) * 64 + 32
 
 
+def head32_halo_pitch(f: int, c_in: int) -> int:
+    """Floats of an fp32 head halo row (20 words mod 32, HEAD32_PAD floats
+    of pad)."""
+    return _cdiv(HEAD32_PAD + (f + 1) * c_in, 32) * 32 + 20
+
+
 def conv_head_plan(t: int, f: int, c_in: int, c0: int, bf16: bool,
                    batch: int = 1) -> TilePlan:
-    """The plan of ``ddim_conv_head`` at [batch, t, f, c_in] → c0. bf16 at
-    C0 = 32: the persistent tensor-core kernel, tiles of ``tile_t`` whole
-    rows (HEAD_POS positions, at least one row and at most HEAD_ROWS),
+    """The plan of ``ddim_conv_head`` at [batch, t, f, c_in] → c0. At
+    C0 = 32 the persistent tensor-core kernels, tiles of ``tile_t`` whole
+    rows (bf16: HEAD_POS positions, fp32: HEAD32_POS; at least one row and
+    at most HEAD_ROWS),
     ``tiles`` = blocks a sample = statistics partials a sample (one a
-    block), no kernel where its rows do not fit in shared memory; else the
-    CUDA-core kernel, one partial a 64-position tile."""
+    block); bf16 on mma.sync bf16 and no kernel where its rows do not fit
+    in shared memory, fp32 in split TF32 and the CUDA-core kernel where
+    they do not fit; else the CUDA-core kernel, one partial a 64-position
+    tile."""
     cin_ok = 1 <= c_in <= HEAD_MAX_CIN
+    if cin_ok and not bf16 and c0 == HEAD_C0:
+        tt = 1 if f >= HEAD32_POS else min(HEAD32_POS // f, HEAD_ROWS)
+        smem = 4 * (tt + 2) * head32_halo_pitch(f, c_in) * 4 + MMA_RED
+        if smem <= SMEM_LIMIT:
+            blocks = min(_cdiv(t, tt), _cdiv(FILL_BLOCKS, batch))
+            return TilePlan(VARIANT_TF32, tt, f, blocks, 1, 1, smem)
     if cin_ok and bf16 and c0 == HEAD_C0:
         tt = 1 if f >= HEAD_POS else min(HEAD_POS // f, HEAD_ROWS)
         m = _cdiv(tt * f, 16 * HEAD_MU) * 16 * HEAD_MU

@@ -6,8 +6,20 @@ convs goes, on the card: each kernel built again with one piece of its work
 taken out.
 
     python -m ddim_audio_tpu_torch.tools.conv_ablation [--out FILE]
-        [--kernels conv3x3,up,down,int8,store,head,tail,down32,upi8,conv32,up32,downi8,downdw32,dw32,updw32]
+        [--kernels conv3x3,up,down,int8,store,head,tail,down32,upi8,conv32,up32,downi8,downdw32,dw32,updw32,resaff,head32]
         [--csrc DIR]
+
+``resaff`` (``residual_affine.cu`` at s0-s3 in the int8-storage forward's
+interior mode: int8 x and s with their scales, the affine, ``quant_out``,
+statistics) takes ``no_prefetch`` (each group staged when it is computed),
+``vec4`` (4-byte copies instead of 16), ``no_amax`` (the amax over the
+block's warps), ``no_stores`` (the int8 outputs and scales) and, from the
+unedited build, ``no_stats`` (the call without statistics); the kernel
+first written takes ``no_amax`` and ``no_stores``. ``head32`` (the fp32
+head at 8192 x 256 with statistics, against one fp32 cuDNN call with TF32
+off) takes the head's ``no_mma``, ``no_halo``, ``no_epilogue`` (its
+stores) and ``no_stats``, ``no_split`` and the design not taken
+``tile512`` (tiles of 512 positions).
 
 Copies ``csrc`` (or ``--csrc``, another checkout's kernel sources, e.g. a
 parent's unpacked under ``exp/parent/``) into a temporary folder once per
@@ -130,7 +142,7 @@ TRAIN_UPS = [(t // 2, f // 2, co, ci) for t, f, ci, co in TRAIN_DOWNS]
 DOWNS_I8 = [(8192, 256, 32, 64)]
 SOURCES = ("conv3x3.cu", "conv_strided.cu", "conv_strided_int8.cu",
            "conv3x3_int8.cu", "conv3x3_store.cu", "conv_head_tail.cu",
-           "conv_dw.cu", "conv_plan.cu")
+           "conv_dw.cu", "residual_affine.cu", "conv_plan.cu")
 _MMA = ("warp_mma_k16(acc, aa,", "if (s < 0) warp_mma_k16(acc, aa,")
 _RING3 = (r"if \(s \+ kConvStages - 1 < nsteps\)\n      Blk::load_stage",
           "if (false)\n      Blk::load_stage")
@@ -187,7 +199,10 @@ HEAD_TAIL_EDITS = {
          (r"\n              mma_bf16\(acc\[u\]\[nt\], a, bw\[s\]",
           "\n              if (tile < 0) mma_bf16(acc[u][nt], a, bw[s]"),
          (r"mma_bf16_k8\(acc\[u\]\[nt\], a0, a1, bw8",
-          "if (tile < 0) mma_bf16_k8(acc[u][nt], a0, a1, bw8")),
+          "if (tile < 0) mma_bf16_k8(acc[u][nt], a0, a1, bw8"),
+         # the fp32 head's split-TF32 MMAs
+         (r"mma_tf32x3\(acc\[nt\], ah, al",
+          "if (tile < 0) mma_tf32x3(acc[nt], ah, al")),
         # tail: the FMAs; the MMAs
         ((r"acc\[i\]\[co\] = fmaf\(v, wr", "if (tap < 0) acc[i][co] = fmaf(v, wr"),
          (r"mma_bf16\(acc\[nt\], a, \*reinterpret_cast",
@@ -219,7 +234,10 @@ HEAD_TAIL_EDITS = {
         ((r"if \(t < t_len && f < f_len && co < c0\) \{",
           "if (t < t_len && f < f_len && co < c0 && c_in < 0) {"),
          (r"if \(threadIdx.x == 0\) \{  // the tile's rows",
-          "if (threadIdx.x == 0 && t_len < 0) {  // the tile's rows")),
+          "if (threadIdx.x == 0 && t_len < 0) {  // the tile's rows"),
+         # the fp32 head's stores from the lanes
+         (r"if \(ok\[hh\]\) \{\n(\s*)float\* dst = out",
+          "if (ok[hh] && t_len < 0) {\n\\1float* dst = out")),
         # tail: the shuffle tree over the lanes and the stores; the shifted
         # sum of P and the stores
         ((r"for \(int m = 16; m > 0; m >>= 1\)\n        acc\[i\]\[co\]",
@@ -234,7 +252,47 @@ HEAD_TAIL_EDITS = {
         # (sum, sum²) in registers
         ((r"if \(stats != nullptr\) \{\n    float\* dst",
           "if (stats != nullptr && c_in < 0) {\n    float* dst"),
-         (r"if \(ok\[u\]\[hh\]\) \{", "if (ok[u][hh] && t_len < 0) {")),
+         (r"if \(ok\[u\]\[hh\]\) \{", "if (ok[u][hh] && t_len < 0) {"),
+         # the fp32 head's (sum, sum²) in registers
+         (r"if \(ok\[hh\]\) \{\n(\s*)s1\[", "if (ok[hh] && t_len < 0) {\n\\1s1[")),
+    ],
+}
+# The fp32 head's tiles of 512 positions rather than 256 (conv_plan.h; a
+# checkout without the split-TF32 head builds this variant unedited)
+HEAD32_PLAN_EDITS = {
+    "tile512": [((r"kHead32Pos = 256;", "kHead32Pos = 512;"),)],
+}
+# The int8-storage resblock tail (residual_affine.cu): the persistent kernel
+# (its edits first) and the one-group-a-block kernel first written.
+# ``no_prefetch`` stages each unit when it is computed (one stage);
+# ``vec4`` copies 4 bytes at a time instead of 16; ``no_amax`` the group's
+# amax over the block's warps (its barrier and exchange; the first kernel:
+# its barrier); ``no_stores`` the int8 outputs and scales. The first kernel
+# has no prefetch and no vectors: those columns repeat its ``full``.
+RESAFF_EDITS = {
+    "no_prefetch": [((r"kResStages = 3;", "kResStages = 1;"),)],
+    "vec4": [((r"kResCopy = 16;", "kResCopy = 4;"),)],
+    "no_amax": [
+        ((r"      __syncthreads\(\);\n      float4 m = ",
+          "      float4 m = "),
+         (r"red\[warp \* 32 \+ lane\] = am;\n    __syncthreads\(\);",
+          "red[warp * 32 + lane] = am;")),
+        ((r"w < kResThreads / 32; \+\+w\) \{\n        const float4 o",
+          "w < 1; ++w) {\n        const float4 o"),
+         (r"for \(int k = 1; k < kWarps; \+\+k\) amax",
+          "for (int k = 1; k < 1; ++k) amax")),
+    ],
+    "no_stores": [
+        ((r"if \(r < rows\)\n          \*reinterpret_cast<uint32_t\*>\(q",
+          "if (r < rows && c < 0)\n          *reinterpret_cast<uint32_t*>(q"),
+         (r"if \(t < t_len && f0 \+ i < f_len\)\n        q\[",
+          "if (t < t_len && f0 + i < f_len && c < 0)\n        q[")),
+        ((r"if \(warp == 0 && lane < 8\)\n        \*reinterpret_cast<float4\*>\(\n"
+          r"            out_scales",
+          "if (warp == 0 && lane < 8 && c < 0)\n"
+          "        *reinterpret_cast<float4*>(\n            out_scales"),
+         (r"if \(warp == 0\) out_scales\[g\]",
+          "if (warp == 0 && c < 0) out_scales[g]")),
     ],
 }
 DOWN32_EDITS = {
@@ -321,7 +379,8 @@ TF32_SPLIT_EDITS = {
           "\n  const uint4 l = make_uint4(0u, 0u, 0u, 0u);"),),
     ],
 }
-OPTIONAL = ("no_split", "tile64", "ksets1", "up64")
+OPTIONAL = ("no_split", "tile64", "ksets1", "up64", "tile512",
+            "no_prefetch", "vec4")
 UPI8_EDITS = {
     "no_mma": [
         # the int8 MMAs of the two-pass kernel; of the persistent one
@@ -428,9 +487,14 @@ ALT_EDITS = {"conv_head_tail.cu": HEAD_TAIL_EDITS,
              "conv3x3.cu": CONV32_EDITS,
              "conv_mma.cuh": TF32_SPLIT_EDITS,
              "conv_dw.cu": {**DW32_EDITS, **DW_DESIGN_CHECK},
-             "conv_plan.h": DW_DESIGN_EDITS}
+             "conv_plan.h": {**DW_DESIGN_EDITS, **HEAD32_PLAN_EDITS,
+                             **{k: v for k, v in RESAFF_EDITS.items()
+                                if k == "no_prefetch"}},
+             "residual_affine.cu": {k: v for k, v in RESAFF_EDITS.items()
+                                    if k != "no_prefetch"}}
 KERNELS = ("conv3x3", "up", "down", "int8", "store", "head", "tail", "down32",
-           "upi8", "conv32", "up32", "downi8", "downdw32", "dw32", "updw32")
+           "upi8", "conv32", "up32", "downi8", "downdw32", "dw32", "updw32",
+           "resaff", "head32")
 # the variants each fp32 / int8 kind's own edits add
 KIND_EDITS = {"down32": DOWN32_EDITS, "upi8": UPI8_EDITS,
               "downi8": UPI8_EDITS,
@@ -439,7 +503,11 @@ KIND_EDITS = {"down32": DOWN32_EDITS, "upi8": UPI8_EDITS,
               "dw32": {**DW32_EDITS, **TF32_SPLIT_EDITS, **DW_DESIGN_EDITS},
               "updw32": {**DW32_EDITS, **TF32_SPLIT_EDITS, **DW_DESIGN_EDITS},
               "conv32": {**CONV32_EDITS, **TF32_SPLIT_EDITS},
-              "up32": {**DOWN32_EDITS, **TF32_SPLIT_EDITS}}
+              "up32": {**DOWN32_EDITS, **TF32_SPLIT_EDITS},
+              "resaff": RESAFF_EDITS,
+              "head32": {**{k: v for k, v in HEAD_TAIL_EDITS.items()
+                            if k not in ("no_weights",)},
+                         **TF32_SPLIT_EDITS, **HEAD32_PLAN_EDITS}}
 
 
 def apply_alternatives(d: Path, name: str) -> dict:
@@ -473,7 +541,7 @@ def build(root: Path, csrc: Path, variants) -> dict:
         shutil.copytree(csrc, d)
         for fn in ("conv3x3.cu", "conv_strided.cu", "conv_strided_int8.cu",
                    "conv3x3_int8.cu", "conv3x3_store.cu", "conv_head_tail.cu",
-                   "conv_dw.cu"):
+                   "conv_dw.cu", "residual_affine.cu"):
             q = d / fn
             q.write_text(q.read_text()
                          .replace("static bool raised = false;",
@@ -522,6 +590,8 @@ def build(root: Path, csrc: Path, variants) -> dict:
         lib.ddim_conv_dw.argtypes = [ctypes.c_void_p] * 3 \
             + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         lib.ddim_conv_dw_splits.argtypes = [ctypes.c_int] * 7
+        lib.ddim_residual_affine.argtypes = [ctypes.c_void_p] * 9 \
+            + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         if hasattr(lib, "ddim_conv_up_int8"):  # the persistent up kernel
             lib.ddim_conv_up_int8.argtypes = [ctypes.c_void_p] * 7 \
                 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
@@ -581,7 +651,7 @@ def main(argv=None) -> int:
         return 2
     # the variants that edit something the chosen kernels run
     variants = ["full"]
-    if todo - {"head", "tail", "conv32", "up32"}:
+    if todo - {"head", "tail", "conv32", "up32", "resaff", "head32"}:
         variants += [v for v, e in VARIANTS.items() if e]
     if todo & {"head", "tail"}:
         variants += [v for v in HEAD_TAIL_EDITS if v not in variants]
@@ -996,6 +1066,55 @@ def main(argv=None) -> int:
                     row.append("cudnn "
                                f"{cuda_ms(lambda: F.conv2d(xn, wl, padding=1)):.4f}")
                     emit(" | ".join(row))
+            for t, f, c in STAGES[:4] if "resaff" in todo else ():
+                # the int8-storage forward's interior tail: int8 x and s
+                # with their scales, the GroupNorm affine, quant_out
+                q, qsc = quantize_store(rnd(bsz, t, f, c))
+                s8, ssc = quantize_store(rnd(bsz, t, f, c))
+                sc, sh = 1 + 0.1 * rnd(bsz, c), 0.1 * rnd(bsz, c)
+                out, out_sc = torch.empty_like(q), torch.empty_like(qsc)
+                # as many partials as either kernel writes (one a group)
+                stats = torch.empty(bsz, qsc.shape[1] * qsc.shape[2], 2, c,
+                                    device="cuda")
+                row = [f"resaff B{bsz} C{c}"]
+                for name, lib in libs.items():
+                    def run(lib=lib, stats_on=True):
+                        err = lib.ddim_residual_affine(
+                            q.data_ptr(), qsc.data_ptr(), s8.data_ptr(),
+                            ssc.data_ptr(), sc.data_ptr(), sh.data_ptr(),
+                            out.data_ptr(), out_sc.data_ptr(),
+                            stats.data_ptr() if stats_on else None, bsz, t,
+                            f, c, 2, 2, 2, st)
+                        if err:
+                            raise RuntimeError(f"ddim_residual_affine {name}: "
+                                               f"{err}")
+                    row.append(f"{name} {cuda_ms(run):.4f}")
+                    if name == "full":
+                        row.append("no_stats "
+                                   f"{cuda_ms(lambda: run(stats_on=False)):.4f}")
+                emit(" | ".join(row))
+            for t, f in HEAD_TAIL if "head32" in todo else ():
+                x = rnd(bsz, t, f * 2)
+                wh, bh = rnd(3, 3, 2, 32, scale=0.2), rnd(32)
+                out_h = torch.empty(bsz, t, f * 32, device="cuda")
+                stats = torch.empty(bsz, _fma_plan(t, f, 32).tiles, 2, 32,
+                                    device="cuda")
+                row = [f"head32 B{bsz} T{t} F{f}"]
+                for name, lib in libs.items():
+                    def run(lib=lib):
+                        err = lib.ddim_conv_head(
+                            x.data_ptr(), wh.data_ptr(), bh.data_ptr(),
+                            out_h.data_ptr(), stats.data_ptr(), bsz, t, f, 2,
+                            32, 0, st)
+                        if err:
+                            raise RuntimeError(f"ddim_conv_head {name}: {err}")
+                    row.append(f"{name} {cuda_ms(run):.4f}")
+                wl = wh.permute(3, 2, 0, 1).contiguous(
+                    memory_format=torch.channels_last)
+                xn = x.view(bsz, t, f, 2).permute(0, 3, 1, 2)
+                row.append("cudnn fp32 "
+                           f"{cuda_ms(lambda: F.conv2d(xn, wl, padding=1)):.4f}")
+                emit(" | ".join(row))
     if args.out:
         Path(args.out).write_text("\n".join(lines) + "\n")
     return 0

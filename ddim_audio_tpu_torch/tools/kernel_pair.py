@@ -9,8 +9,14 @@ of this package in one machine, in turns.
     (cd <other checkout> && python3 <this checkout>/ddim_audio_tpu_torch/tools/kernel_pair.py LABEL [KINDS])
 
 KINDS is a comma-separated subset of
-down,int8,store,head,tail,down32,upi8,conv32,up32,downi8,downdw32,dw32,updw32
-(default: all thirteen).
+down,int8,store,head,tail,down32,upi8,conv32,up32,downi8,downdw32,dw32,updw32,resaff,head32
+(default: all fifteen).
+``resaff`` is the int8-storage resblock tail (``residual_affine_flat``) at
+s0-s3 in the int8-storage forward's interior mode (int8 x and s with their
+scales, the GroupNorm affine, ``quant_out``, statistics; no single PyTorch
+call computes it);
+``head32`` the fp32 head (2 -> 32, with statistics) at 8192 x 256 against
+one fp32 cuDNN call (TF32 off).
 ``down32`` is the fp32 down conv at the five training transitions of one
 microbatch [1, 2, 1024, 256] with statistics, against one fp32 cuDNN call
 (TF32 off); ``conv32`` the fp32 conv3x3 at its six stages with every fusion
@@ -66,7 +72,7 @@ TRAIN_STAGES = [(1024, 256, 32), (512, 128, 64), (256, 64, 96), (128, 32, 128),
 TRAIN_UPS = [(t // 2, f // 2, co, ci) for t, f, ci, co in TRAIN_DOWNS]
 DOWNS_I8 = [(8192, 256, 32, 64)]
 KINDS = ("down", "int8", "store", "head", "tail", "down32", "upi8", "conv32",
-         "up32", "downi8", "downdw32", "dw32", "updw32")
+         "up32", "downi8", "downdw32", "dw32", "updw32", "resaff", "head32")
 
 
 # Cycles the card sleeps before the timed calls (~25-35 ms), so that the
@@ -121,7 +127,8 @@ def main(argv=None) -> int:
     from torch.nn.grad import conv2d_weight
 
     from ddim_audio_tpu_torch.ops import (conv_flat, conv_head_tail,
-                                          conv_strided, flat_grad)
+                                          conv_strided, flat_grad,
+                                          residual_affine)
 
     torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -337,6 +344,31 @@ def main(argv=None) -> int:
                 print(f"{label} {kind} B{bsz} T{t} F{f} kernel {k:.4f} cudnn "
                       f"{lib:.4f} ratio {k / lib:.2f} host "
                       f"{host_us(torch, fn):.1f} us/call", flush=True)
+        for t, f, c in STORE_STAGES if "resaff" in kinds else ():
+            x = rnd(bsz, t, f, c)
+            q, sc = conv_flat.quantize_store(x)
+            s8, ssc = conv_flat.quantize_store(rnd(bsz, t, f, c))
+            aff = (1 + 0.1 * rnd(bsz, c), 0.1 * rnd(bsz, c))
+            k = cuda_ms(torch, lambda: residual_affine.residual_affine_flat(
+                q, s8, aff, c=c, x_scales=sc, s_scales=ssc, quant_out=True,
+                want_stats=True))
+            add(("resaff", bsz), k)
+            print(f"{label} resaff B{bsz} C{c} kernel {k:.4f}", flush=True)
+        for t, f in HEAD_TAIL if "head32" in kinds else ():
+            x = rnd(bsz, t, f * 2)
+            wh, bh = rnd(3, 3, 2, 32, scale=0.2), rnd(32)
+            fn = lambda: conv_head_tail.conv_head_flat(  # noqa: E731
+                x, wh, bh, c_in=2, c0=32, want_stats=True)
+            k = cuda_ms(torch, fn)
+            wl = wh.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            xn = x.view(bsz, t, f, 2).permute(0, 3, 1, 2)
+            lib = cuda_ms(torch, lambda: F.conv2d(xn, wl, padding=1))
+            add(("head32", bsz), k)
+            add(("head32 cudnn", bsz), lib)
+            print(f"{label} head32 B{bsz} T{t} F{f} kernel {k:.4f} cudnn "
+                  f"{lib:.4f} ratio {k / lib:.2f} host "
+                  f"{host_us(torch, fn):.1f} us/call", flush=True)
     for (name, bsz), v in sorted(sums.items()):
         print(f"{label} sum {name} B{bsz} {v:.4f}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

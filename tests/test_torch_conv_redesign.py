@@ -54,6 +54,7 @@ from ddim_audio_tpu_torch.ops.tile_plan import (
     conv_up_plan,
     dw_tf32_threads,
     library_plan,
+    residual_affine_plan,
 )
 
 torch.set_num_threads(2)
@@ -100,7 +101,8 @@ def plan_lib(tmp_path_factory):
                     ("ddim_conv_tail_plan", 6),
                     ("ddim_conv_down_int8_plan", 6),
                     ("ddim_conv_down_dw_plan", 6),
-                    ("ddim_conv3x3_dw_plan", 6), ("ddim_conv_up_dw_plan", 6)):
+                    ("ddim_conv3x3_dw_plan", 6), ("ddim_conv_up_dw_plan", 6),
+                    ("ddim_residual_affine_plan", 6)):
         getattr(lib, name).argtypes = [ctypes.c_int] * n + [ctypes.c_void_p]
     lib.ddim_dw_tf32_threads.argtypes = [ctypes.c_int]
     return lib
@@ -290,15 +292,46 @@ def test_tile_plans_match_the_c_plans(plan_lib):
                         *shape, bf16) == want.variant
     for b in (1, 2):
         for t, f in ((8192, 256), (40, 24)):
-            # bf16 on the tensor cores, fp32 on CUDA cores, both shapes
+            # bf16 on the tensor cores, the fp32 head in split TF32 on
+            # them, the fp32 tail on CUDA cores, both shapes
             head = conv_head_plan(t, f, 2, 32, True, b)
             tail = conv_tail_plan(t, f, 32, 2, True, b)
+            head32 = conv_head_plan(t, f, 2, 32, False, b)
             assert head.variant == tail.variant == VARIANT_MMA
-            assert conv_head_plan(t, f, 2, 32, False, b).variant == \
-                conv_tail_plan(t, f, 32, 2, False, b).variant == VARIANT_FMA
-            assert head.tile_f == tail.tile_f == f  # whole rows
+            assert head32.variant == VARIANT_TF32
+            assert conv_tail_plan(t, f, 32, 2, False, b).variant == \
+                VARIANT_FMA
+            assert head.tile_f == tail.tile_f == head32.tile_f == f
         # one statistics partial a block: about FILL_BLOCKS blocks in all
         assert conv_head_plan(8192, 256, 2, 32, True, b).tiles * b == 264
+        # fp32: one row of 256 positions a tile, two blocks an SM
+        head32 = conv_head_plan(8192, 256, 2, 32, False, b)
+        assert head32.tiles * b == 264 and head32.tile_t == 1
+        assert 2 * (head32.smem + 1024) <= 233_472
+    # residual_affine (T, F, C, x kind, s kind: 0 fp32, 1 bf16, 2 int8): a
+    # sweep of ragged shapes and every kind; at the storage stages in the
+    # int8-storage forward's modes a persistent grid of at most four blocks
+    # an SM over the batch and channel groups, one partial a block
+    res = [(t, f, c) for t in (1, 7, 8, 9, 33, 300) for f in (1, 8, 15, 16,
+                                                              17, 40)
+           for c in (16, 32, 64, 96, 128, 256, 1024)] + STORE_STAGES
+    for t, f, c in res:
+        for xk in (0, 1, 2):
+            for sk in (0, 1, 2):
+                for b in (1, 2, 3):
+                    want = library_plan(plan_lib.ddim_residual_affine_plan, t,
+                                        f, c, xk, sk, b)
+                    assert residual_affine_plan(t, f, c, xk, sk, b) == want, \
+                        (t, f, c, xk, sk, b)
+                    assert want.variant == (VARIANT_FMA if c % 32 == 0
+                                            else VARIANT_NONE)
+    for t, f, c in STORE_STAGES:
+        for b in (1, 2):
+            for xk in (1, 2):  # a stage entry (bf16 x), an interior block
+                plan = residual_affine_plan(t, f, c, xk, 2, b)
+                assert plan.grid == plan.tiles < -(-t // 8) * -(-f // 16)
+                assert plan.grid * b * plan.groups == 4 * 132
+                assert plan[1:3] == (8, 16) and plan.groups == c // 32
     # two tail blocks an SM: bands of 32 rows
     assert conv_tail_plan(8192, 256, 32, 2, True, 1)[1:4] == (32, 256, 256)
     # fp32 down at the training shapes: 128 positions a block (256 at C_out

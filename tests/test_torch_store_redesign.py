@@ -39,7 +39,8 @@ from ddim_audio_tpu_torch.ops.tile_plan import (
     VARIANT_MMA,
     conv3x3_plan,
     conv3x3_store_plan,
-    residual_affine_tiles,
+    library_plan,
+    residual_affine_plan,
 )
 from tests.test_torch_conv_redesign import plan_lib  # noqa: F401 (fixture)
 
@@ -78,16 +79,23 @@ def test_tensor_core_tiles_are_whole_storage_groups():
 
 
 def test_residual_affine_partials_unchanged(plan_lib):  # noqa: F811
-    """residual_affine_flat's statistics partials stay one per storage group
-    (its block is a group × 32 channels), in the Python model and in the C
-    query its wrapper and kernel size them from, whatever the storage conv's
-    tiles are."""
+    """residual_affine_flat's statistics partials are one a persistent
+    block, which walks whole storage groups (8 × 16 positions × 32
+    channels), in the Python model and in the C query its wrapper and
+    kernel size them from: never more than the storage groups of a sample,
+    whatever the storage conv's tiles are; the storage group stays 8 × 16."""
     for t, f, c in STORE_STAGES + [(1, 1, 32), (9, 17, 64), (19, 40, 128)]:
-        want = -(-t // GT) * -(-f // GF)
-        assert residual_affine_tiles(t, f) == want
-        assert plan_lib.ddim_residual_affine_tiles(t, f) == want
+        groups = -(-t // GT) * -(-f // GF)
+        for b in (1, 2):
+            plan = residual_affine_plan(t, f, c, 2, 2, b)
+            assert plan == library_plan(plan_lib.ddim_residual_affine_plan,
+                                        t, f, c, 2, 2, b)
+            assert plan[1:3] == (GT, GF) and plan.tiles == plan.grid
+            assert 1 <= plan.tiles <= groups
+            if t >= 4096:  # s0, s1: far fewer partials than groups
+                assert plan.tiles * 4 <= groups
         if t >= 1024:  # the storage conv's tiles: as coarse or coarser
-            assert conv3x3_store_plan(t, f, c, True, 1).tiles <= want
+            assert conv3x3_store_plan(t, f, c, True, 1).tiles <= groups
     assert [plan_lib.ddim_store_geometry(i) for i in range(3)] == \
         [GT, GF, -1]
 
