@@ -131,7 +131,23 @@ phase on its own lines:
    to step 5; the unbroken 5-step run, whose checkpoint must equal the
    resumed one bit for bit (parameters, optimizer state, EMA); ``--test``;
    ``--sample`` from that checkpoint; a 2-step ``model.dtype: bfloat16`` run
-   whose losses track the fp32 run's; ms per optimizer step by CUDA events.
+   whose losses track the fp32 run's; ms per optimizer step by CUDA events;
+10. parallel: the command line with ``parallel: {dp: 2}`` in one plain
+   process exits 1 with the mesh's refusal (one process is one rank); then
+   two ranks on the one card in a gloo group (NCCL refuses two ranks on one
+   device; the port's code is the same for both backends), spawned from
+   this process: the sp = 2 forward (``parallel.sp.apply_model_sp``, each
+   rank a [1, 2, 4096, 256] block) against the single-device kernel
+   forward, fp32 float taps and production, with the conv3x3 launches of
+   each shard (36 float + 28 int8 taps in production, every one on a block
+   with one halo row a side; head, tail and transitions plain), the
+   collectives of a forward and the host time in them, and the ms of an sp
+   shard's forward, of the sp route on one rank and of the single-device
+   forward; the runner's ``sample_last_only`` (4 DDIM steps, 2 clips,
+   production) on sp = 2 and on dp = 2 against one device's run, rank 0
+   alone writing the files; one fp32 dp = 2 training step (a microbatch
+   [1, 2, 1024, 256] a rank, the launches of one microbatch each) against
+   one device's grad_accum 2 step, leaf by leaf.
 
 Every failure raises and the script exits non-zero. The last three lines are
 the card, the per-kernel JSON summary and ``{"ok": true, "device": {...}}``.
@@ -257,6 +273,29 @@ TOL_GRAD_LEAF = 1e-4
 # data, timesteps and noise), relative (an H100 read 7.4e-5 from init
 # weights, where the resblock branches are still multiplied by zero).
 TOL_BF16_LOSS = 2e-2
+# [parallel]: two gloo ranks on the one card (NCCL refuses two ranks on one
+# device). The sp = 2 forward against the single-device kernel forward on
+# the same weights and input. fp32 float taps: the plain transitions run
+# cuDNN fp32 with TF32 off and the statistics are summed over the cropped
+# blocks, the same arithmetic in another order (an H100 read 121.94 dB).
+# Production (bf16, int8 taps): the int8 quantisation tiles fall otherwise
+# on a haloed block, so each route carries its own int8 noise of 28 convs
+# and the two differ by about both (an H100 read 25.69 dB); against the fp32
+# float-tap output the sp route is held to the single-device production
+# guard, SNR_FWD_PROD_GN3_DB.
+SNR_SP_FP32_DB = 100.0
+SNR_SP_PROD_DB = 23.7
+# 4 DDIM steps of the runner on sp = 2 and on dp = 2 against one device's
+# run of the same 2-clip batch, production config, each clip on its own, 2
+# dB under an H100's reading: sp 27.19 dB (the int8 noise drawn anew, as
+# above); dp 31.98 dB (a rank's batch of 1 against one device's batch of 2:
+# last-bit differences that bf16 and the int8 requant carry on)
+SNR_SP_CHAIN_DB = 25.2
+SNR_DP_CHAIN_DB = 30.0
+# one fp32 dp = 2 step (a microbatch a rank) against one device's
+# grad_accum 2 step: every leaf of parameters, optimizer state and EMA
+# within this of its leaf's scale (an H100 read all 1,557 leaves bit-equal)
+TOL_DP_STEP = 1e-6
 
 # Published H100 SXM peaks: HBM bytes/s and dense operations/s by operand type
 # (fp32 outside the tensor cores; "tf32x3": the split-TF32 fp32 conv3x3, up
@@ -338,6 +377,11 @@ PER_FORWARD_I8 = dict(PER_FORWARD_FLOAT, conv3x3_flat=24, conv3x3_flat_store=40,
                       conv_down_flat_int8=1, conv_up_flat=3,
                       conv_up_flat_int8=2)
 DW_KERNELS = ("conv_dw_flat", "conv_down_dw_flat", "conv_up_dw_flat")
+# one sp shard's forward ([parallel]): the resblock convs on haloed blocks;
+# the head, the tail and the transitions run as plain convs there
+PER_SHARD_FLOAT = dict(PER_FORWARD_FLOAT, conv_head_flat=0, conv_tail_flat=0,
+                       conv_down_flat=0, conv_up_flat=0)
+PER_SHARD_PROD = dict(PER_SHARD_FLOAT, conv3x3_flat=36, conv3x3_flat_int8=28)
 
 
 def forward_counts() -> dict:
@@ -2174,6 +2218,328 @@ def _time_train_step():
         del state, params
 
 
+def _parallel_cli_refusal():
+    """The command line with ``parallel: {dp: 2}`` in one plain process (no
+    launcher: one rank) exits 1 with the mesh's error."""
+    import logging
+
+    import yaml
+
+    from ddim_audio_tpu_torch import cli
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with open("configs/audio.yml") as f:
+            raw = yaml.safe_load(f)
+        raw["parallel"] = {"dp": 2, "sp": 1}
+        path = os.path.join(tmp, "audio_dp2.yml")
+        with open(path, "w") as f:
+            yaml.safe_dump(raw, f)
+        seen = []
+
+        class Keep(logging.Handler):
+            def emit(self, record):
+                seen.append(record.getMessage())
+
+        keep = Keep(level=logging.ERROR)
+        logging.getLogger().addHandler(keep)
+        try:
+            code = cli.main(["--config", path, "--doc", "none", "--exp", tmp,
+                             "--ni", "--sample", "--verbose", "error",
+                             "--timesteps", "2", "-i", "x"])
+        finally:
+            logging.getLogger().handlers.clear()
+    want = "mesh dp×sp = 2×1 needs 2 devices, have 1"
+    text = "\n".join(seen)
+    log(f"[parallel] CLI, parallel dp 2 in one plain process: exit {code}, "
+        f"'{want}' in the log: {want in text}")
+    require(code == 1 and want in text, f"CLI refusal: exit {code}, log "
+            f"{text[-500:]}")
+
+
+def _timed(fn, n=3):
+    """Host ms per call of fn over n calls after one, the card synchronised
+    (the sp forwards wait on gloo between kernels: host pace)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+class _CollectiveClock:
+    """Counts the collectives the sp code issues and the host time spent
+    in them (gloo stages every CUDA tensor through host memory)."""
+
+    def __init__(self):
+        import torch.distributed as dist
+
+        self.dist, self.calls, self.seconds = dist, 0, 0.0
+        self.orig = {n: getattr(dist, n) for n in ("all_gather", "all_reduce")}
+
+    def __enter__(self):
+        def wrap(fn):
+            def timed(*a, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    self.calls += 1
+                    self.seconds += time.perf_counter() - t0
+            return timed
+
+        for name, fn in self.orig.items():
+            setattr(self.dist, name, wrap(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.dist, name, fn)
+
+
+def _parallel_rank(rank, world, init):
+    """One of the two ranks of the [parallel] phase, on cuda:0 in a gloo
+    group. Rank 0 prints and holds the results; a failure on either rank
+    ends both."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dist.init_process_group("gloo", init_method=init, world_size=world,
+                            rank=rank, timeout=datetime.timedelta(seconds=300))
+    try:
+        _parallel_body(rank)
+    finally:
+        dist.destroy_process_group()
+
+
+def _parallel_body(rank):
+    import copy
+    from types import SimpleNamespace
+
+    import torch
+    import torch.distributed as dist
+
+    from ddim_audio_tpu_torch.config import production_eval_cfg
+    from ddim_audio_tpu_torch.diffusion.schedules import make_schedule
+    from ddim_audio_tpu_torch.models.unet import (apply_model_flat_io,
+                                                  flat_io_adapters,
+                                                  prepare_params)
+    from ddim_audio_tpu_torch.ops import launch_counts, reset_launch_counts
+    from ddim_audio_tpu_torch.parallel.mesh import Mesh, make_mesh, shard_batch
+    from ddim_audio_tpu_torch.parallel.sp import (apply_model_sp,
+                                                  apply_model_sp_local,
+                                                  sp_sampling_bundle)
+    from ddim_audio_tpu_torch.runners.diffusion_runner import Diffusion
+    from ddim_audio_tpu_torch.tools import audio_model, forward_input
+    from ddim_audio_tpu_torch.training.train_step import (init_train_state,
+                                                          make_train_step)
+    from ddim_audio_tpu_torch.utils.namespace import dict2namespace
+    from ddim_audio_tpu_torch.weights import flatten_train_state
+
+    say = log if rank == 0 else (lambda msg: None)
+    config, cfg, params = audio_model()
+    x, t = forward_input(cfg)
+    cfg_prod = production_eval_cfg(config, cfg)
+    sp2 = make_mesh(dict2namespace({"dp": 1, "sp": 2}))
+    dp2 = make_mesh(dict2namespace({"dp": 2, "sp": 1}))
+    to_flat, from_flat = flat_io_adapters(cfg)
+    xf = to_flat(x).contiguous()
+    say(f"[parallel] 2 ranks on cuda:0, sp = 2 and dp = 2 meshes; audio.yml "
+        f"seed-made weights (non-zero GN3), x [1, 2, 8192, 256] (T_loc = 4096)")
+
+    # 1. the sp = 2 forward against the single-device kernel forward
+    fp32 = {}
+    for name, c, floor, want in (
+            ("fp32 float taps", cfg, SNR_SP_FP32_DB, PER_SHARD_FLOAT),
+            ("production (bf16, int8 taps)", cfg_prod, SNR_SP_PROD_DB,
+             PER_SHARD_PROD)):
+        packed = sp_sampling_bundle(params, c, sp2, x.shape[2])
+        torch.cuda.synchronize()
+        dist.barrier()
+        reset_launch_counts()
+        with _CollectiveClock() as clock:
+            out = apply_model_sp(params, x, t, c, sp2, packed=packed)
+            torch.cuda.synchronize()
+        counts = forward_counts()
+        require(counts == want, f"rank {rank} sp {name}: launches {counts} "
+                f"!= {want}")
+        require(bool(torch.isfinite(out).all()), f"sp {name} not finite")
+        xl, tl = shard_batch(sp2, x, time_axis=2), shard_batch(sp2, t)
+        ms_sp = _timed(lambda: apply_model_sp_local(packed, xl, tl, c, sp2))
+        dist.barrier()
+        if rank == 0:
+            p1 = prepare_params(params, c)
+            ref = from_flat(apply_model_flat_io(p1, xf, t, c))
+            snr, (d, rel) = snr_db(out, ref), rel_err(out, ref)
+            ms_one = _timed(lambda: apply_model_flat_io(p1, xf, t, c))
+            whole = Mesh(dp=1, sp=1, rank=0)
+            ms_route = _timed(lambda: apply_model_sp_local(packed, x, t, c,
+                                                           whole))
+            log(f"[parallel] sp = 2 forward, {name}, vs the single-device "
+                f"kernel forward: SNR {snr:.2f} dB (>= {floor}), max|diff| "
+                f"{d:.3e} ({rel:.2e} of max) | launches per shard {counts}")
+            log(f"[parallel] sp = 2 forward, {name}: {clock.calls} "
+                f"collectives a forward, {clock.seconds * 1e3:.1f} ms of host "
+                f"time in them ({clock.seconds * 1e3 / max(clock.calls, 1):.2f}"
+                f" ms each) | ms per forward (host pace): sp = 2 shard "
+                f"{ms_sp:.1f} (both ranks on the one card at once), the sp "
+                f"route on one rank over the whole clip (no collectives) "
+                f"{ms_route:.1f}, single-device kernel forward {ms_one:.1f}")
+            require(snr >= floor, f"sp {name}: SNR {snr:.2f} < {floor} dB")
+            if not fp32:
+                fp32.update(sp=out, one=ref)
+            else:
+                sp_vs, one_vs = snr_db(out, fp32["sp"]), snr_db(ref, fp32["one"])
+                log(f"[parallel] {name} vs fp32 float taps: sp = 2 "
+                    f"{sp_vs:.2f} dB (>= {SNR_FWD_PROD_GN3_DB}, the "
+                    f"single-device production guard), single-device "
+                    f"{one_vs:.2f} dB")
+                require(sp_vs >= SNR_FWD_PROD_GN3_DB, f"sp {name} vs fp32: "
+                        f"SNR {sp_vs:.2f} < {SNR_FWD_PROD_GN3_DB} dB")
+            del p1, ref
+        dist.barrier()
+        del packed, out
+
+    # 2. and 3. the runner: 4 DDIM steps on sp = 2 and on dp = 2 against one
+    # device's run of the same 2-clip batch (audio.yml's num_samples)
+    steps = 4
+    clips = config.sampling.num_samples
+    with tempfile.TemporaryDirectory() as tmp:
+        def sample(dp, sp, label):
+            conf = copy.deepcopy(config)
+            conf.parallel = dict2namespace({"dp": dp, "sp": sp})
+            folder = os.path.join(tmp, label)
+            args = SimpleNamespace(seed=1234, timesteps=steps,
+                                   skip_type="uniform", eta=0.0,
+                                   sample_type="generalized",
+                                   image_folder=folder)
+            runner = Diffusion(args, conf, device="cuda:0")
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            out = runner.sample_last_only(params)
+            wall = time.perf_counter() - t0
+            files = sorted(os.listdir(folder)) if os.path.isdir(folder) else []
+            return out, forward_counts(), files, wall
+
+        want_files = sorted(f"{j}_final{e}" for j in range(clips)
+                            for e in (".png", ".wav"))
+        runs = {}
+        for label, dp, sp, per in (("sp", 1, 2, PER_SHARD_PROD),
+                                   ("dp", 2, 1, PER_FORWARD_PROD)):
+            out, counts, files, wall = sample(dp, sp, label)
+            fwd = steps  # a forward a step: sp runs both clips in one
+            want = {k: v * fwd for k, v in per.items()}
+            require(counts == want, f"rank {rank} {label} = 2 sampling: "
+                    f"launches {counts} != {want}")
+            require(files == (want_files if rank == 0 else []),
+                    f"rank {rank} {label} = 2 sampling wrote {files}")
+            require(out.shape == (clips, 2, 8192, 256)
+                    and bool(np.isfinite(out).all()),
+                    f"{label} = 2 sampling: {out.shape}, finite "
+                    f"{np.isfinite(out).all()}")
+            runs[label] = (out, counts, wall)
+            dist.barrier()
+        if rank == 0:
+            ref, counts1, _, wall1 = sample(1, 1, "one")
+            log(f"[parallel] runner sample_last_only, production config, "
+                f"{clips} clips, {steps} DDIM steps: one device {wall1:.2f} s "
+                f"host wall | launches {counts1}")
+            for label, floor in (("sp", SNR_SP_CHAIN_DB),
+                                 ("dp", SNR_DP_CHAIN_DB)):
+                out, counts, wall = runs[label]
+                snrs = [snr_db(torch.from_numpy(out[j]),
+                               torch.from_numpy(ref[j])) for j in range(clips)]
+                d = float(np.abs(out - ref).max())
+                log(f"[parallel] runner on {label} = 2 vs one device: clip "
+                    f"SNR {', '.join(f'{s:.2f}' for s in snrs)} dB (>= "
+                    f"{floor}), max|diff| {d:.3e}; rank 0 wrote "
+                    f"{len(want_files)} files, rank 1 none; {wall:.2f} s host "
+                    f"wall | launches per rank {counts}")
+                require(min(snrs) >= floor, f"{label} = 2 sampling: SNR "
+                        f"{min(snrs):.2f} < {floor} dB")
+        dist.barrier()
+
+    # 4. one fp32 dp = 2 training step against one device's grad_accum 2
+    alphas = make_schedule("linear", 1e-4, 0.02, 1000).alphas_cumprod
+    gen_x = torch.Generator().manual_seed(11)
+    x0 = (0.5 * torch.randn((2, cfg.channels, 1024, cfg.f_size),
+                            generator=gen_x)).cuda()
+
+    def one_step(accum, mesh):
+        conf = copy.deepcopy(config)
+        conf.training.grad_accum = accum
+        state, tx = init_train_state(copy.deepcopy(params),
+                                     conf.optimization, use_ema=True)
+        step = make_train_step(cfg, conf, alphas, tx, mesh=mesh)
+        gen = torch.Generator("cuda").manual_seed(5)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        state, metrics = step(state, x0, gen)
+        torch.cuda.synchronize()
+        return state, metrics, launch_counts(), time.perf_counter() - t0
+
+    one_step(1, dp2)  # warm-up: the first step on a rank initialises
+    state, metrics, counts, wall = one_step(1, dp2)
+    require(counts == PER_MICROBATCH, f"rank {rank} dp step: launches "
+            f"{counts} != {PER_MICROBATCH}")
+    dist.barrier()
+    if rank == 0:
+        one_step(2, None)  # warm-up
+        ref, ref_metrics, _, wall1 = one_step(2, None)
+        flat, flat_ref = flatten_train_state(state), flatten_train_state(ref)
+        require(flat.keys() == flat_ref.keys(), "train state keys differ")
+        worst, worst_key, equal = 0.0, "", 0
+        for k, b in flat_ref.items():
+            a = np.asarray(flat[k], np.float64)
+            b = np.asarray(b, np.float64)
+            equal += int(np.array_equal(a, b))
+            scale = max(float(np.abs(b).max(initial=0.0)), 1e-30)
+            rel = float(np.abs(a - b).max(initial=0.0)) / scale
+            if rel > worst:
+                worst, worst_key = rel, k
+        log(f"[parallel] fp32 dp = 2 train step (a microbatch [1, 2, 1024, "
+            f"256] a rank) vs one device's grad_accum 2 step: loss "
+            f"{float(metrics['loss']):.6f} vs {float(ref_metrics['loss']):.6f}"
+            f", {equal} of {len(flat_ref)} leaves bit-equal, worst leaf "
+            f"{worst:.2e} of its scale (<= {TOL_DP_STEP}) {worst_key} | "
+            f"{wall:.2f} s (two ranks on the one card at once) vs "
+            f"{wall1:.2f} s host wall | launches per rank {counts}")
+        require(worst <= TOL_DP_STEP, f"dp step: {worst_key} off by {worst:.2e}")
+    dist.barrier()
+
+
+def phase_parallel():
+    """[parallel]: the mesh's refusal in one plain process, then two gloo
+    ranks on the one card: the sp = 2 forward, the runner on sp = 2 and
+    dp = 2, the dp = 2 training step."""
+    import torch
+    import torch.multiprocessing as mp
+
+    _parallel_cli_refusal()
+    log("[parallel] backend: gloo, 2 ranks on cuda:0 (NCCL refuses two ranks "
+        "on one device; gloo runs all_reduce, all_gather and broadcast on "
+        "CUDA tensors, the only collectives the port issues)")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.start_processes(_parallel_rank,
+                           args=(2, "file://" + os.path.join(tmp, "rdzv")),
+                           nprocs=2, join=True, start_method="spawn")
+    log(f"[parallel] done in {time.perf_counter() - t0:.1f} s (spawn "
+        "included)")
+
+
 def main() -> int:
     import torch
 
@@ -2194,6 +2560,7 @@ def main() -> int:
         del params
         torch.cuda.empty_cache()
         phase_train(summary)
+        phase_parallel()
     except Exception as e:  # every phase failure ends the run non-zero
         import traceback
 

@@ -14,6 +14,14 @@ Same flags, same run-dir layout (checkpoints, ``config.yml`` and
 overwrites without asking; ``--resume_training`` keeps the folder) and exit
 code 1 on a failed run. ``--device`` (default ``cuda``) is the port's own
 flag.
+
+Under a launcher (``WORLD_SIZE`` > 1) every rank joins the process group
+first (``parallel.multihost.initialize``: ``cuda:LOCAL_RANK`` and NCCL, or
+gloo with ``--device cpu``), and ``config.parallel`` {dp, sp} lays the
+ranks out; rank 0 alone writes the run folder, its logs and the samples:
+
+    python -m torch.distributed.run --nproc_per_node 2 \\
+        -m ddim_audio_tpu_torch --config audio.yml --doc <run> --ni ...
 """
 
 from __future__ import annotations
@@ -72,7 +80,10 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def parse_args_and_config(argv=None):
+def parse_args_and_config(argv=None, *, writer: bool = True):
+    """(args, config). Only a ``writer`` (rank 0, or a plain process)
+    clears and creates folders and writes ``config.yml`` and the log file;
+    the other ranks log warnings and errors to the console alone."""
     from .config import dump_config, load_config
 
     args = build_parser().parse_args(argv)
@@ -84,7 +95,13 @@ def parse_args_and_config(argv=None):
     config = load_config(cfg_path)
     tb_path = os.path.join(args.exp, "tensorboard", args.doc)
 
-    if not args.test and not args.sample:
+    if not writer:
+        config.tb_logger = None
+        _setup_logging(args, file_log=False, level="warning")
+        if args.sample:
+            args.image_folder = os.path.join(args.exp, "image_samples",
+                                             args.image_folder)
+    elif not args.test and not args.sample:
         if not args.resume_training:
             if os.path.exists(args.log_path):
                 overwrite = args.ni or _ask(
@@ -134,8 +151,8 @@ def _ask(prompt):
     return input(prompt).upper() == "Y"
 
 
-def _setup_logging(args, *, file_log):
-    level = getattr(logging, args.verbose.upper(), None)
+def _setup_logging(args, *, file_log, level=None):
+    level = getattr(logging, (level or args.verbose).upper(), None)
     if not isinstance(level, int):
         raise ValueError("level {} not supported".format(args.verbose))
     formatter = logging.Formatter(
@@ -152,7 +169,21 @@ def _setup_logging(args, *, file_log):
 
 
 def main(argv=None) -> int:
-    args, config = parse_args_and_config(argv)
+    from .parallel import multihost
+
+    device = build_parser().parse_args(argv).device
+    if multihost.launched():
+        device = multihost.initialize(
+            device=None if device == "cuda" else device)
+    try:
+        return _run(argv, device, writer=multihost.world_rank() == 0)
+    finally:
+        if multihost.launched():
+            multihost.finalize()
+
+
+def _run(argv, device, *, writer: bool) -> int:
+    args, config = parse_args_and_config(argv, writer=writer)
     logging.info("Writing log file to {}".format(args.log_path))
     logging.info("Exp instance id = {}".format(os.getpid()))
     logging.info("Exp comment = {}".format(args.comment))
@@ -160,7 +191,7 @@ def main(argv=None) -> int:
     from .runners.diffusion_runner import Diffusion
 
     try:
-        runner = Diffusion(args, config, device=args.device)
+        runner = Diffusion(args, config, device=device)
         logging.info("Using device: {}".format(runner.device))
         if args.sample:
             runner.sample()

@@ -4,7 +4,8 @@ port of ``ddim_audio_tpu/data/codec.py`` with ``STFTConfig``/``_hann``/
 
 - ``wav2pfft(wave [N], cfg, t_size) → pfft [2, T, f_size]`` — the encoder
 - ``read_audio(path, samplerate)`` — ``.npy`` waveforms, ``.wav`` through
-  scipy, linearly resampled
+  the native library (``native_io``; scipy where it cannot be built),
+  linearly resampled
 - ``pfft2img(img [F, T, C]) → uint8 [F, T]`` — PNG-able spectrogram render
 - ``limit_length_img(img)`` — caps the rendered width
 - ``pfft2wav(img [F, T, C], samplerate, dtype=np.int32, HPI=False) → int PCM``
@@ -143,11 +144,19 @@ def limit_length_img(img: np.ndarray, max_len: int = 4096) -> np.ndarray:
 
 def read_audio(path: str, target_samplerate: int) -> np.ndarray:
     """Load .wav or .npy (raw float waveform) → float32 [-1, 1] mono,
-    linearly resampled to target_samplerate. WAVs decode through scipy."""
+    linearly resampled to target_samplerate. WAVs decode through the native
+    C++ library (``native/audio_io.cpp``, ``native_io``) when it builds, else
+    scipy."""
     if path.endswith(".npy"):
         wave = np.asarray(np.load(path), np.float32)
         sr = target_samplerate
     else:
+        from . import native_io
+
+        if native_io.available():
+            out = native_io.load_wav(path, target_samplerate)
+            if out is not None:
+                return out
         from scipy.io import wavfile
 
         sr, wave = wavfile.read(path)

@@ -19,6 +19,18 @@ fp32 state through the flat-io denoiser under ``production_eval_cfg`` (only
 the model call runs in the compute dtype), converts back to [N, C, T, F],
 applies ``denoise_2d`` when ``sampling.denoise`` is set, and writes a PNG and
 a WAV per sample.
+
+``config.parallel`` {dp, sp} lays the ranks of the process group out as a
+mesh (``parallel/mesh.py``; more than one device needs a launcher's ranks, a
+plain process has one). Every rank draws the whole start noise (and the
+per-step noise) from the seed and keeps its block: its slice of the batch on
+dp, and on sp its time block too, which the sampler carries in [B, C, T, F]
+through the sequence-parallel forward (``parallel/sp.py``). The ranks'
+results are gathered, so a mesh run's clips are a single-device run's, and
+rank 0 alone writes files. Training runs dp only: each rank computes its
+share of the microbatches and the gradients are averaged over the ranks
+(``make_train_step(mesh=)``); validation and ``test`` run whole on every
+rank.
 """
 
 from __future__ import annotations
@@ -44,6 +56,13 @@ from ..models.unet import (
     prepare_params,
 )
 from ..ops.signal import denoise_2d
+from ..parallel.mesh import gather_batch, make_mesh, shard_batch, world_rank
+from ..parallel.sp import (
+    SP_TRAINING_TODO,
+    apply_model_sp_local,
+    check_sp_time,
+    sp_sampling_bundle,
+)
 from ..sampling.driver import ScanSampler
 from ..training.losses import loss_registry
 from ..training.train_step import init_train_state, make_train_step
@@ -73,29 +92,15 @@ def _device_prefetch(host_iter, device):
         yield nxt
 
 
-def check_single_device(config) -> None:
-    """Raise ValueError where ``config.parallel`` asks for more than one
-    device (dp·sp > 1): the port runs on one device and has no data or
-    sequence parallelism yet, and a run that silently took one device in
-    place of the mesh the JAX package builds would be a different run."""
-    par = getattr(config, "parallel", None)
-    dp = int(getattr(par, "dp", 1) or 1)
-    sp = int(getattr(par, "sp", 1) or 1)
-    if dp * sp > 1:
-        raise ValueError(
-            f"config.parallel asks for dp={dp}, sp={sp} ({dp * sp} devices): "
-            "the PyTorch port runs on one device until parallelism is ported "
-            "(ROADMAP.md A3); set parallel.dp and parallel.sp to 1")
-
-
 class Diffusion:
     """args: namespace with seed, timesteps, skip_type, eta, sample_type,
     sequence, image_folder and log_path (the JAX CLI's names); config: the
     loaded YAML namespace; device: the card unless the caller asks for the
-    CPU."""
+    CPU (under a process group, the device this rank drives)."""
 
     def __init__(self, args, config, device="cuda"):
-        check_single_device(config)
+        self.mesh = make_mesh(getattr(config, "parallel", None))
+        self.is_writer = world_rank() == 0
         self.args = args
         self.config = config
         self.device = resolve_device(device)
@@ -156,6 +161,8 @@ class Diffusion:
                 config.training.n_iters is not None):
             raise ValueError("set exactly one of training.n_epochs and "
                              "training.n_iters")
+        if self.mesh is not None and self.mesh.sp > 1:
+            raise ValueError(SP_TRAINING_TODO)
         dataset, test_dataset = get_dataset(args, config)
         logging.info("dataset: %d train / %d test items", len(dataset),
                      len(test_dataset))
@@ -166,7 +173,8 @@ class Diffusion:
         state, tx = init_train_state(params, config.optimization,
                                      use_ema=bool(config.model.ema))
         train_step = make_train_step(self.model_cfg, config,
-                                     self.schedule.alphas_cumprod, tx)
+                                     self.schedule.alphas_cumprod, tx,
+                                     mesh=self.mesh)
 
         start_epoch, step = 0, 0
         if getattr(args, "resume_training", False):
@@ -176,7 +184,8 @@ class Diffusion:
             logging.info("resumed from step %d (epoch %d)", step, start_epoch)
 
         # one generator, re-seeded from (seed, step) before every step: the
-        # draws of step k do not depend on where a run started
+        # draws of step k do not depend on where a run started, nor on the
+        # rank (each rank reads the whole batch and keeps its slice)
         generator = torch.Generator(self.device)
         tb = getattr(config, "tb_logger", None)
         log_freq = int(getattr(config.training, "log_freq", 1))
@@ -271,7 +280,7 @@ class Diffusion:
 
     def start_noise(self) -> torch.Tensor:
         """x_T [num_samples, C, T, F] fp32 from args.seed (drawn on the CPU,
-        so it is the same numbers on every device)."""
+        so it is the same numbers on every device and every rank)."""
         config = self.config
         gen = torch.Generator().manual_seed(int(self.args.seed))
         shape = (config.sampling.num_samples, config.model.channels,
@@ -372,7 +381,7 @@ class Diffusion:
         return sampler.sample(
             x_state, seq, self.schedule, eta=args.eta,
             select_index=select_index, generator=gen,
-            params=prepare_params(params, self.eval_cfg),  # once per run
+            params=self._sampler_params(params, x),  # once per run
             buffer_dtype=getattr(self.config.sampling, "buffer_dtype",
                                  "float16") or "float16",
             timings=timings)
@@ -392,9 +401,9 @@ class Diffusion:
                                         args.skip_type)
         sampler, x_state, finalize = self._sampler_for_state(x)
         gen = torch.Generator().manual_seed(int(args.seed) + 1)
-        params = prepare_params(params, self.eval_cfg)  # once per run
         out = sampler.sample_last(x_state, seq, self.schedule, eta=args.eta,
-                                  generator=gen, params=params)
+                                  generator=gen,
+                                  params=self._sampler_params(params, x))
         out = finalize(out)
         if config.sampling.denoise:
             out = denoise_2d(out)
@@ -406,7 +415,9 @@ class Diffusion:
 
     def export(self, out: np.ndarray, names) -> None:
         """Write {name}.png and {name}.wav into args.image_folder for each
-        sample of out [N, C, T, F]."""
+        sample of out [N, C, T, F] (rank 0 only)."""
+        if not self.is_writer:
+            return
         from PIL import Image
         from scipy.io.wavfile import write as wav_write
 
@@ -420,28 +431,65 @@ class Diffusion:
             wav_write(path + ".wav",
                       config.data.dataset_kwargs.virtual_samplerate, wav)
 
+    def _sampler_params(self, params, x):
+        """The tree the sampler passes on every step, made once per run:
+        ``prepare_params`` under the eval config, or on sp meshes
+        ``sp_sampling_bundle``'s."""
+        if self.mesh is not None and self.mesh.sp > 1:
+            return sp_sampling_bundle(params, self.eval_cfg, self.mesh,
+                                      x.shape[2])
+        return prepare_params(params, self.eval_cfg)
+
     def _sampler_for_state(self, x):
         """(sampler, x_state, finalize) for a start noise x [B, C, T, F].
 
-        The sampler carries the unpadded flat fp32 state [B, T, F·C] across
-        steps and runs the kernel forward (``apply_model_flat_io``); kept
-        states convert back to [B, C, T, F] before they are buffered; noise
-        is drawn channel-shaped then reshaped, as the JAX package's flat-io
-        adapters."""
-        cfg = self.eval_cfg
+        The sampler carries this rank's block of the state (all of it
+        without a mesh). On one device and on dp meshes that is the unpadded
+        flat fp32 state [B, T, F·C] of the kernel forward
+        (``apply_model_flat_io``), with noise drawn channel-shaped then
+        reshaped, as the JAX package's flat-io adapters; on sp meshes the
+        block [B, C, T/sp, F] of the sequence-parallel forward
+        (``apply_model_sp_local``). Every rank draws the whole batch's noise
+        and keeps its block. Kept states and the final state are gathered
+        back to the global [B, C, T, F] on every rank (``finalize``)."""
+        cfg, mesh = self.eval_cfg, self.mesh
         kind = getattr(self.args, "sample_type", "generalized")
         scan_chunk = int(getattr(self.config.sampling, "scan_chunk", 100))
+        shape = tuple(x.shape)
+
+        if mesh is not None and mesh.sp > 1:
+            check_sp_time(shape[2], cfg, mesh.sp)
+
+            def sp_fn(params, xl, t):
+                return apply_model_sp_local(params, xl, t, cfg, mesh)
+
+            def sp_noise(gen, xl):
+                n = torch.randn(shape, generator=gen)
+                return shard_batch(mesh, n, time_axis=2).to(xl.device)
+
+            def gather(xl):
+                return gather_batch(mesh, xl, shape, time_axis=2)
+
+            sampler = ScanSampler(sp_fn, kind=kind, scan_chunk=scan_chunk,
+                                  state_to_saved=gather,
+                                  noise_builder=sp_noise)
+            return (sampler, shard_batch(mesh, x, time_axis=2).contiguous(),
+                    gather)
+
         to_flat, from_flat = flat_io_adapters(cfg)
 
         def flat(params, xf, t):
             return apply_model_flat_io(params, xf, t, cfg)
 
         def noise_builder(gen, xf):
-            b, t, _ = xf.shape
-            n = torch.randn((b, cfg.channels, t, cfg.f_size), generator=gen)
-            return to_flat(n.to(xf.device))
+            n = torch.randn((shape[0], cfg.channels, xf.shape[1], cfg.f_size),
+                            generator=gen)
+            return to_flat(shard_batch(mesh, n).to(xf.device))
+
+        def saved(xf):
+            return gather_batch(mesh, from_flat(xf), shape)
 
         sampler = ScanSampler(flat, kind=kind, scan_chunk=scan_chunk,
-                              state_to_saved=from_flat,
+                              state_to_saved=saved,
                               noise_builder=noise_builder)
-        return sampler, to_flat(x).contiguous(), from_flat
+        return sampler, to_flat(shard_batch(mesh, x)).contiguous(), saved

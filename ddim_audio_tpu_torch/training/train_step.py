@@ -3,7 +3,9 @@ antithetic timestep sampling, the simple ε-loss, exact gradient accumulation
 over ``training.grad_accum`` microbatches, per-group gradient clipping,
 per-group optimizers with Noam warmup, EMA: one function over a
 ``TrainState``, with no host synchronisation inside it. Metrics come back
-as device tensors that the host reads at its own cadence.
+as device tensors that the host reads at its own cadence. On a dp mesh each
+rank runs its share of the microbatches and one all-reduce averages the
+ranks' losses and gradients before the update, which every rank applies.
 """
 
 from __future__ import annotations
@@ -12,8 +14,11 @@ import dataclasses
 from typing import Any, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..models.unet import apply_model
+from ..parallel.mesh import batch_sharded, shard_batch
+from ..parallel.sp import SP_TRAINING_TODO
 from ..utils.tree import tree_leaves, tree_map
 from .ema import ema_init, ema_update
 from .losses import loss_registry
@@ -35,6 +40,31 @@ def antithetic_timesteps(generator, n: int, num_timesteps: int):
     return torch.cat([half, num_timesteps - half - 1])[:n]
 
 
+# spreads (step seed, microbatch) over generator seeds
+_MICRO_STRIDE = 1_000_003
+
+
+def micro_generator(generator, index: int):
+    """The generator of microbatch ``index`` (its global index in the step)
+    of the step whose generator is ``generator``: seeded from that
+    generator's seed and the index alone, so a microbatch draws the same
+    noise and dropout masks whichever rank runs it and whatever ran before
+    it. None stays None."""
+    if generator is None:
+        return None
+    seed = (generator.initial_seed() * _MICRO_STRIDE + index + 1) % (1 << 63)
+    return torch.Generator(generator.device).manual_seed(seed)
+
+
+def _all_reduce_sum(group, loss, grads):
+    """loss and grads summed over the group's ranks by one all-reduce of one
+    flat buffer."""
+    flat = torch.cat([loss.reshape(1)] + [g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=group)
+    parts = torch.split(flat[1:], [g.numel() for g in grads])
+    return flat[0], [p.view_as(g) for p, g in zip(parts, grads)]
+
+
 def init_train_state(params, optimization_cfg, *, use_ema: bool):
     """(state, tx): tx is the optimizer the step applies."""
     tx = build_optimizer(optimization_cfg, params)
@@ -53,7 +83,7 @@ def _collect_adabelief_stats(opt_state, out: dict) -> dict:
     return out
 
 
-def make_train_step(cfg, config, alphas_cumprod, tx):
+def make_train_step(cfg, config, alphas_cumprod, tx, mesh=None):
     """cfg: ModelConfig; config: the loaded YAML namespace; returns
     ``train_step(state, x0 [B, C, T, F], generator, *, noise_override=None)
     → (state, metrics)``.
@@ -63,12 +93,21 @@ def make_train_step(cfg, config, alphas_cumprod, tx):
     gradient as the full batch (the loss is a mean of per-sample sums) at
     1/A of the activation memory. A batch that A does not divide raises.
 
-    The generator (on the device of x0) draws the timesteps, each
-    microbatch's noise and the FNet dropout masks. ``noise_override=(t, e)``
-    injects the timesteps [B] and the noise [B, C, T, F] instead (the
-    sampler's ``noise_override`` likewise): torch cannot reproduce the JAX
-    package's random streams, so parity checks hand both the same
-    numbers."""
+    The generator (on the device of x0) draws the timesteps of the batch;
+    microbatch k's noise and FNet dropout masks come from
+    ``micro_generator(generator, k)``. ``noise_override=(t, e)`` injects the
+    timesteps [B] and the noise [B, C, T, F] instead (the sampler's
+    ``noise_override`` likewise): torch cannot reproduce the JAX package's
+    random streams, so parity checks hand both the same numbers.
+
+    ``mesh`` (dp only): x0, t and e are the global batch, the same on every
+    rank; rank d runs its slice of it as microbatches d·A … d·A + A − 1, and
+    the ranks' loss and gradient sums are added by one all-reduce before
+    they are averaged, clipped and applied, so a dp × A step is a
+    single-device grad_accum dp·A step (a batch that dp does not divide runs
+    whole on every rank). A mesh with sp > 1 raises."""
+    if mesh is not None and mesh.sp > 1:
+        raise ValueError(SP_TRAINING_TODO)
     loss_fn = loss_registry[config.model.type]
     num_timesteps = cfg.num_timesteps
     use_ema = bool(config.model.ema)
@@ -77,11 +116,6 @@ def make_train_step(cfg, config, alphas_cumprod, tx):
     alphas_on = {}  # device → the schedule as a tensor, made once
 
     def train_step(state: TrainState, x0, generator, *, noise_override=None):
-        n = x0.shape[0]
-        if n % grad_accum:
-            raise ValueError(
-                f"batch {n} not divisible by grad_accum {grad_accum}")
-        mb = n // grad_accum
         if x0.device not in alphas_on:
             alphas_on[x0.device] = torch.as_tensor(
                 alphas_cumprod, dtype=torch.float32, device=x0.device)
@@ -89,25 +123,41 @@ def make_train_step(cfg, config, alphas_cumprod, tx):
         if noise_override is not None:
             t, e_all = noise_override
         else:
-            t, e_all = antithetic_timesteps(generator, n, num_timesteps), None
+            t = antithetic_timesteps(generator, x0.shape[0], num_timesteps)
+            e_all = None
+        split = batch_sharded(mesh, x0.shape[0])
+        first = 0  # the global index of this rank's first microbatch
+        if split:
+            x0, t = shard_batch(mesh, x0), shard_batch(mesh, t)
+            if e_all is not None:
+                e_all = shard_batch(mesh, e_all)
+            first = mesh.dp_index * grad_accum
+        n = x0.shape[0]
+        if n % grad_accum:
+            raise ValueError(
+                f"batch {n} not divisible by grad_accum {grad_accum}")
+        mb = n // grad_accum
 
         leaves = tree_leaves(state.params)
         for p in leaves:
             p.requires_grad_(True)
-
-        def apply_fn(pp, x, tt):
-            return apply_model(pp, x, tt, cfg, train=True, generator=generator)
 
         try:
             loss_sum, grad_sum = None, None
             for g in range(grad_accum):
                 sl = slice(g * mb, (g + 1) * mb)
                 x0_mb = x0[sl]
+                gen = micro_generator(generator, first + g)
                 if e_all is not None:
                     e_mb = e_all[sl]
                 else:
-                    e_mb = torch.randn(x0_mb.shape, generator=generator,
+                    e_mb = torch.randn(x0_mb.shape, generator=gen,
                                        device=x0.device, dtype=x0.dtype)
+
+                def apply_fn(pp, x, tt, gen=gen):
+                    return apply_model(pp, x, tt, cfg, train=True,
+                                       generator=gen)
+
                 loss = loss_fn(apply_fn, state.params, x0_mb, t[sl], e_mb,
                                alphas)
                 grads = torch.autograd.grad(loss, leaves)
@@ -122,9 +172,14 @@ def make_train_step(cfg, config, alphas_cumprod, tx):
                 p.requires_grad_(False)
 
         with torch.no_grad():
-            if grad_accum > 1:
-                loss_sum = loss_sum / grad_accum
-                grad_sum = [g / grad_accum for g in grad_sum]
+            count = grad_accum
+            if split:
+                loss_sum, grad_sum = _all_reduce_sum(mesh.dp_group, loss_sum,
+                                                     grad_sum)
+                count *= mesh.dp
+            if count > 1:
+                loss_sum = loss_sum / count
+                grad_sum = [g / count for g in grad_sum]
             it = iter(grad_sum)
             grads = tree_map(lambda _: next(it), state.params)
             updates, opt_state = tx.update(grads, state.opt_state,

@@ -2,9 +2,11 @@
 ``data/audio_dataset.py``) against the JAX package's, on seed-made ``.npy``
 and ``.wav`` files: the same split and batch order, and the same arrays, bit
 for bit from ``.npy`` files (the code is the same numpy arithmetic). ``.wav``
-files are held to 2e-5 absolute: the JAX package decodes them through its
-native library where that is built, the port through scipy, and the two
-scale integers and interpolate in another order of operations."""
+files are held to 2e-5 absolute: both packages decode them through the
+native library (``native/audio_io.cpp``) where it builds, each through its
+own binding (bit for bit: tests/test_torch_stft_native.py), and through
+scipy where it does not, which scales integers and interpolates in another
+order of operations."""
 
 from types import SimpleNamespace
 

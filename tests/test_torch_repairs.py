@@ -1,8 +1,11 @@
 """Two faults of the port against the JAX package, on the CPU.
 
-- ``config.parallel``: the JAX package builds a dp × sp mesh from it (or
-  raises); the port runs on one device, so ``Diffusion`` and the command line
-  refuse dp·sp > 1 instead of running a different job on one device.
+- ``config.parallel``: the JAX package builds a dp × sp mesh from it, and
+  raises when there are fewer devices than dp·sp; the port builds its mesh
+  over the ranks of the process group (``parallel/mesh.py``), so in one plain
+  process ``Diffusion`` and the command line refuse dp·sp > 1 with the JAX
+  package's message instead of running a different job on one device; and
+  the training step refuses sp > 1, which is not ported yet.
 - The float resblock tail ``x + GN3(s)``: the port sums in the JAX package's
   order, ``x + s·scale3 + shift3`` (``ddim_audio_tpu/ops/flat_resblock.py``
   ``resblock_flat``), bit for bit against that expression under ``jax.jit``.
@@ -49,9 +52,30 @@ def _args(tmp_path):
 
 @pytest.mark.parametrize("dp,sp", [(2, 1), (1, 2), (2, 2)])
 def test_runner_refuses_more_than_one_device(tmp_path, dp, sp):
+    """One process is one rank: the mesh needs dp·sp of them (the JAX
+    package's ``make_mesh`` message). A training step on a mesh with sp > 1
+    raises whatever the ranks; dp alone builds."""
+    from ddim_audio_tpu_torch.diffusion.schedules import make_schedule
+    from ddim_audio_tpu_torch.models.unet import ModelConfig, init_model
+    from ddim_audio_tpu_torch.parallel.mesh import Mesh
+    from ddim_audio_tpu_torch.training.train_step import (init_train_state,
+                                                          make_train_step)
+
     config = load_config(_config_file(tmp_path, dp, sp))
-    with pytest.raises(ValueError, match="one device"):
+    with pytest.raises(ValueError, match=f"mesh dp×sp = {dp}×{sp} needs "
+                       f"{dp * sp} devices, have 1"):
         Diffusion(_args(tmp_path), config, device="cpu")
+    cfg = ModelConfig.from_config(config)
+    _, tx = init_train_state(init_model(torch.Generator().manual_seed(0), cfg,
+                                        device="cpu"),
+                             config.optimization, use_ema=False)
+    mesh = Mesh(dp=dp, sp=sp, rank=0)
+    alphas = make_schedule("linear", 1e-4, 0.02, 50).alphas_cumprod
+    if sp > 1:
+        with pytest.raises(ValueError, match="sequence-parallel training"):
+            make_train_step(cfg, config, alphas, tx, mesh=mesh)
+    else:
+        assert callable(make_train_step(cfg, config, alphas, tx, mesh=mesh))
 
 
 def test_runner_builds_on_one_device(tmp_path):
@@ -62,9 +86,10 @@ def test_runner_builds_on_one_device(tmp_path):
 
 @pytest.mark.parametrize("dp,sp", [(2, 1), (1, 2), (1, 1)])
 def test_cli_refuses_more_than_one_device(tmp_path, caplog, dp, sp):
-    """The command line reaches the runner: with dp·sp > 1 the run fails
-    (exit 1) with the runner's ValueError in the log; with 1 × 1 it gets past
-    the runner and fails only for want of a checkpoint."""
+    """The command line reaches the runner: in one plain process (no
+    launcher) dp·sp > 1 fails the run (exit 1) with the mesh's ValueError in
+    the log; with 1 × 1 it gets past the runner and fails only for want of a
+    checkpoint."""
     argv = ["--config", _config_file(tmp_path, dp, sp), "--doc", "none",
             "--exp", str(tmp_path / "exp"), "--ni", "--device", "cpu",
             "--sample", "--timesteps", "2", "-i", "out"]
@@ -73,8 +98,11 @@ def test_cli_refuses_more_than_one_device(tmp_path, caplog, dp, sp):
             assert cli.main(argv) == 1
     finally:
         logging.getLogger().handlers.clear()  # the CLI adds one per call
-    refused = "ValueError: config.parallel asks for" in caplog.text
+    refused = (f"ValueError: mesh dp×sp = {dp}×{sp} needs {dp * sp} "
+               "devices, have 1") in caplog.text
     assert refused == (dp * sp > 1), caplog.text[-2000:]
+    if dp * sp == 1:
+        assert "ckpt.npz" in caplog.text, caplog.text[-2000:]
 
 
 @jax.jit
