@@ -289,7 +289,8 @@ SNR_SP_PROD_DB = 23.7
 # run of the same 2-clip batch, production config, each clip on its own, 2
 # dB under an H100's reading: sp 27.19 dB (the int8 noise drawn anew, as
 # above); dp 31.98 dB (a rank's batch of 1 against one device's batch of 2:
-# last-bit differences that bf16 and the int8 requant carry on)
+# one production forward of a clip alone against the 2-clip batch already
+# reads 30.31-31.43 dB there, fp32 float taps 127.2 dB)
 SNR_SP_CHAIN_DB = 25.2
 SNR_DP_CHAIN_DB = 30.0
 # one fp32 dp = 2 step (a microbatch a rank) against one device's
@@ -2256,13 +2257,17 @@ def _parallel_cli_refusal():
             f"{text[-500:]}")
 
 
-def _timed(fn, n=3):
+def _timed(fn, n=3, clock=None):
     """Host ms per call of fn over n calls after one, the card synchronised
-    (the sp forwards wait on gloo between kernels: host pace)."""
+    (the sp forwards wait on gloo between kernels: host pace). A
+    ``_CollectiveClock`` given as ``clock`` starts from 0 after the first
+    call, so it covers the same n calls."""
     import torch
 
     fn()
     torch.cuda.synchronize()
+    if clock is not None:
+        clock.calls, clock.seconds = 0, 0.0
     t0 = time.perf_counter()
     for _ in range(n):
         fn()
@@ -2272,7 +2277,8 @@ def _timed(fn, n=3):
 
 class _CollectiveClock:
     """Counts the collectives the sp code issues and the host time spent
-    in them (gloo stages every CUDA tensor through host memory)."""
+    in them: gloo's copies through host memory and the wait for the other
+    rank, whose kernels share the card, together."""
 
     def __init__(self):
         import torch.distributed as dist
@@ -2323,6 +2329,7 @@ def _parallel_rank(rank, world, init):
 
 def _parallel_body(rank):
     import copy
+    import dataclasses
     from types import SimpleNamespace
 
     import torch
@@ -2356,25 +2363,60 @@ def _parallel_body(rank):
     say(f"[parallel] 2 ranks on cuda:0, sp = 2 and dp = 2 meshes; audio.yml "
         f"seed-made weights (non-zero GN3), x [1, 2, 8192, 256] (T_loc = 4096)")
 
-    # 1. the sp = 2 forward against the single-device kernel forward
+    # 0. what one collective of the port costs on this group: an sp halo's
+    # all-gather (64 KB) and a dp step's gradient all-reduce (188 MB, the
+    # fp32 parameters of audio.yml)
+    dev = torch.device("cuda", 0)
+    halo = torch.randn((1, 2, 8192), device=dev)
+    parts = [torch.empty_like(halo) for _ in range(2)]
+    grads = torch.randn((47_000_000,), device=dev)
+    costs = {}
+    for label, n, fn in (("all-gather 64 KB", 50,
+                          lambda: dist.all_gather(parts, halo)),
+                         ("all-reduce 188 MB", 3,
+                          lambda: dist.all_reduce(grads))):
+        fn()
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        costs[label] = (time.perf_counter() - t0) / n * 1e3
+    say("[parallel] one gloo collective on CUDA tensors, host ms (copies "
+        "through host memory and the wait for the other rank): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in costs.items()))
+    del halo, parts, grads
+
+    # 1. the sp = 2 forward against the single-device kernel forward, then
+    # each of its kernel calls on the haloed blocks against the kernel's twin
+    # on the same operands (fp32: the [grad] phase's fp32 call floor)
     fp32 = {}
-    for name, c, floor, want in (
-            ("fp32 float taps", cfg, SNR_SP_FP32_DB, PER_SHARD_FLOAT),
+    for name, c, floor, want, shadow_db in (
+            ("fp32 float taps", cfg, SNR_SP_FP32_DB, PER_SHARD_FLOAT,
+             SHADOW_GRAD_FP32_DB),
             ("production (bf16, int8 taps)", cfg_prod, SNR_SP_PROD_DB,
-             PER_SHARD_PROD)):
+             PER_SHARD_PROD, None)):
         packed = sp_sampling_bundle(params, c, sp2, x.shape[2])
         torch.cuda.synchronize()
         dist.barrier()
         reset_launch_counts()
-        with _CollectiveClock() as clock:
-            out = apply_model_sp(params, x, t, c, sp2, packed=packed)
-            torch.cuda.synchronize()
+        out = apply_model_sp(params, x, t, c, sp2, packed=packed)
+        torch.cuda.synchronize()
         counts = forward_counts()
         require(counts == want, f"rank {rank} sp {name}: launches {counts} "
                 f"!= {want}")
         require(bool(torch.isfinite(out).all()), f"sp {name} not finite")
         xl, tl = shard_batch(sp2, x, time_axis=2), shard_batch(sp2, t)
-        ms_sp = _timed(lambda: apply_model_sp_local(packed, xl, tl, c, sp2))
+        with _CollectiveClock() as clock:
+            ms_sp = _timed(lambda: apply_model_sp_local(packed, xl, tl, c,
+                                                        sp2), clock=clock)
+        coll_n, coll_ms = clock.calls / 3, clock.seconds * 1e3 / 3
+        shadow = Shadow()
+        with reference_route(shadow=shadow):
+            apply_model_sp(params, x, t, c, sp2, packed=packed)
+        shadow.check(f"[parallel] sp = 2 shard {rank}, {name},", want,
+                     floor_db=shadow_db)
         dist.barrier()
         if rank == 0:
             p1 = prepare_params(params, c)
@@ -2387,13 +2429,14 @@ def _parallel_body(rank):
             log(f"[parallel] sp = 2 forward, {name}, vs the single-device "
                 f"kernel forward: SNR {snr:.2f} dB (>= {floor}), max|diff| "
                 f"{d:.3e} ({rel:.2e} of max) | launches per shard {counts}")
-            log(f"[parallel] sp = 2 forward, {name}: {clock.calls} "
-                f"collectives a forward, {clock.seconds * 1e3:.1f} ms of host "
-                f"time in them ({clock.seconds * 1e3 / max(clock.calls, 1):.2f}"
-                f" ms each) | ms per forward (host pace): sp = 2 shard "
-                f"{ms_sp:.1f} (both ranks on the one card at once), the sp "
-                f"route on one rank over the whole clip (no collectives) "
-                f"{ms_route:.1f}, single-device kernel forward {ms_one:.1f}")
+            log(f"[parallel] sp = 2 forward, {name}, ms per forward (host "
+                f"pace, mean of 3): sp = 2 shard {ms_sp:.1f} (both ranks on "
+                f"the one card at once), of which {coll_ms:.1f} "
+                f"({coll_ms / ms_sp:.0%}) in {coll_n:.0f} collectives "
+                f"({coll_ms / max(coll_n, 1):.2f} ms each, the wait for the "
+                f"other rank included); the sp route on one rank over the "
+                f"whole clip (no collectives) {ms_route:.1f}; single-device "
+                f"kernel forward {ms_one:.1f}")
             require(snr >= floor, f"sp {name}: SNR {snr:.2f} < {floor} dB")
             if not fp32:
                 fp32.update(sp=out, one=ref)
@@ -2466,6 +2509,30 @@ def _parallel_body(rank):
                     f"wall | launches per rank {counts}")
                 require(min(snrs) >= floor, f"{label} = 2 sampling: SNR "
                         f"{min(snrs):.2f} < {floor} dB")
+            # what a dp rank changes: one device's forward of each clip
+            # alone (B = 1) against the same clips as one batch (B = 2)
+            gen2 = torch.Generator().manual_seed(2)
+            x2 = torch.cat([x, torch.randn(x.shape, generator=gen2).cuda()])
+            t2 = t.repeat(2)
+            for name, c in (("fp32 float taps", cfg),
+                            ("bf16 float taps", dataclasses.replace(
+                                cfg, dtype=torch.bfloat16)),
+                            ("production (bf16, int8 taps)", cfg_prod)):
+                p1 = prepare_params(params, c)
+                both = from_flat(apply_model_flat_io(
+                    p1, to_flat(x2).contiguous(), t2, c))
+                alone = torch.cat([from_flat(apply_model_flat_io(
+                    p1, to_flat(x2[j:j + 1]).contiguous(), t2[j:j + 1], c))
+                    for j in range(2)])
+                same = [bool(torch.equal(alone[j], both[j]))
+                        for j in range(2)]
+                log(f"[parallel] one device, {name}: each clip's forward "
+                    f"at B = 1 vs the 2-clip batch: bit-equal {same}, SNR "
+                    + ", ".join(f"{snr_db(alone[j], both[j]):.2f}"
+                                for j in range(2))
+                    + f" dB, max|diff| {rel_err(alone, both)[0]:.3e}")
+                del p1, both, alone
+            del x2
         dist.barrier()
 
     # 4. one fp32 dp = 2 training step against one device's grad_accum 2

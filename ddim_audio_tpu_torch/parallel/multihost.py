@@ -21,6 +21,7 @@ import os
 import torch
 import torch.distributed as dist
 
+from ..utils.device import resolve_device
 from .mesh import all_gather_cat, world_rank, world_size
 
 __all__ = ["launched", "initialize", "finalize", "host_batch_slice",
@@ -37,15 +38,15 @@ def initialize(init_method: str | None = None, world_size_: int | None = None,
                device=None) -> torch.device:
     """Join this process into the default process group and return the
     device it drives: ``device`` when the caller names one, else
-    ``cuda:LOCAL_RANK`` (the CPU on a machine without CUDA). The backend is
-    NCCL for a CUDA device and gloo for the CPU unless ``backend`` says
-    otherwise. Without arguments the group is the launcher's (``env://``);
-    ``init_method``, ``world_size_`` and ``rank`` describe it explicitly."""
+    ``cuda:LOCAL_RANK``. A CUDA device without a GPU raises before the
+    process joins anything; the CPU runs only when the caller names it. The
+    backend is NCCL for a CUDA device and gloo for the CPU unless
+    ``backend`` says otherwise. Without arguments the group is the
+    launcher's (``env://``); ``init_method``, ``world_size_`` and ``rank``
+    describe it explicitly."""
     if device is None:
-        local = int(os.environ.get("LOCAL_RANK", "0"))
-        device = (torch.device("cuda", local) if torch.cuda.is_available()
-                  else torch.device("cpu"))
-    device = torch.device(device)
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+    device = resolve_device(device)
     if device.type == "cuda":
         if device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())

@@ -242,3 +242,35 @@ def test_initialize_one_rank(tmp_path, monkeypatch):
     finally:
         multihost.finalize()
     assert not torch.distributed.is_initialized()
+
+
+@pytest.mark.parametrize("local_rank", ["0", "1"])
+def test_initialize_refuses_without_a_card(monkeypatch, local_rank):
+    """Without a GPU, ``initialize`` asked for no device picks
+    ``cuda:LOCAL_RANK`` and raises before it joins a group: the CPU runs
+    only when the caller names it."""
+    from ddim_audio_tpu_torch.parallel import multihost
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("LOCAL_RANK", local_rank)
+    with pytest.raises(RuntimeError, match=f"cuda:{local_rank} requested but "
+                       "no CUDA GPU"):
+        multihost.initialize()
+    assert not torch.distributed.is_initialized()
+
+
+def test_cli_under_a_launcher_refuses_without_a_card(monkeypatch):
+    """The command line under a launcher, ``--device`` left at its default
+    ``cuda``, raises on a machine without a GPU instead of joining a gloo
+    group on the CPU."""
+    from ddim_audio_tpu_torch import cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for name, value in (("WORLD_SIZE", "2"), ("RANK", "0"),
+                        ("LOCAL_RANK", "0"), ("MASTER_ADDR", "localhost"),
+                        ("MASTER_PORT", "1")):
+        monkeypatch.setenv(name, value)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        cli.main(["--config", "audio.yml", "--doc", "none", "--ni",
+                  "--sample"])
+    assert not torch.distributed.is_initialized()
