@@ -73,6 +73,13 @@ phase on its own lines:
    call shadowed by its kernel on the same operands, which holds each kernel
    against its twin on the model's own activations and tells a kernel fault
    from int8 arithmetic noise; then route is held against route;
+   [batch]: one forward at B = 2 per route (production, int8 storage, bf16
+   and fp32 float taps, the plain route), every call of it held against the same call at
+   B = 1 on each clip's slice of its operands: the port's kernels and its
+   glue's channel sums must give the same bits (cuBLAS's GEMMs and cuDNN's
+   transposed convs, which do not, are printed), each clip's whole forward
+   at B = 1 against B = 2, and the statistics sums' kernel
+   (``ops.sums``) against one torch.sum over the batch;
 5. the slice, through the command line's ``main([...])`` in-process, on a
    checkpoint of those weights, audio.yml unmodified (2 clips per run): DDIM
    last-only (10 steps), ``--sequence 3`` (6 steps) and ``--sample_type
@@ -147,7 +154,15 @@ phase on its own lines:
    production) on sp = 2 and on dp = 2 against one device's run, rank 0
    alone writing the files; one fp32 dp = 2 training step (a microbatch
    [1, 2, 1024, 256] a rank, the launches of one microbatch each) against
-   one device's grad_accum 2 step, leaf by leaf.
+   one device's grad_accum 2 step, leaf by leaf; one fp32 sp = 2 training
+   step of audio.yml at [2, 2, 1024, 256] (each rank a [2, 2, 512, 256]
+   block, the conv3x3 kernels' forward, dx and dW on haloed blocks of 514
+   … 18 rows) against one device's step on the same injected draws (the
+   loss, every leaf's gradient; the updates printed), the same step's
+   kernel calls against their twins under ``reference_route(shadow=…)``
+   with the calls per kernel, and its cost: CUDA-event and host ms beside
+   one device's, the collectives and the host time inside them, the
+   launches per shard.
 
 Every failure raises and the script exits non-zero. The last three lines are
 the card, the per-kernel JSON summary and ``{"ok": true, "device": {...}}``.
@@ -297,6 +312,24 @@ SNR_DP_CHAIN_DB = 30.0
 # grad_accum 2 step: every leaf of parameters, optimizer state and EMA
 # within this of its leaf's scale (an H100 read all 1,557 leaves bit-equal)
 TOL_DP_STEP = 1e-6
+# one fp32 sp = 2 training step ([2, 2, 1024, 256], each rank a [2, 2, 512,
+# 256] block) against one device's step on the same injected draws: the loss
+# relative, and every leaf's gradient (the optimizer's first moment after one
+# step, (1 - beta1)·g) and second moment held to the [grad] floor,
+# TOL_GRAD_LEAF. The sp route runs head, tail and transitions as plain convs
+# and sums its GroupNorm statistics and gradients in another order: the same
+# arithmetic to within fp32 rounding (an H100 read the loss 5.0e-7 apart, the
+# worst of 388 gradient leaves 3.3e-6 of its scale and of the second moments
+# 9.8e-7). The parameters and the EMA are held entry by entry to TOL_GRAD_LEAF
+# of their leaf's move plus one fp32 unit of the value (``_move_gaps``): step
+# 0's learning rate is the warm-up's 3e-7, so a weight moves by a few of its
+# units or less and an update that differs in its last bits lands one unit away
+# (an H100 read 488 of 47,155,266 parameter entries that needed the unit, none
+# beyond it, the worst 0.50 of its leaf's move at a stage-4 conv weight whose
+# entries move by one unit at most; the EMA none). At most this share of the
+# entries may need the unit:
+TOL_SP_ULP_SHARE = 1e-4
+TOL_SP_LOSS = 1e-5
 
 # Published H100 SXM peaks: HBM bytes/s and dense operations/s by operand type
 # (fp32 outside the tensor cores; "tf32x3": the split-TF32 fp32 conv3x3, up
@@ -383,6 +416,22 @@ DW_KERNELS = ("conv_dw_flat", "conv_down_dw_flat", "conv_up_dw_flat")
 PER_SHARD_FLOAT = dict(PER_FORWARD_FLOAT, conv_head_flat=0, conv_tail_flat=0,
                        conv_down_flat=0, conv_up_flat=0)
 PER_SHARD_PROD = dict(PER_SHARD_FLOAT, conv3x3_flat=36, conv3x3_flat_int8=28)
+# one sp shard's training step ([parallel]): the 64 resblock convs on haloed
+# blocks forward, again in the remat recompute and as dx, and their weight
+# gradients; head, tail and transitions plain
+PER_SHARD_TRAIN = dict(PER_MICROBATCH, conv3x3_flat=3 * 64, conv_dw_flat=64,
+                       conv_down_flat=0, conv_up_flat=0, conv_down_dw_flat=0,
+                       conv_up_dw_flat=0)
+# the kernels whose per-clip result must not depend on the batch ([batch]):
+# every wrapper of the sampling forwards (int8 storage included) and the
+# glue's channel sums
+BATCH_INVARIANT = ("conv3x3_flat", "conv3x3_flat_int8", "conv_head_flat",
+                   "conv_tail_flat", "conv_down_flat", "conv_up_flat",
+                   "conv3x3_flat_store", "residual_affine_flat",
+                   "conv_down_flat_int8", "conv_up_flat_int8", "channel_sums")
+# the statistics sums' kernel against an fp64 sum of the same fp32 / bf16
+# values, max|difference| over the largest sum of its row
+TOL_BATCH_SUMS = 1e-5
 
 
 def forward_counts() -> dict:
@@ -394,6 +443,14 @@ def forward_counts() -> dict:
     for name in DW_KERNELS:
         require(counts.pop(name) == 0, f"{name} launched on a sampling path")
     return counts
+
+
+def plain_cfg(cfg):
+    """cfg on the plain route: every layer in PyTorch (cuDNN convs), no
+    kernel (``apply_model`` with ``conv_impl: xla``)."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, conv_impl="xla")
 
 
 def log(msg: str) -> None:
@@ -1174,7 +1231,7 @@ def phase_forward(config, cfg, params):
 
     import torch
 
-    from ddim_audio_tpu_torch.config import production_eval_cfg
+    from ddim_audio_tpu_torch.config import load_config, production_eval_cfg
     from ddim_audio_tpu_torch.models.unet import (apply_model,
                                                   apply_model_flat_io,
                                                   flat_io_adapters, init_model,
@@ -1195,7 +1252,7 @@ def phase_forward(config, cfg, params):
     # bf16 runs take the weights prepared once, as the runner passes them
     p16 = prepare_params(params, cfg16)
     p_prod = prepare_params(params, cfg_prod)
-    ref = apply_model(params, x, t, cfg)
+    ref = apply_model(params, x, t, plain_cfg(cfg))
     outs = {}
     for name, c, p, thresh, want in (
             ("float taps fp32", cfg, params, SNR_FWD_FP32_DB, PER_FORWARD_FLOAT),
@@ -1236,11 +1293,11 @@ def phase_forward(config, cfg, params):
         require(snr >= floor, f"{name} forward vs its twin route: SNR "
                 f"{snr:.2f} < {floor} dB")
     del twin, again, outs
-    ref16 = apply_model(p16, x, t, cfg16)
+    ref16 = apply_model(p16, x, t, plain_cfg(cfg16))
     log(f"[forward] plain route bf16 vs fp32 plain: SNR "
         f"{snr_db(ref16, ref):.2f} dB (for comparison)")
     p0 = init_model(torch.Generator().manual_seed(0), cfg)
-    ref0 = apply_model(p0, x, t, cfg)
+    ref0 = apply_model(p0, x, t, plain_cfg(cfg))
     out0 = from_flat(apply_model_flat_io(prepare_params(p0, cfg_prod), xf, t,
                                          cfg_prod))
     snr0 = snr_db(out0, ref0)
@@ -1254,10 +1311,12 @@ def phase_forward(config, cfg, params):
                                                                 cfg_prod),
         "kernel route, float taps bf16": lambda: apply_model_flat_io(p16, xf, t,
                                                                      cfg16),
-        "plain route bf16 (cuDNN)": lambda: apply_model(p16, x, t, cfg16),
+        "plain route bf16 (cuDNN)": lambda: apply_model(p16, x, t,
+                                                         plain_cfg(cfg16)),
         "kernel route, float taps fp32": lambda: apply_model_flat_io(params, xf,
                                                                      t, cfg),
-        "plain route fp32 (cuDNN)": lambda: apply_model(params, x, t, cfg),
+        "plain route fp32 (cuDNN)": lambda: apply_model(params, x, t,
+                                                         plain_cfg(cfg)),
     }
     for rnd in (1, 2):  # in turns, twice: the routes are compared within a run
         for label, fn in times.items():
@@ -1324,7 +1383,7 @@ def _phase_slice(summary, params, runs, clips, seed, exported):
     from ddim_audio_tpu_torch.config import load_config
     from ddim_audio_tpu_torch.diffusion.schedules import \
         make_timestep_subsequence
-    from ddim_audio_tpu_torch.ops import reset_launch_counts
+    from ddim_audio_tpu_torch.ops import batch_sums, reset_launch_counts
     from ddim_audio_tpu_torch.runners.diffusion_runner import Diffusion
     from ddim_audio_tpu_torch.sampling import driver
     from ddim_audio_tpu_torch.weights import save_eval_checkpoint
@@ -1368,6 +1427,11 @@ def _phase_slice(summary, params, runs, clips, seed, exported):
         for name, n in want.items():
             if n:
                 summary[name]["launches"] = counts[name]
+        sums = batch_sums.launches
+        log(f"[slice] the statistics sums' kernel (batch_sums) in those runs: "
+            f"{sums} launches, {sums / forwards:g} a forward")
+        require(sums > 0 and sums % forwards == 0, f"batch_sums launched "
+                f"{sums} times in {forwards} forwards")
 
         # The last-only run again through the runner, from the same seed:
         # its WAVs are the command line's, and its two clips are held against
@@ -1514,8 +1578,10 @@ def phase_float_path(summary, config, cfg, params):
         torch.cuda.synchronize()
         return out, start.elapsed_time(end)
 
-    plain32 = ScanSampler(lambda p, xx, t: apply_model(p, xx, t, cfg))
-    plain16 = ScanSampler(lambda p, xx, t: apply_model(p, xx, t, cfg16))
+    plain32 = ScanSampler(lambda p, xx, t: apply_model(p, xx, t,
+                                                       plain_cfg(cfg)))
+    plain16 = ScanSampler(lambda p, xx, t: apply_model(p, xx, t,
+                                                       plain_cfg(cfg16)))
     for label, p, floor, floor_p in (
             ("init weights (GN3 = 0)", init_params, SNR_CHAIN_BF16_DB,
              SNR_CHAIN_PROD_INIT_DB),
@@ -1707,7 +1773,7 @@ def phase_int8_store(summary, cfg, params):
         xf = to_flat(x).contiguous()
         p_i8 = prepare_params(params, cfg_i8)
         p_prod = prepare_params(params, cfg_prod)
-        ref = apply_model(params, x, t, cfg)
+        ref = apply_model(params, x, t, plain_cfg(cfg))
         torch.cuda.synchronize()
         reset_launch_counts()
         out = from_flat(apply_model_flat_io(p_i8, xf, t, cfg_i8))
@@ -1734,7 +1800,7 @@ def phase_int8_store(summary, cfg, params):
                 f"twin route: SNR {snr_t:.2f} < {SNR_FWD_I8_TWIN_DB} dB")
         del twin
         p0 = init_model(torch.Generator().manual_seed(0), cfg)
-        ref0 = apply_model(p0, x, t, cfg)
+        ref0 = apply_model(p0, x, t, plain_cfg(cfg))
         out0 = from_flat(apply_model_flat_io(prepare_params(p0, cfg_i8), xf, t,
                                              cfg_i8))
         snr0 = snr_db(out0, ref0)
@@ -2306,6 +2372,226 @@ class _CollectiveClock:
             setattr(self.dist, name, fn)
 
 
+class _BatchProbe:
+    """Holds every call of a batch-B forward against the same call at B = 1
+    on each clip's slice of its operands. Within the block every kernel
+    wrapper (where the package's modules hold it), ``torch.matmul`` (the FNet
+    GEMMs), ``F.conv2d`` / ``F.conv_transpose2d`` (the plain convs) and
+    ``flat_resblock.channel_sums`` (torch's reductions of the glue) are
+    replaced by a proxy that runs the call, then the call once a clip, and
+    records per name: calls, calls whose per-clip outputs (statistics
+    included) are not bit-equal to their slice of the batch call's, and the
+    worst SNR of those. A nested wrapper call (``conv3x3_flat`` handing over
+    to ``conv3x3_flat_int8``) counts once, under the outer name. The per-clip
+    launches count as launches: read no launch counts inside."""
+
+    def __init__(self, batch: int):
+        self.batch, self.depth, self.rows = batch, 0, {}
+        self.patched = []
+
+    def _slice(self, v, j):
+        """v with every tensor of two or more dimensions whose leading
+        dimension is the batch cut to clip j (a kernel's weight leads with a
+        tap row, a GEMM's with its >= 128 input features; the plain convs,
+        whose weight may lead with C_out = 2, slice their input alone)."""
+        import torch
+
+        if isinstance(v, torch.Tensor):
+            if v.ndim >= 2 and v.shape[0] == self.batch:
+                return v[j:j + 1]
+            return v
+        if isinstance(v, (tuple, list)):
+            return type(v)(self._slice(u, j) for u in v)
+        if isinstance(v, dict):
+            return {k: self._slice(u, j) for k, u in v.items()}
+        return v
+
+    def _outs(self, v):
+        import torch
+
+        if isinstance(v, torch.Tensor):
+            return [v]
+        return [u for u in v if isinstance(u, torch.Tensor)]
+
+    def _proxy(self, name, fn, first_only=False):
+        def cut(args, kw, j):
+            if first_only:
+                return (self._slice(args[0], j),) + tuple(args[1:]), kw
+            return self._slice(args, j), self._slice(kw, j)
+
+        def run(*args, **kw):
+            if self.depth:
+                return fn(*args, **kw)
+            self.depth += 1
+            try:
+                both = fn(*args, **kw)
+                outs = self._outs(both)
+                if not outs or outs[0].shape[0] != self.batch:
+                    return both
+                row = self.rows.setdefault(name, [0, 0, math.inf])
+                row[0] += 1
+                equal, worst = True, math.inf
+                for j in range(self.batch):
+                    a_j, kw_j = cut(args, kw, j)
+                    alone = self._outs(fn(*a_j, **kw_j))
+                    for a, o in zip(alone, outs):
+                        ref = o[j:j + 1]
+                        if not torch_equal(a, ref):
+                            equal = False
+                            worst = min(worst, snr_db(a, ref))
+                if not equal:
+                    row[1] += 1
+                    row[2] = min(row[2], worst)
+                return both
+            finally:
+                self.depth -= 1
+        run.launches = 0  # a wrapper counts its launches on its own name
+        return run
+
+    def _patch(self, owner, attr, name, **kw):
+        orig = getattr(owner, attr)
+        self.patched.append((owner, attr, orig))
+        setattr(owner, attr, self._proxy(name, orig, **kw))
+
+    def __enter__(self):
+        import torch
+        import torch.nn.functional as F
+
+        from ddim_audio_tpu_torch.ops import KERNEL_WRAPPERS
+        from ddim_audio_tpu_torch.ops import flat_resblock
+
+        targets = {id(fn): name for name, fn in KERNEL_WRAPPERS.items()}
+        targets[id(flat_resblock.channel_sums)] = "channel_sums"
+        for mod_name, mod in list(sys.modules.items()):
+            if mod is None or not mod_name.startswith("ddim_audio_tpu_torch"):
+                continue
+            for attr, val in list(vars(mod).items()):
+                if id(val) in targets and callable(val):
+                    self._patch(mod, attr, targets[id(val)])
+        self._patch(torch, "matmul", "torch.matmul (cuBLAS)")
+        self._patch(F, "conv2d", "F.conv2d (cuDNN)", first_only=True)
+        self._patch(F, "conv_transpose2d", "F.conv_transpose2d (cuDNN)",
+                    first_only=True)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, orig in reversed(self.patched):
+            setattr(owner, attr, orig)
+        self.patched.clear()
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+
+    return a.shape == b.shape and a.dtype == b.dtype and bool(
+        torch.equal(a, b))
+
+
+def phase_batch(config, cfg, params):
+    """[batch]: whether a clip's result depends on the size of its batch.
+    One forward at B = 2 (the seed-made clip and a second one) per route,
+    every call held against itself at B = 1 on each clip's slice of the
+    same operands (``_BatchProbe``), one line per name: the port's kernels
+    and its glue's channel sums must give the same bits (BATCH_INVARIANT);
+    cuBLAS (the FNet and timestep-MLP GEMMs) and cuDNN (the plain route's
+    transposed convs) are the library's and only printed. Then each clip's
+    whole forward at B = 1 against its slice of the B = 2 forward, and
+    torch's one-reduction sum against the statistics sums' kernel the
+    wrappers and the glue use (``ops.sums``) at the main path's
+    shapes: bit-equality, error and time."""
+    import dataclasses
+
+    import torch
+
+    from ddim_audio_tpu_torch.config import load_config, production_eval_cfg
+    from ddim_audio_tpu_torch.models.unet import (apply_model,
+                                                  apply_model_flat_io,
+                                                  flat_io_adapters,
+                                                  prepare_params)
+    from ddim_audio_tpu_torch.ops.sums import batch_sums
+    from ddim_audio_tpu_torch.ops.tile_plan import conv3x3_plan
+    from ddim_audio_tpu_torch.tools import forward_input
+
+    x, t = forward_input(cfg)
+    gen2 = torch.Generator().manual_seed(2)
+    x2 = torch.cat([x, torch.randn(x.shape, generator=gen2).cuda()])
+    t2 = torch.tensor([500, 200], device=x.device)
+    to_flat, from_flat = flat_io_adapters(cfg)
+    xf2 = to_flat(x2).contiguous()
+
+    def report(name, probe):
+        for kname, (calls, unequal, worst) in sorted(probe.rows.items()):
+            own = kname in BATCH_INVARIANT
+            log(f"[batch] {name}: {kname}: {calls} calls, {unequal} not "
+                f"bit-equal at B = 1 vs B = 2's slice"
+                + (f", worst {worst:.2f} dB" if unequal else "")
+                + (" (port: must be 0)" if own else " (library)"))
+            require(not (own and unequal), f"[batch] {name}: {kname}: "
+                    f"{unequal} of {calls} calls depend on the batch")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg_i8 = production_eval_cfg(load_config(_int8_store_config(
+            os.path.join(tmp, "audio_int8.yml"))), cfg)
+    routes = (("production (bf16, int8 taps)",
+               production_eval_cfg(config, cfg)),
+              ("int8 storage (bf16, act_store int8, strided_int8)", cfg_i8),
+              ("bf16 float taps", dataclasses.replace(cfg,
+                                                      dtype=torch.bfloat16)),
+              ("fp32 float taps", cfg))
+    for name, c in routes:
+        p = prepare_params(params, c)
+        with _BatchProbe(2) as probe:
+            both = apply_model_flat_io(p, xf2, t2, c)
+        report(name, probe)
+        alone = [apply_model_flat_io(p, xf2[j:j + 1], t2[j:j + 1], c)
+                 for j in range(2)]
+        log(f"[batch] {name}: the whole forward, each clip at B = 1 vs "
+            f"B = 2: bit-equal "
+            f"{[torch_equal(alone[j], both[j:j + 1]) for j in range(2)]}, "
+            "SNR " + ", ".join(
+                f"{snr_db(from_flat(alone[j]), from_flat(both[j:j + 1])):.2f}"
+                for j in range(2)) + " dB")
+        del p, both, alone
+    with _BatchProbe(2) as probe:
+        apply_model(params, x2, t2, plain_cfg(cfg))
+    report("plain route fp32", probe)
+    # one torch.sum over a batch against the statistics sums' kernel, at the
+    # main path's shapes: each stage's bf16 conv3x3 partials [B, tiles, 2·C]
+    # and each stage's bf16 activation [B, T·F, C] (the glue's channel sums)
+    cases = []
+    for tt, f, cc in STAGES:
+        tiles = conv3x3_plan(tt, f, cc, True, 2).tiles
+        cases.append((f"partials [2, {tiles}, 2·{cc}]", (2, tiles, 2 * cc),
+                      torch.float32, False))
+    cases += [(f"activation [2, {tt}·{f}, {cc}] bf16", (2, tt * f, cc),
+               torch.bfloat16, True) for tt, f, cc in STAGES]
+    for label, shape, dtype, squares in cases:
+        part = torch.randn(shape, device="cuda").to(dtype)
+        ref = torch.stack([part.double().sum(dim=1)]
+                          + ([part.double().square().sum(dim=1)] if squares
+                             else []), dim=1)
+        mine = batch_sums(part, squares)
+        alone = [batch_sums(part[j:j + 1], squares) for j in range(2)]
+        eq_mine = [torch_equal(alone[j], mine[j:j + 1]) for j in range(2)]
+        tot = part.sum(dim=1, dtype=torch.float32)
+        eq_torch = [torch_equal(part[j:j + 1].sum(dim=1, dtype=torch.float32),
+                                tot[j:j + 1]) for j in range(2)]
+        err = float(((mine.double() - ref).abs().amax(dim=-1)
+                     / ref.abs().amax(dim=-1)).max())
+        ms = cuda_time(lambda: batch_sums(part, squares), prefill=True)
+        lib_ms = cuda_time(lambda: part.sum(dim=1, dtype=torch.float32),
+                           prefill=True)
+        log(f"[batch] {label} summed over its middle axis"
+            f"{' (and its squares)' if squares else ''}, B = 1 vs B = 2's "
+            f"slice bit-equal: one torch.sum {eq_torch}, batch_sums "
+            f"{eq_mine}; batch_sums vs fp64 max rel {err:.1e} (<= "
+            f"{TOL_BATCH_SUMS}); card ms at B = 2: batch_sums {ms:.4f} (all "
+            f"its passes), one torch.sum of the values {lib_ms:.4f}")
+        require(all(eq_mine), f"batch_sums depends on the batch at {label}")
+        require(err <= TOL_BATCH_SUMS, f"batch_sums off by {err:.1e} at "
+                f"{label}")
+
+
 def _parallel_rank(rank, world, init):
     """One of the two ranks of the [parallel] phase, on cuda:0 in a gloo
     group. Rank 0 prints and holds the results; a failure on either rank
@@ -2329,7 +2615,6 @@ def _parallel_rank(rank, world, init):
 
 def _parallel_body(rank):
     import copy
-    import dataclasses
     from types import SimpleNamespace
 
     import torch
@@ -2509,30 +2794,6 @@ def _parallel_body(rank):
                     f"wall | launches per rank {counts}")
                 require(min(snrs) >= floor, f"{label} = 2 sampling: SNR "
                         f"{min(snrs):.2f} < {floor} dB")
-            # what a dp rank changes: one device's forward of each clip
-            # alone (B = 1) against the same clips as one batch (B = 2)
-            gen2 = torch.Generator().manual_seed(2)
-            x2 = torch.cat([x, torch.randn(x.shape, generator=gen2).cuda()])
-            t2 = t.repeat(2)
-            for name, c in (("fp32 float taps", cfg),
-                            ("bf16 float taps", dataclasses.replace(
-                                cfg, dtype=torch.bfloat16)),
-                            ("production (bf16, int8 taps)", cfg_prod)):
-                p1 = prepare_params(params, c)
-                both = from_flat(apply_model_flat_io(
-                    p1, to_flat(x2).contiguous(), t2, c))
-                alone = torch.cat([from_flat(apply_model_flat_io(
-                    p1, to_flat(x2[j:j + 1]).contiguous(), t2[j:j + 1], c))
-                    for j in range(2)])
-                same = [bool(torch.equal(alone[j], both[j]))
-                        for j in range(2)]
-                log(f"[parallel] one device, {name}: each clip's forward "
-                    f"at B = 1 vs the 2-clip batch: bit-equal {same}, SNR "
-                    + ", ".join(f"{snr_db(alone[j], both[j]):.2f}"
-                                for j in range(2))
-                    + f" dB, max|diff| {rel_err(alone, both)[0]:.3e}")
-                del p1, both, alone
-            del x2
         dist.barrier()
 
     # 4. one fp32 dp = 2 training step against one device's grad_accum 2
@@ -2583,6 +2844,184 @@ def _parallel_body(rank):
             f"{wall1:.2f} s host wall | launches per rank {counts}")
         require(worst <= TOL_DP_STEP, f"dp step: {worst_key} off by {worst:.2e}")
     dist.barrier()
+    del state, x0
+    torch.cuda.empty_cache()
+
+    # 5. one fp32 sp = 2 training step against one device's step
+    _parallel_sp_train(rank, config, cfg, params, sp2)
+
+
+def _leaf_gaps(flat, flat_ref, keep, scale_of):
+    """(worst max|a − b| / scale over the leaves whose key ``keep`` takes,
+    its key, the leaves compared); ``scale_of(key, b)`` gives a leaf's
+    scale."""
+    worst, worst_key, n = 0.0, "", 0
+    for k, b in flat_ref.items():
+        if not keep(k):
+            continue
+        a = np.asarray(flat[k], np.float64)
+        b = np.asarray(b, np.float64)
+        rel = float(np.abs(a - b).max(initial=0.0)) / scale_of(k, b)
+        n += 1
+        if rel > worst:
+            worst, worst_key = rel, k
+    return worst, worst_key, n
+
+
+def _move_gaps(flat, flat_ref, before, prefix):
+    """One step's moves (after − before) of the leaves under ``prefix``
+    against the reference's, entry by entry. An entry passes within
+    TOL_GRAD_LEAF of its leaf's largest reference move (floored at 1e-3 of
+    the largest of all) plus one fp32 unit in the last place of its
+    reference value: at step 0 the warm-up's learning rate makes a move a
+    few units of a weight or less (the EMA's far less), so an update that
+    differs in its last bits rounds p + u to the neighbouring value.
+    Returns (the worst gap over its scale without the unit, its key, the
+    leaves, the entries that needed the unit, the entries beyond it, all
+    entries)."""
+    keys = [k for k in flat_ref if k.startswith(prefix)]
+    ref = {k: np.asarray(flat_ref[k], np.float64)
+           - np.asarray(before[k], np.float64) for k in keys}
+    top = max(float(np.abs(v).max(initial=0.0)) for v in ref.values())
+    worst, worst_key, ulp_n, bad_n, entries = 0.0, "", 0, 0, 0
+    for k in keys:
+        scale = max(float(np.abs(ref[k]).max(initial=0.0)), 1e-3 * top)
+        gap = np.abs(np.asarray(flat[k], np.float64)
+                     - np.asarray(flat_ref[k], np.float64))
+        unit = np.spacing(np.abs(np.asarray(flat_ref[k], np.float32)))
+        tol = TOL_GRAD_LEAF * scale
+        rel = float(gap.max(initial=0.0)) / scale
+        if rel > worst:
+            # the leaf's largest move in fp32 units of its largest value
+            top_unit = float(np.spacing(np.float32(np.abs(flat_ref[k]).max(
+                initial=0.0))))
+            worst = rel
+            worst_key = f"{k} (moves up to {scale / top_unit:.1f} units)"
+        ulp_n += int(((gap > tol) & (gap <= tol + unit)).sum())
+        bad_n += int((gap > tol + unit).sum())
+        entries += gap.size
+    return worst, worst_key, len(keys), ulp_n, bad_n, entries
+
+
+def _parallel_sp_train(rank, config, cfg, params, sp2):
+    """[parallel] 5: one fp32 sp = 2 training step of audio.yml's model at
+    [2, 2, 1024, 256] (each rank a [2, 2, 512, 256] block, grad_accum 1,
+    injected timesteps and noise) against one device's step on the same
+    draws; its kernel calls against their twins; what it costs."""
+    import copy
+
+    import torch
+    import torch.distributed as dist
+
+    from ddim_audio_tpu_torch.diffusion.schedules import make_schedule
+    from ddim_audio_tpu_torch.ops import launch_counts, reset_launch_counts
+    from ddim_audio_tpu_torch.training.train_step import (init_train_state,
+                                                          make_train_step)
+    from ddim_audio_tpu_torch.weights import flatten_train_state
+
+    say = log if rank == 0 else (lambda msg: None)
+    alphas = make_schedule("linear", 1e-4, 0.02, 1000).alphas_cumprod
+    gen = torch.Generator().manual_seed(12)
+    shape = (2, cfg.channels, 1024, cfg.f_size)
+    x0 = (0.5 * torch.randn(shape, generator=gen)).cuda()
+    draws = (torch.tensor([500, 120], device="cuda"),
+             torch.randn(shape, generator=gen).cuda())
+    conf = copy.deepcopy(config)
+    conf.training.grad_accum = 1
+
+    def run(mesh, clock=None):
+        """(state before, state after, metrics, launches, CUDA-event ms,
+        host ms) of one step from a fresh state."""
+        state, tx = init_train_state(copy.deepcopy(params), conf.optimization,
+                                     use_ema=True)
+        before = flatten_train_state(state)
+        step = make_train_step(cfg, conf, alphas, tx, mesh=mesh)
+        torch.cuda.synchronize()
+        if mesh is not None:
+            dist.barrier()
+        reset_launch_counts()
+        if clock is not None:
+            clock.calls, clock.seconds = 0, 0.0
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        state, metrics = step(state, x0, None, noise_override=draws)
+        end.record()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        return (before, state, metrics, launch_counts(),
+                start.elapsed_time(end), wall)
+
+    say(f"[parallel] sp = 2 training step: audio.yml, fp32, remat, "
+        f"x0 {list(shape)} (a rank's block [2, 2, 512, 256]; haloed blocks "
+        "of 514, 258, 130, 66, 34, 18 rows), grad_accum 1, t [500, 120] and "
+        "the noise injected, non-zero GN3 weights")
+    run(sp2)  # warm-up: the first step on a rank initialises
+    with _CollectiveClock() as clock:
+        before, state, metrics, counts, ms, wall = run(sp2, clock)
+    coll_n, coll_ms = clock.calls, clock.seconds * 1e3
+    require(counts == PER_SHARD_TRAIN, f"rank {rank} sp step: launches "
+            f"{counts} != {PER_SHARD_TRAIN}")
+    shadow = Shadow()
+    with reference_route(shadow=shadow):
+        run(sp2)
+    shadow.check(f"[parallel] sp = 2 train step, shard {rank}, fp32,",
+                 PER_SHARD_TRAIN, floor_db=SHADOW_GRAD_FP32_DB)
+    dist.barrier()
+    if rank == 0:
+        run(None)  # warm-up
+        _, ref, ref_metrics, counts1, ms1, wall1 = run(None)
+        flat, flat_ref = flatten_train_state(state), flatten_train_state(ref)
+        require(flat.keys() == flat_ref.keys(), "train state keys differ")
+        loss, loss1 = float(metrics["loss"]), float(ref_metrics["loss"])
+        loss_rel = abs(loss - loss1) / abs(loss1)
+        # the gradients: the first moments after one step, (1 - beta1)·g
+        mu = [k for k in flat_ref if ".mu[" in k]
+        mu_max = max(float(np.abs(flat_ref[k]).max()) for k in mu)
+        g_worst, g_key, g_n = _leaf_gaps(
+            flat, flat_ref, lambda k: ".mu[" in k,
+            lambda k, b: max(float(np.abs(b).max(initial=0.0)),
+                             1e-3 * mu_max))
+        # the second moments (AdaBelief's s, AdamW's nu): squares of the
+        # gradients, so their floor is the square of the gradients' 1e-3
+        second = [k for k in flat_ref if ".s[" in k or ".nu[" in k]
+        nu_max = max(float(np.abs(flat_ref[k]).max()) for k in second)
+        n_worst, n_key, n_n = _leaf_gaps(
+            flat, flat_ref, lambda k: ".s[" in k or ".nu[" in k,
+            lambda k, b: max(float(np.abs(b).max(initial=0.0)),
+                             1e-6 * nu_max))
+        moves = {kind: _move_gaps(flat, flat_ref, before, kind)
+                 for kind in (".params", ".ema")}
+        log(f"[parallel] fp32 sp = 2 train step vs one device's step, same "
+            f"draws: loss {loss:.6f} vs {loss1:.6f} (rel {loss_rel:.2e} <= "
+            f"{TOL_SP_LOSS}); {g_n} gradient leaves, worst {g_worst:.2e} of "
+            f"its scale (<= {TOL_GRAD_LEAF}) at {g_key}; {n_n} second-moment "
+            f"leaves, worst {n_worst:.2e} (<= {TOL_GRAD_LEAF}) at {n_key}")
+        for kind, (worst, key, leaves, ulp_n, bad_n, entries) in moves.items():
+            log(f"[parallel] sp step, {kind[1:]}: {leaves} leaves, "
+                f"{entries} entries, each one's move held within "
+                f"{TOL_GRAD_LEAF} of its leaf's scale plus one fp32 unit of "
+                f"its value: {bad_n} beyond; {ulp_n} needed the unit (<= "
+                f"{TOL_SP_ULP_SHARE:g} of the entries); worst without the "
+                f"unit {worst:.2e} of its scale at {key}")
+            require(bad_n == 0, f"sp step: {bad_n} {kind[1:]} entries off by "
+                    f"more than {TOL_GRAD_LEAF} of the scale and one unit")
+            require(ulp_n <= TOL_SP_ULP_SHARE * entries, f"sp step: {ulp_n} "
+                    f"of {entries} {kind[1:]} entries one unit apart")
+        log(f"[parallel] sp = 2 train step, ms: CUDA events {ms:.1f}, host "
+            f"wall {wall:.1f} a shard (both ranks on the one card at once), "
+            f"of which {coll_ms:.1f} ({coll_ms / wall:.0%}) in {coll_n} "
+            f"collectives ({coll_ms / max(coll_n, 1):.2f} ms each, the wait "
+            f"for the other rank included); one device's step {ms1:.1f} "
+            f"(CUDA events), {wall1:.1f} host wall | launches per shard "
+            f"{counts}, one device {counts1}")
+        require(loss_rel <= TOL_SP_LOSS, f"sp step: loss rel {loss_rel:.2e}")
+        require(g_worst <= TOL_GRAD_LEAF, f"sp step: gradient of {g_key} off "
+                f"by {g_worst:.2e} of its scale")
+        require(n_worst <= TOL_GRAD_LEAF, f"sp step: second moment of "
+                f"{n_key} off by {n_worst:.2e} of its scale")
+    dist.barrier()
 
 
 def phase_parallel():
@@ -2620,6 +3059,7 @@ def main() -> int:
         phase_train_kernels()
         config, cfg, params = _audio_params()
         phase_forward(config, cfg, params)
+        phase_batch(config, cfg, params)
         phase_slice(summary, params)
         phase_float_path(summary, config, cfg, params)
         phase_int8_store(summary, cfg, params)

@@ -17,8 +17,9 @@
 // GroupNorm statistics: blocks run in no order, so nothing accumulates across
 // the grid. Each block writes the per-channel (sum, sum²) of its own tile to
 // a partials array [B, n_tiles, 2, Cout] (fixed-order reduction inside the
-// block); the Python wrapper finishes the sum with torch.sum over n_tiles.
-// The result is deterministic run to run.
+// block); the Python wrapper finishes the sum over n_tiles with the
+// batch_sums kernel (batch_sums.cu), whose order of additions does not depend
+// on B. The result is deterministic run to run.
 #pragma once
 
 #include <cuda_bf16.h>

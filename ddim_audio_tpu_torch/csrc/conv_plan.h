@@ -635,13 +635,17 @@ DDIM_HD int head_tile_rows(int f, int pos) {
 
 DDIM_HD TilePlan conv_head_plan(int t, int f, int c_in, int c0, int bf16,
                                 int batch) {
+  // The batch does not enter the persistent grid: a sample's blocks walk
+  // the same tiles at any batch, so its statistics partials are the same
+  // sums and a clip's result does not depend on the batch it runs in.
+  (void)batch;
   TilePlan p;
   const bool ok = c_in >= 1 && c_in <= kHeadMaxCin;
   if (ok && !bf16 && c0 == kHeadC0) {
     const int tt = head_tile_rows(f, kHead32Pos);
     p.tile_t = tt;
     p.tile_f = f;
-    const int tiles = cdiv(t, tt), cap = cdiv(kFillBlocks, batch);
+    const int tiles = cdiv(t, tt), cap = kFillBlocks;
     p.tiles = tiles < cap ? tiles : cap;
     p.groups = 1;
     p.split = 1;
@@ -656,7 +660,7 @@ DDIM_HD TilePlan conv_head_plan(int t, int f, int c_in, int c0, int bf16,
     p.variant = kVariantMma;
     p.tile_t = tt;
     p.tile_f = f;
-    const int tiles = cdiv(t, tt), cap = cdiv(kFillBlocks, batch);
+    const int tiles = cdiv(t, tt), cap = kFillBlocks;
     p.tiles = tiles < cap ? tiles : cap;
     p.groups = 1;
     p.split = 1;
@@ -750,6 +754,10 @@ DDIM_HD int residual_affine_stage(int x_kind, int s_kind) {
 
 DDIM_HD TilePlan residual_affine_plan(int t, int f, int c, int x_kind,
                                       int s_kind, int batch) {
+  // The batch does not enter the persistent grid (as conv_head_plan): a
+  // sample's blocks walk the same units at any batch, so its statistics
+  // partials are the same sums; at B > 1 the grid runs in more waves.
+  (void)batch;
   TilePlan p;
   p.variant = c > 0 && c % 32 == 0 ? kVariantFma : kVariantNone;
   p.tile_t = kTtS;
@@ -760,7 +768,7 @@ DDIM_HD TilePlan residual_affine_plan(int t, int f, int c, int x_kind,
   int per_sm = kSmemPerSm / (p.smem + 1024);
   if (per_sm > kResBlocks) per_sm = kResBlocks;
   const int units = store_tiles(t, f);
-  const int cap = cdiv(per_sm * kSMs, batch * p.groups);
+  const int cap = cdiv(per_sm * kSMs, p.groups);
   p.grid = units < cap ? units : cap;
   p.tiles = p.grid;
   return p;

@@ -3,17 +3,24 @@
 
 Three forwards, as in the JAX package:
 
-- ``apply_model``: the plain forward (the JAX package's XLA branch), [B, C, T, F]
-  in and out, layer by layer in PyTorch. It is the reference the kernel routes
-  are held against on the card.
+- ``apply_model``: the layer-by-layer forward, [B, C, T, F] in and out. With
+  ``cfg.conv_impl == "xla"`` it is the plain forward (the JAX package's XLA
+  branch), every layer in PyTorch: the reference the kernel routes are held
+  against on the card. Otherwise the stages with 3×3 convs run their
+  resblocks as the fused chain of ``resblock_flat`` (the statistics
+  threaded from block to block), as the JAX package's fallback does; it is
+  the sampling forward of a model that ``flat_route`` refuses.
 - ``apply_model(..., train=True)``: the training forward. Unless
-  ``cfg.conv_impl`` is ``"xla"`` every conv runs through the differentiable
-  flat ops of ``ops/flat_grad.py`` (forward, dx and dW on the flat kernels),
-  the head and tail as channel-padded square convs at ``ch[0]``, each
-  resblock rematerialised in the backward pass (``cfg.remat``); dropout acts
-  in the FNet bottleneck only, drawn from the caller's generator.
+  ``cfg.conv_impl`` is ``"xla"`` the head, the tail, the transitions and
+  every 3×3 resblock run through the differentiable flat ops of
+  ``ops/flat_grad.py`` (forward, dx and dW on the flat kernels), the head and
+  tail as channel-padded square convs at ``ch[0]``; the resblocks of a stage
+  with other kernel sizes run the plain block. Each resblock is
+  rematerialised in the backward pass (``cfg.remat``); dropout acts in the
+  FNet bottleneck only, drawn from the caller's generator.
 - ``apply_model_flat_io``: the sampling forward over the unpadded flat state
-  [B, T, F·channels]. Every resblock runs as two fused ``conv3x3_flat`` calls
+  [B, T, F·channels], where ``flat_route`` holds. Every resblock runs as two
+  fused ``conv3x3_flat`` calls
   (``ops/flat_resblock.py``), the stage transitions as ``conv_down_flat`` /
   ``conv_up_flat`` with GroupNorm statistics from their epilogues and the
   up path's skip add fused, and the head and tail as ``conv_head_flat`` /
@@ -94,9 +101,9 @@ class ModelConfig:
     # Rematerialise each resblock in the backward pass of the training
     # forward (activation memory for one more forward of the convs).
     remat: bool = True
-    # Conv implementation of the training forward: "auto" runs the flat
-    # kernels through their autograd Functions, "xla" the plain layers under
-    # torch autograd (the reference route).
+    # Conv implementation: "auto" runs the flat kernels (through their
+    # autograd Functions in training), "xla" the plain layers (the reference
+    # route; also what sampling runs).
     conv_impl: str = "auto"
 
     @classmethod
@@ -310,6 +317,29 @@ def _bottleneck(params, h, cfg: ModelConfig, *, train=False, generator=None):
     return z.reshape(b, tt, cc, ff).permute(0, 1, 3, 2).to(h.dtype)
 
 
+def flat_route(cfg: ModelConfig) -> bool:
+    """Whether sampling and the eval loss take the flat kernel route
+    (``apply_model_flat_io``): ``conv_impl`` selects the kernels and every
+    stage's convs are 3×3. Otherwise they run ``apply_model``, as the JAX
+    runner falls back. The kernels take any width the model gives them
+    (C % 16 == 0 on the card), so the widths do not enter."""
+    return cfg.conv_impl != "xla" and all(k == 3 for k in cfg.krn)
+
+
+def _resblock_chain_flat(blocks, hf, temb_iter, *, f: int, c: int,
+                         stats=None, tap_int8: bool = False):
+    """A stage's resblocks as the fused chain of ``resblock_flat`` over the
+    flat hf [B, T, F·C], the statistics threaded from block to block
+    (``stats``: the entry's, from the producer, or None)."""
+    for k, block in enumerate(blocks):
+        last = k == len(blocks) - 1
+        res = resblock_flat(block, hf, next(temb_iter), f=f, c=c,
+                            in_stats=stats, want_out_stats=not last,
+                            tap_int8=tap_int8)
+        hf, stats = res if not last else (res, None)
+    return hf
+
+
 def _remat(fn, cfg: ModelConfig):
     """fn, rematerialised in the backward pass when ``cfg.remat`` (and a
     gradient is being recorded at all)."""
@@ -321,10 +351,11 @@ def _remat(fn, cfg: ModelConfig):
 def apply_model(params, x, t, cfg: ModelConfig, *, train: bool = False,
                 generator=None):
     """Denoiser forward: x [B, C, T, F], t int [B] → ε-prediction
-    [B, C, T, F] fp32. ``train=False`` is the plain forward; ``train=True``
-    the training forward (module docstring), with the FNet dropout drawn
-    from ``generator`` (None: no dropout, as the JAX package without a
-    key)."""
+    [B, C, T, F] fp32. ``train=False`` is the layer-by-layer forward
+    (plain with ``conv_impl: xla``, else with fused 3×3 resblocks);
+    ``train=True`` the training forward (module docstring), with the FNet
+    dropout drawn from ``generator`` (None: no dropout, as the JAX package
+    without a key)."""
     if x.ndim != 4 or x.shape[1] != cfg.channels or x.shape[3] != cfg.f_size:
         raise ValueError(f"expected x of shape [B, {cfg.channels}, T, "
                          f"{cfg.f_size}], got {tuple(x.shape)}")
@@ -337,21 +368,29 @@ def apply_model(params, x, t, cfg: ModelConfig, *, train: bool = False,
     block_apply = _resblock_apply
     if train:
         block_apply = _remat(_resblock_apply, cfg)
+    fused = not train and cfg.conv_impl != "xla"
+
+    def run_blocks(stage, krn, h):
+        if fused and krn == 3:
+            b, t, f, c = h.shape
+            hf = h.reshape(b, t, f * c).contiguous()
+            return _resblock_chain_flat(stage["blocks"], hf, temb_iter, f=f,
+                                        c=c).view(b, t, f, c)
+        for block in stage["blocks"]:
+            h = block_apply(block, h, next(temb_iter), kernel_size=krn)
+        return h
 
     hidden = [conv_apply(params["down_modules"]["head"], h, padding=1)]
     h = hidden[0]
     for stage, krn in zip(params["down_modules"]["stages"], cfg.krn):
         if "down" in stage:
             h = conv_apply(stage["down"], h, stride=2, padding=1)
-        for block in stage["blocks"]:
-            h = block_apply(block, h, next(temb_iter), kernel_size=krn)
+        h = run_blocks(stage, krn, h)
         hidden.append(h)
     h = _bottleneck(params, h, cfg, train=train, generator=generator)
     for stage, krn in zip(reversed(params["up_modules"]["stages"]),
                           reversed(cfg.krn)):
-        h = h + hidden.pop()
-        for block in stage["blocks"]:
-            h = block_apply(block, h, next(temb_iter), kernel_size=krn)
+        h = run_blocks(stage, krn, h + hidden.pop())
         if "up" in stage:
             h = conv_transpose_apply(stage["up"], h, stride=2, padding=1)
     h = h + hidden.pop()
@@ -364,20 +403,25 @@ def _apply_model_flat_train(params, x, temb_chunks, cfg: ModelConfig,
     """The training forward on the flat kernels: x [B, T, F, channels] in the
     compute dtype → ε-prediction [B, channels, T, F] fp32. Master weights
     go to the ops as they are (fp32); the ops cast them and hand back fp32
-    gradients."""
-    if any(k != 3 for k in cfg.krn):
-        raise NotImplementedError("the flat training route has 3×3 "
-                                  "resblocks only (set conv_impl: xla)")
+    gradients. A stage whose convs are not 3×3 runs the plain block on the
+    NHWC view of its state, as the JAX package runs XLA there."""
     temb_iter = iter(temb_chunks)
     b, t, f, cin = x.shape
     c0 = cfg.ch[0]
 
-    def run_blocks(stage, hf, f, c):
-        block_fn = _remat(functools.partial(resblock_flat_train, f=f, c=c),
-                          cfg)
+    def run_blocks(stage, hf, f, c, krn):
+        if krn == 3:
+            block_fn = _remat(functools.partial(resblock_flat_train, f=f,
+                                                c=c), cfg)
+            for block in stage["blocks"]:
+                hf = block_fn(block, hf, next(temb_iter))
+            return hf
+        block_fn = _remat(functools.partial(_resblock_apply,
+                                            kernel_size=krn), cfg)
+        h = hf.view(b, hf.shape[1], f, c)
         for block in stage["blocks"]:
-            hf = block_fn(block, hf, next(temb_iter))
-        return hf
+            h = block_fn(block, h, next(temb_iter))
+        return h.reshape(hf.shape).contiguous()
 
     # Head as a square conv at c0: weight zero-padded over its input
     # channels, the input padded with zero channels.
@@ -388,13 +432,14 @@ def _apply_model_flat_train(params, x, temb_chunks, cfg: ModelConfig,
 
     hidden = [hf]
     prev = None
-    for stage, c in zip(params["down_modules"]["stages"], cfg.ch):
+    for stage, c, krn in zip(params["down_modules"]["stages"], cfg.ch,
+                             cfg.krn):
         if "down" in stage:
             hf = conv_down_flat_t(hf, stage["down"]["w"], stage["down"]["b"],
                                   c_in=prev, c_out=c)
             t //= 2
             f //= 2
-        hf = run_blocks(stage, hf, f, c)
+        hf = run_blocks(stage, hf, f, c, krn)
         hidden.append(hf)
         prev = c
 
@@ -406,7 +451,7 @@ def _apply_model_flat_train(params, x, temb_chunks, cfg: ModelConfig,
     up_stages = params["up_modules"]["stages"]
     for idx in range(len(up_stages) - 1, -1, -1):
         stage, c = up_stages[idx], chs[idx]
-        hf = run_blocks(stage, hf + hidden.pop(), f, c)
+        hf = run_blocks(stage, hf + hidden.pop(), f, c, cfg.krn[idx])
         if "up" in stage:
             hf = conv_up_flat_t(hf, stage["up"]["w"], stage["up"]["b"],
                                 c_in=c, c_out=chs[idx - 1])
@@ -473,13 +518,9 @@ def _apply_model_flat_core(params, xf, temb_chunks, cfg: ModelConfig):
                     in_stats=stats, in_scales=scales, quant_out=not last,
                     want_out_stats=not last)
             return hf
-        for k, block in enumerate(blocks):
-            last = k == len(blocks) - 1
-            res = resblock_flat(block, hf, next(temb_iter), f=f, c=c,
-                                in_stats=stats, want_out_stats=not last,
-                                tap_int8=tap_int8_stage(cfg, c))
-            hf, stats = res if not last else (res, None)
-        return hf
+        return _resblock_chain_flat(blocks, hf, temb_iter, f=f, c=c,
+                                    stats=stats,
+                                    tap_int8=tap_int8_stage(cfg, c))
 
     # Head conv in the state's own layout; its epilogue seeds stage 0's
     # GroupNorm statistics.

@@ -1,12 +1,16 @@
 """Kernel wrappers and the fused ops built on them.
 
 Every kernel wrapper keeps a plain launch count (``wrapper.launches``);
-``launch_counts`` and ``reset_launch_counts`` read and clear them together.
+``launch_counts`` reads the ports of the TPU kernels (``KERNEL_WRAPPERS``);
+``reset_launch_counts`` clears them and ``batch_sums.launches``
+(``ops.sums``: the helper kernel that finishes the statistics sums, a port
+of no TPU kernel).
 ``twin_route`` is the reference route of checks: inside it the wrappers run
 their plain twins whatever the device.
 """
 
 from ._cuda import twin_route
+from .sums import batch_sums
 
 from .conv_flat import conv3x3_flat, conv3x3_flat_int8, conv3x3_flat_store
 from .conv_head_tail import conv_head_flat, conv_tail_flat
@@ -41,5 +45,5 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNEL_WRAPPERS.values():
+    for fn in (*KERNEL_WRAPPERS.values(), batch_sums):
         fn.launches = 0

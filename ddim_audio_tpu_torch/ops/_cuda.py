@@ -100,6 +100,8 @@ _SIGNATURES = {
     "ddim_conv_up_int8": (_P,) * 7 + (_I,) * 6 + (_P,),
     # T, F, Cin, Cout, bf16, B, out[8]
     "ddim_conv_up_int8_plan": (_I,) * 6 + (_P,),
+    # x, out, B, N, K, squares, bf16, rows, stream
+    "ddim_batch_sums": (_P,) * 2 + (_I,) * 6 + (_P,),
 }
 
 

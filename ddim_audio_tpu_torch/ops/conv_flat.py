@@ -62,6 +62,7 @@ from ._cuda import (
     twin_result,
     use_twin,
 )
+from .sums import partials_sum
 from .tile_plan import (
     INT8_GROUP,
     STORE_GROUP,
@@ -428,8 +429,7 @@ def conv3x3_flat_int8(x, wq, w_scale, *, c: int, add=None, residual=None,
     conv3x3_flat_int8.launches += 1
     if not want_stats:
         return out
-    tot = stats.sum(dim=1)
-    return out, tot[:, 0], tot[:, 1]
+    return (out, *partials_sum(stats))
 
 
 @functools.lru_cache(maxsize=1)
@@ -531,8 +531,7 @@ def conv3x3_flat_store(x, w, *, c: int, add=None, residual=None, pre=None,
     conv3x3_flat_store.launches += 1
     result = (out, out_scales) if quant_out else (out,)
     if want_stats:
-        tot = stats.sum(dim=1)
-        result += (tot[:, 0], tot[:, 1])
+        result += partials_sum(stats)
     return result if len(result) > 1 else out
 
 
@@ -604,8 +603,7 @@ def conv3x3_flat(x, w, *, c: int, add=None, residual=None, pre=None,
     conv3x3_flat.launches += 1
     if not want_stats:
         return out
-    tot = stats.sum(dim=1)
-    return out, tot[:, 0], tot[:, 1]
+    return (out, *partials_sum(stats))
 
 
 conv3x3_flat.launches = 0

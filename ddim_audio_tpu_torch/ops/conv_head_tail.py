@@ -44,6 +44,7 @@ from ._cuda import (
     twin_result,
     use_twin,
 )
+from .sums import partials_sum
 from .conv_flat import _finish, _nchw
 from .conv_strided import _bias
 from .tile_plan import VARIANT_NONE, conv_head_plan, conv_tail_plan
@@ -123,8 +124,7 @@ def conv_head_flat(x, w, bias, *, c_in: int, c0: int,
     conv_head_flat.launches += 1
     if not want_stats:
         return out
-    tot = stats.sum(dim=1)
-    return out, tot[:, 0], tot[:, 1]
+    return (out, *partials_sum(stats))
 
 
 def conv_tail_flat(h, w, bias, *, c0: int, c_out: int, residual=None):

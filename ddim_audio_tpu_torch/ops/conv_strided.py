@@ -55,6 +55,7 @@ from ._cuda import (
     twin_result,
     use_twin,
 )
+from .sums import partials_sum
 from .conv_flat import (
     _finish,
     _nchw,
@@ -253,8 +254,7 @@ def _strided_int8(x, wq, w_scale, bias, residual, *, c_in, c_out, up,
     check(err, name)
     if not want_stats:
         return out
-    tot = stats.sum(dim=1)
-    return out, tot[:, 0], tot[:, 1]
+    return (out, *partials_sum(stats))
 
 
 def conv_down_flat_int8(x, wq, w_scale, bias, *, c_in: int, c_out: int,
@@ -359,8 +359,7 @@ def conv_down_flat(x, w, bias, *, c_in: int, c_out: int,
     conv_down_flat.launches += 1
     if not want_stats:
         return out
-    tot = stats.sum(dim=1)
-    return out, tot[:, 0], tot[:, 1]
+    return (out, *partials_sum(stats))
 
 
 def conv_up_flat(x, w, bias, *, c_in: int, c_out: int, residual=None,
@@ -406,8 +405,7 @@ def conv_up_flat(x, w, bias, *, c_in: int, c_out: int, residual=None,
     conv_up_flat.launches += 1
     if not want_stats:
         return out
-    tot = stats.sum(dim=1)
-    return out, tot[:, 0], tot[:, 1]
+    return (out, *partials_sum(stats))
 
 
 conv_down_flat.launches = 0

@@ -29,6 +29,7 @@ SiLU is torch's. ``resblock_flat_train`` is the differentiable resblock.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ._cuda import (
@@ -285,14 +286,28 @@ def _fold_groups(a, f: int, cpg: int):
     return a.reshape(a.shape[0], f, GROUPS, cpg).sum(dim=(1, 3))
 
 
-def _gn_forward(x, gamma, beta, f: int, c: int):
-    """(out, mean [B, G], rstd [B, G]) from fp32 (Σx, Σx²) over T."""
+def _all_reduce_folds(folds, group):
+    """[B, G] group folds summed over the ranks of ``group`` (the sp ranks
+    that split T) by one all-reduce; unchanged without a group."""
+    if group is None:
+        return folds
+    both = torch.stack(folds)
+    dist.all_reduce(both, group=group)
+    return tuple(both.unbind(0))
+
+
+def _gn_forward(x, gamma, beta, f: int, c: int, group=None):
+    """(out, mean [B, G], rstd [B, G]) from fp32 (Σx, Σx²) over T (over the
+    whole clip's T with an sp ``group``)."""
     _, t, _ = x.shape
     cpg = c // GROUPS
-    n = t * f * cpg
+    n = t * f * cpg * _ranks(group)
     xf = x.to(wide_dtype(x))
-    mean = _fold_groups(xf.sum(dim=1), f, cpg) / n
-    var = _fold_groups((xf * xf).sum(dim=1), f, cpg) / n - mean.square()
+    s1g, s2g = _all_reduce_folds((_fold_groups(xf.sum(dim=1), f, cpg),
+                                  _fold_groups((xf * xf).sum(dim=1), f, cpg)),
+                                 group)
+    mean = s1g / n
+    var = s2g / n - mean.square()
     rstd = torch.rsqrt(var.clamp_min(0.0) + EPS)
     scale_c = rstd.repeat_interleave(cpg, dim=1) * gamma[None, :]
     shift_c = -(mean * rstd).repeat_interleave(cpg, dim=1) * gamma[None, :]
@@ -302,32 +317,42 @@ def _gn_forward(x, gamma, beta, f: int, c: int):
     return out.to(x.dtype), mean, rstd
 
 
+def _ranks(group) -> int:
+    return 1 if group is None else dist.get_world_size(group)
+
+
 class _GroupNormFlat(torch.autograd.Function):
     """dx = rstd·(γ·dy − S₁/N − x̂·S₂/N) per group, with S₁ = Σ γ·dy and
     S₂ = Σ γ·dy·x̂; dγ = Σ dy·x̂, dβ = Σ dy: all from the per-lane partials
-    Σ_t dy and Σ_t dy·x (one pass over (dy, x), one affine write)."""
+    Σ_t dy and Σ_t dy·x (one pass over (dy, x), one affine write). With an
+    sp group the forward's (Σx, Σx²) and the backward's S₁ and S₂ group
+    folds are all-reduced over it (this Function issues the collectives of
+    its backward itself), while dγ and dβ stay this rank's partial sums,
+    which the train step adds over sp once."""
 
     @staticmethod
-    def forward(ctx, gamma, beta, x, f, c):
-        out, mean, rstd = _gn_forward(x, gamma, beta, f, c)
+    def forward(ctx, gamma, beta, x, f, c, group):
+        out, mean, rstd = _gn_forward(x, gamma, beta, f, c, group)
         ctx.save_for_backward(x, gamma, mean, rstd)
-        ctx.f, ctx.c, ctx.has_beta = f, c, beta is not None
+        ctx.f, ctx.c, ctx.has_beta, ctx.group = f, c, beta is not None, group
         return out
 
     @staticmethod
     def backward(ctx, dy):
         x, gamma, mean, rstd = ctx.saved_tensors
-        f, c = ctx.f, ctx.c
+        f, c, group = ctx.f, ctx.c, ctx.group
         b, t, _ = x.shape
         cpg = c // GROUPS
-        n = t * f * cpg
+        n = t * f * cpg * _ranks(group)
         xf, dyf = x.to(wide_dtype(x)), dy.to(wide_dtype(x))
         sd = dyf.sum(dim=1)            # [B, F·C]
         sdx = (dyf * xf).sum(dim=1)
         gamma_lane = gamma.repeat(f)[None]
 
-        s1 = _fold_groups(sd * gamma_lane, f, cpg)                # Σ γ·dy
-        s2 = rstd * (_fold_groups(sdx * gamma_lane, f, cpg) - mean * s1)
+        s1, s2x = _all_reduce_folds((_fold_groups(sd * gamma_lane, f, cpg),
+                                     _fold_groups(sdx * gamma_lane, f, cpg)),
+                                    group)                    # Σ γ·dy, Σ γ·dy·x
+        s2 = rstd * (s2x - mean * s1)
         rstd_c = rstd.repeat_interleave(cpg, dim=1)               # [B, C]
         mean_c = mean.repeat_interleave(cpg, dim=1)
         s1_c = s1.repeat_interleave(cpg, dim=1)
@@ -341,27 +366,34 @@ class _GroupNormFlat(torch.autograd.Function):
         dg_lane = rstd_c.repeat(1, f) * (sdx - mean_c.repeat(1, f) * sd)
         dgamma = dg_lane.reshape(b, f, c).sum(dim=(0, 1))
         dbeta = sd.reshape(b, f, c).sum(dim=(0, 1)) if ctx.has_beta else None
-        return dgamma.to(gamma.dtype), dbeta, dx.to(x.dtype), None, None
+        return dgamma.to(gamma.dtype), dbeta, dx.to(x.dtype), None, None, None
 
 
-def gn_flat(pnorm, x, *, f: int, c: int):
+def gn_flat(pnorm, x, *, f: int, c: int, sp_group=None):
     """Differentiable GroupNorm(8, C, eps 1e-6) over flat [B, T, F·C] from
-    fp32 statistics, with the analytic backward."""
+    fp32 statistics, with the analytic backward. ``sp_group``: x is this
+    rank's time block of a clip split over the group's ranks; the statistics
+    are the whole clip's (``_GroupNormFlat``)."""
     gamma = pnorm["g"].to(wide_dtype(x))
     beta = pnorm.get("b")
     if beta is not None:
         beta = beta.to(wide_dtype(x))
-    return _GroupNormFlat.apply(gamma, beta, x, f, c)
+    return _GroupNormFlat.apply(gamma, beta, x, f, c, sp_group)
 
 
-def resblock_flat_train(p, x_flat, temb, *, f: int, c: int):
+def resblock_flat_train(p, x_flat, temb, *, f: int, c: int, conv=None,
+                        sp_group=None):
     """Differentiable flat residual block: GN → SiLU → conv (+temb) → SiLU →
-    GN → conv (+bias) → SiLU → GN3 → x + h, the convs on the flat kernels
-    forward and backward."""
+    GN → conv (+bias) → SiLU → GN3 → x + h. ``conv(h, w, add)``: the
+    block's conv (default: ``conv3x3_flat_t``, the flat kernels forward and
+    backward); ``sp_group``: the GroupNorms' statistics over a clip split
+    over the group's ranks (``gn_flat``)."""
     wide = wide_dtype(x_flat)
-    h = F.silu(gn_flat(p["norm1"], x_flat, f=f, c=c))
-    h = F.silu(conv3x3_flat_t(h, p["conv1"]["w"], temb.to(wide), c=c))
-    h = gn_flat(p["norm2"], h, f=f, c=c)
-    h = F.silu(conv3x3_flat_t(h, p["conv2"]["w"], p["conv2"]["b"].to(wide),
-                              c=c))
-    return x_flat + gn_flat(p["norm3"], h, f=f, c=c)
+    if conv is None:
+        def conv(h, w, add):
+            return conv3x3_flat_t(h, w, add, c=c)
+    h = F.silu(gn_flat(p["norm1"], x_flat, f=f, c=c, sp_group=sp_group))
+    h = F.silu(conv(h, p["conv1"]["w"], temb.to(wide)))
+    h = gn_flat(p["norm2"], h, f=f, c=c, sp_group=sp_group)
+    h = F.silu(conv(h, p["conv2"]["w"], p["conv2"]["b"].to(wide)))
+    return x_flat + gn_flat(p["norm3"], h, f=f, c=c, sp_group=sp_group)

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from .sums import batch_sums
 from .conv_flat import conv3x3_flat, quantize_conv_weights_int8
 from .residual_affine import residual_affine_flat
 
@@ -35,13 +36,11 @@ EPS = 1e-6
 
 def channel_sums(x_flat: torch.Tensor, c: int):
     """Per-(sample, channel) (sum, sum²) over T and F, accumulated in fp32
-    from x's own values: ([B, C], [B, C]). Two read passes; no fp32 copy of
-    x is made (sum² is the squared fp32 2-norm)."""
+    from x's own values: ([B, C], [B, C]), each sample's sums in the same
+    order at any batch size (``ops.sums``)."""
     b, t, fc = x_flat.shape
-    xv = x_flat.view(b, t * (fc // c), c)
-    s1 = xv.sum(dim=1, dtype=torch.float32)
-    s2 = torch.linalg.vector_norm(xv, dim=1, dtype=torch.float32).square()
-    return s1, s2
+    s = batch_sums(x_flat.view(b, t * (fc // c), c), squares=True)
+    return s[:, 0], s[:, 1]
 
 
 def gn_affine_from_sums(s1, s2, n: int, norm_params, c: int):

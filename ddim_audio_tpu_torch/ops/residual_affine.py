@@ -33,6 +33,7 @@ from ._cuda import (
     twin_result,
     use_twin,
 )
+from .sums import partials_sum
 from .conv_flat import (
     STORE_GROUP,
     _scales_operand,
@@ -149,8 +150,7 @@ def residual_affine_flat(x, s, affine=None, *, c: int, x_scales=None,
     residual_affine_flat.launches += 1
     result = (out, out_scales) if quant_out else (out,)
     if want_stats:
-        tot = stats.sum(dim=1)
-        result += (tot[:, 0], tot[:, 1])
+        result += partials_sum(stats)
     return result if len(result) > 1 else out
 
 

@@ -439,16 +439,17 @@ def residual_affine_plan(t: int, f: int, c: int, x_kind: int, s_kind: int,
     channels (grid.z) a block, walking the sample's storage groups ("units"
     of 8 × 16 positions × 32 channels) ``grid`` apart with RES_STAGES units
     staged or in flight; ``grid`` as many blocks as stay resident (at most
-    RES_BLOCKS an SM) spread over batch and groups, and ``tiles`` = ``grid``
-    statistics partials a sample, one a block. Variant 0 (CUDA cores) at
-    C % 32 == 0, else none."""
+    RES_BLOCKS an SM) spread over the groups, at any batch (a sample's
+    partials are then the same sums at any B; more samples run in more
+    waves), and ``tiles`` = ``grid`` statistics partials a sample, one a
+    block. Variant 0 (CUDA cores) at C % 32 == 0, else none."""
     q_t, q_f = STORE_GROUP
     stage = q_t * q_f * 32 * (res_kind_bytes(x_kind)
                               + res_kind_bytes(s_kind)) + 2 * 32 * 4
     smem = RES_STAGES * stage + RES_RED
     per_sm = min(SMEM_PER_SM // (smem + 1024), RES_BLOCKS)
     groups = _cdiv(c, 32)
-    grid = min(store_tiles(t, f), _cdiv(per_sm * SMS, batch * groups))
+    grid = min(store_tiles(t, f), _cdiv(per_sm * SMS, groups))
     variant = VARIANT_FMA if c > 0 and c % 32 == 0 else VARIANT_NONE
     return TilePlan(variant, q_t, q_f, grid, groups, groups, smem, grid)
 
@@ -502,20 +503,22 @@ def conv_head_plan(t: int, f: int, c_in: int, c0: int, bf16: bool,
     block); bf16 on mma.sync bf16 and no kernel where its rows do not fit
     in shared memory, fp32 in split TF32 and the CUDA-core kernel where
     they do not fit; else the CUDA-core kernel, one partial a 64-position
-    tile."""
+    tile. The batch does not enter: a sample's blocks walk the same tiles
+    at any batch, so its statistics are the same sums."""
+    del batch
     cin_ok = 1 <= c_in <= HEAD_MAX_CIN
     if cin_ok and not bf16 and c0 == HEAD_C0:
         tt = 1 if f >= HEAD32_POS else min(HEAD32_POS // f, HEAD_ROWS)
         smem = 4 * (tt + 2) * head32_halo_pitch(f, c_in) * 4 + MMA_RED
         if smem <= SMEM_LIMIT:
-            blocks = min(_cdiv(t, tt), _cdiv(FILL_BLOCKS, batch))
+            blocks = min(_cdiv(t, tt), FILL_BLOCKS)
             return TilePlan(VARIANT_TF32, tt, f, blocks, 1, 1, smem)
     if cin_ok and bf16 and c0 == HEAD_C0:
         tt = 1 if f >= HEAD_POS else min(HEAD_POS // f, HEAD_ROWS)
         m = _cdiv(tt * f, 16 * HEAD_MU) * 16 * HEAD_MU
         smem = (HEAD_STAGES * m * c0 * 2
                 + 2 * (tt + 2) * head_halo_pitch(f, c_in) * 2 + MMA_RED)
-        blocks = min(_cdiv(t, tt), _cdiv(FILL_BLOCKS, batch))
+        blocks = min(_cdiv(t, tt), FILL_BLOCKS)
         return TilePlan(VARIANT_MMA if smem <= SMEM_LIMIT else VARIANT_NONE,
                         tt, f, blocks, 1, 1, smem)
     plan = _fma_plan(t, f, c0)

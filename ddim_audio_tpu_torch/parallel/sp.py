@@ -30,13 +30,29 @@ exchange and is ignored on sp meshes, as in the JAX package.
 The halo rows travel by one all-gather of every rank's edge rows over the sp
 group, which both NCCL and gloo run on device tensors (gloo's send/recv take
 CPU tensors only), so the same code runs across cards and with several
-ranks on one card. Sequence-parallel training (the custom-VJP collectives
-and the weight-gradient kernels on haloed blocks) is not ported yet.
+ranks on one card.
+
+The training half (``sp_local_train_forward``) is differentiable end to end
+over the split time axis. Every collective on a gradient path is an
+autograd Function that issues its backward collectives itself: the halo
+(``_HaloT``: forward the edge-row all-gather, backward an all-gather of the
+halo rows' gradients, which each rank adds to the edge rows it sent),
+``psum_keep_sp`` (all-reduce; the backward passes the cotangent on) and the
+bottleneck's token gather (``_GatherTimeT``: all-gather; the backward
+all-reduces the whole cotangent and keeps this rank's slice), and the
+GroupNorms' sums (``ops.flat_grad.gn_flat(sp_group=…)``). An all-reduce
+whose backward all-reduced again would count every gradient sp times.
+Parameter gradients come back as this rank's partial sums; the train step
+adds them over sp once. The 3×3 resblock convs run ``conv3x3_flat_t`` (the
+kernels' forward, dx and dW) on the block with one halo row a side and crop;
+head, tail, transitions and other kernel sizes run as plain convs on
+haloed blocks, as the JAX package runs XLA there.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 
 import torch
@@ -47,11 +63,13 @@ from ..models.layers import conv_apply, conv_transpose_apply
 from ..models.unet import (
     ModelConfig,
     _bottleneck,
+    _remat,
     _temb_chunks,
     prepare_params,
     tap_int8_stage,
 )
 from ..ops.conv_flat import conv3x3_flat
+from ..ops.flat_grad import conv3x3_flat_t, resblock_flat_train
 from ..ops.flat_resblock import (
     GROUPS,
     channel_sums,
@@ -60,11 +78,6 @@ from ..ops.flat_resblock import (
     resblock_tail,
 )
 from .mesh import all_gather_cat, gather_batch, shard_batch
-
-SP_TRAINING_TODO = ("sequence-parallel training (parallel.sp > 1) is not "
-                    "ported yet (ROADMAP.md A3: the sp custom-VJP collectives, "
-                    "the weight-gradient kernels on haloed blocks and their "
-                    "train-step branch); train with parallel.sp: 1")
 
 
 def _neighbour_rows(x, left: int, right: int, mesh):
@@ -86,7 +99,14 @@ def _neighbour_rows(x, left: int, right: int, mesh):
 def _halo(x, left: int, right: int, mesh, pad=None):
     """x [B, T_loc, …] → [B, left + T_loc + right, …]: the neighbours' rows,
     and at the global boundary ``pad`` (one row [B, …], broadcast over the
-    halo and cast to x's dtype; zeros when None)."""
+    halo and cast to x's dtype; zeros when None, and then differentiable:
+    ``_HaloT``)."""
+    if pad is None:
+        return _HaloT.apply(x, left, right, mesh)
+    return _halo_rows_of(x, left, right, mesh, pad)
+
+
+def _halo_rows_of(x, left: int, right: int, mesh, pad=None):
     from_left, from_right = _neighbour_rows(x, left, right, mesh)
 
     def boundary(k):
@@ -101,6 +121,36 @@ def _halo(x, left: int, right: int, mesh, pad=None):
     if right:
         parts.append(boundary(right) if from_right is None else from_right)
     return torch.cat(parts, dim=1) if len(parts) > 1 else x
+
+
+class _HaloT(torch.autograd.Function):
+    """The zero-padded halo, differentiable. The gradient of a halo row
+    belongs to the neighbour whose edge row it copied: the backward
+    all-gathers every rank's [gradient of its left halo rows, of its right
+    halo rows], and rank s adds rank s + 1's left-halo gradient to its last
+    rows and rank s − 1's right-halo gradient to its first rows. The
+    boundary halos are zeros and carry none."""
+
+    @staticmethod
+    def forward(ctx, x, left, right, mesh):
+        ctx.left, ctx.right, ctx.mesh, ctx.t = left, right, mesh, x.shape[1]
+        return _halo_rows_of(x, left, right, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        left, right, mesh, t = ctx.left, ctx.right, ctx.mesh, ctx.t
+        gx = g[:, left:left + t].clone()
+        n, s = mesh.sp, mesh.sp_index
+        if n > 1:
+            halos = torch.cat([g[:, :left], g[:, left + t:]],
+                              dim=1).contiguous()
+            parts = [torch.empty_like(halos) for _ in range(n)]
+            dist.all_gather(parts, halos, group=mesh.sp_group)
+            if s > 0:  # rank s − 1's right halo copied my first rows
+                gx[:, :right] += parts[s - 1][:, left:]
+            if s < n - 1:  # rank s + 1's left halo copied my last rows
+                gx[:, t - left:] += parts[s + 1][:, :left]
+        return gx, None, None, None
 
 
 def _halo_rows(xf, vpad, mesh):
@@ -284,6 +334,123 @@ def apply_model_sp_local(params, x, t, cfg: ModelConfig, mesh):
     return h.permute(0, 3, 1, 2).float()
 
 
+# ---------------------------------------------------------------- training
+
+class _PsumKeepSp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, v, mesh):
+        out = v.clone()
+        dist.all_reduce(out, group=mesh.sp_group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def psum_keep_sp(v, mesh):
+    """v summed over the sp ranks; the backward passes the cotangent on as
+    it is (each rank's gradients stay its partial sums)."""
+    return _PsumKeepSp.apply(v, mesh) if mesh.sp > 1 else v
+
+
+class _GatherTimeT(torch.autograd.Function):
+    """The sp ranks' blocks of x [B, T_loc, …] concatenated along time; the
+    backward all-reduces the whole cotangent (every rank ran the gathered
+    tensor's consumer on its own loss) and keeps this rank's slice."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh, ctx.t = mesh, x.shape[1]
+        return all_gather_cat(x, mesh.sp_group, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.mesh.sp_group)
+        i = ctx.mesh.sp_index
+        return g[:, i * ctx.t:(i + 1) * ctx.t], None
+
+
+def _conv3x3_flat_sp_t(xf, w, add, *, c: int, mesh):
+    """``conv3x3_flat_t`` over a time block: one halo row a side (zeros at
+    the global boundary: the input is the post-GroupNorm/SiLU activation,
+    which the conv zero-pads; the kernel's bare mode has no prologue), the
+    kernels' forward, dx and dW on the T_loc + 2-row block, cropped."""
+    t = xf.shape[1]
+    return conv3x3_flat_t(_halo(xf, 1, 1, mesh), w, add, c=c)[:, 1:t + 1]
+
+
+def _resblock_sp_t(p, x, temb, *, krn: int, flat: bool, mesh):
+    """The differentiable resblock over an NHWC time block x [B, T_loc, F,
+    C]: ``resblock_flat_train`` with the whole clip's GroupNorm statistics
+    and, per conv, the flat kernels on the haloed block (``flat``) or a
+    plain conv with a halo of krn // 2 rows and the add in fp32."""
+    b, t, f, c = x.shape
+
+    def conv(h, w, add):
+        if flat:
+            return _conv3x3_flat_sp_t(h, w, add, c=c, mesh=mesh)
+        out = _conv_same_sp({"w": w}, h.view(b, t, f, c), krn, mesh)
+        add = add if add.ndim == 2 else add[None]
+        return (out.float() + add[:, None, None, :]).to(h.dtype).reshape(
+            b, t, f * c)
+
+    out = resblock_flat_train(p, x.reshape(b, t, f * c), temb, f=f, c=c,
+                              conv=conv, sp_group=mesh.sp_group)
+    return out.view(b, t, f, c)
+
+
+def flat_train_flags(cfg: ModelConfig, t_total: int, sp: int):
+    """Per stage, whether the sp training forward runs its resblock convs on
+    the flat kernels: 3×3 convs, ``conv_impl`` not the plain route, and an
+    even time block (as the JAX package gates it)."""
+    return tuple(krn == 3 and cfg.conv_impl != "xla"
+                 and (t_total // (sp << i)) % 2 == 0
+                 for i, krn in enumerate(cfg.krn))
+
+
+def sp_local_train_forward(params, x, t, generator, cfg: ModelConfig, flags,
+                           mesh):
+    """The per-rank training forward: x this rank's block [B_loc, C, T_loc,
+    F], t its timesteps → its ε block [B_loc, C, T_loc, F] fp32,
+    differentiable over the split time axis (module docstring). flags:
+    ``flat_train_flags``. The bottleneck runs on the gathered tokens on
+    every sp rank with ``generator``'s dropout, which every sp rank seeds
+    alike. Parameter gradients are this rank's partial sums."""
+    h = x.permute(0, 2, 3, 1).to(cfg.dtype)
+    temb_iter = iter(_temb_chunks(params, t, cfg))
+
+    def run_blocks(stage, krn, flat, h):
+        block_fn = _remat(functools.partial(_resblock_sp_t, krn=krn,
+                                            flat=flat, mesh=mesh), cfg)
+        for block in stage["blocks"]:
+            h = block_fn(block, h, next(temb_iter))
+        return h
+
+    h = _conv_same_sp(params["down_modules"]["head"], h, 3, mesh)
+    hidden = [h]
+    for stage, krn, flat in zip(params["down_modules"]["stages"], cfg.krn,
+                                flags):
+        if "down" in stage:
+            h = _down_conv_sp(stage["down"], h, mesh)
+        h = run_blocks(stage, krn, flat, h)
+        hidden.append(h)
+
+    tt = h.shape[1]
+    full = _bottleneck(params, _GatherTimeT.apply(h, mesh), cfg, train=True,
+                       generator=generator)
+    h = full[:, mesh.sp_index * tt:(mesh.sp_index + 1) * tt]
+
+    for stage, krn, flat in zip(reversed(params["up_modules"]["stages"]),
+                                reversed(cfg.krn), reversed(flags)):
+        h = run_blocks(stage, krn, flat, h + hidden.pop())
+        if "up" in stage:
+            h = _up_conv_sp(stage["up"], h, mesh)
+    h = _conv_same_sp(params["up_modules"]["tail"], h + hidden.pop(), 3, mesh)
+    return h.permute(0, 3, 1, 2).float()
+
+
 def sp_sampling_bundle(params, cfg: ModelConfig, mesh, t_total: int):
     """The tree a sampler passes on every step, made once per weight set:
     ``prepare_params`` under ``sp_eval_cfg`` (conv weights cast to the
@@ -299,16 +466,14 @@ def sp_sampling_bundle(params, cfg: ModelConfig, mesh, t_total: int):
     return prepare_params(params, sp_eval_cfg(cfg))
 
 
-def apply_model_sp(params, x, t, cfg: ModelConfig, mesh, *, packed=None,
-                   train: bool = False):
+def apply_model_sp(params, x, t, cfg: ModelConfig, mesh, *, packed=None):
     """Sequence-parallel forward of a global x [B, C, T, F] (the same on
     every rank): each rank runs its time block (and its batch slice over dp
     on a dp × sp mesh when dp divides B) and the blocks are all-gathered, so
     every rank returns the global ε [B, C, T, F] fp32. T must divide into sp
     × the total stride. ``packed``: the tree from ``sp_sampling_bundle``
-    (made here when absent)."""
-    if train:
-        raise ValueError(SP_TRAINING_TODO)
+    (made here when absent). Training runs ``sp_local_train_forward``
+    through the train step."""
     check_sp_time(x.shape[2], cfg, mesh.sp)
     if packed is None:
         packed = sp_sampling_bundle(params, cfg, mesh, x.shape[2])

@@ -14,9 +14,12 @@ it propagates. ``test`` is the mean ε-loss over the held-out split.
 ``model.ema``) and dispatches as the JAX runner does: ``--interpolation``,
 ``--sequence`` (kept x0 predictions per selected step) or
 ``sampling.last_only`` (the carry-only chain, final samples only). Every path
-draws the start noise from the seed, runs the sampler on the unpadded flat
-fp32 state through the flat-io denoiser under ``production_eval_cfg`` (only
-the model call runs in the compute dtype), converts back to [N, C, T, F],
+draws the start noise from the seed, runs the sampler under
+``production_eval_cfg`` (only the model call runs in the compute dtype) on
+the unpadded flat fp32 state through the flat-io denoiser, or, where
+``models.unet.flat_route`` refuses the model (``conv_impl: xla``, a stage
+with other than 3×3 convs), on [B, C, T, F] through ``apply_model`` as the
+JAX runner falls back, converts back to [N, C, T, F],
 applies ``denoise_2d`` when ``sampling.denoise`` is set, and writes a PNG and
 a WAV per sample.
 
@@ -27,10 +30,10 @@ per-step noise) from the seed and keeps its block: its slice of the batch on
 dp, and on sp its time block too, which the sampler carries in [B, C, T, F]
 through the sequence-parallel forward (``parallel/sp.py``). The ranks'
 results are gathered, so a mesh run's clips are a single-device run's, and
-rank 0 alone writes files. Training runs dp only: each rank computes its
-share of the microbatches and the gradients are averaged over the ranks
-(``make_train_step(mesh=)``); validation and ``test`` run whole on every
-rank.
+rank 0 alone writes files. Training hands every rank the whole batch:
+``make_train_step(mesh=)`` keeps its share of the microbatches on dp and its
+time block on sp, and adds the ranks' gradients; validation and ``test``
+run whole on every rank.
 """
 
 from __future__ import annotations
@@ -49,16 +52,17 @@ from ..data.codec import limit_length_img, pfft2img, pfft2wav
 from ..diffusion.schedules import make_schedule, make_timestep_subsequence
 from ..models.unet import (
     ModelConfig,
+    apply_model,
     apply_model_flat_io,
     count_params,
     flat_io_adapters,
+    flat_route,
     init_model,
     prepare_params,
 )
 from ..ops.signal import denoise_2d
 from ..parallel.mesh import gather_batch, make_mesh, shard_batch, world_rank
 from ..parallel.sp import (
-    SP_TRAINING_TODO,
     apply_model_sp_local,
     check_sp_time,
     sp_sampling_bundle,
@@ -117,8 +121,9 @@ class Diffusion:
     # ------------------------------------------------------------------ train
 
     def _eval_loss_fn(self, params):
-        """loss(x0, t, e) of the eval forward (the flat kernel route in the
-        model's own dtype) for a parameter tree, without gradients."""
+        """loss(x0, t, e) of the eval forward in the model's own dtype (the
+        flat kernel route, or ``apply_model`` where ``flat_route`` refuses
+        the model) for a parameter tree, without gradients."""
         cfg = self.model_cfg
         to_flat, from_flat = flat_io_adapters(cfg)
         prepared = prepare_params(params, cfg)
@@ -127,6 +132,8 @@ class Diffusion:
         loss_impl = loss_registry[self.config.model.type]
 
         def apply_fn(p, x, t):
+            if not flat_route(cfg):
+                return apply_model(p, x, t, cfg)
             return from_flat(apply_model_flat_io(p, to_flat(x).contiguous(),
                                                  t, cfg))
 
@@ -161,8 +168,6 @@ class Diffusion:
                 config.training.n_iters is not None):
             raise ValueError("set exactly one of training.n_epochs and "
                              "training.n_iters")
-        if self.mesh is not None and self.mesh.sp > 1:
-            raise ValueError(SP_TRAINING_TODO)
         dataset, test_dataset = get_dataset(args, config)
         logging.info("dataset: %d train / %d test items", len(dataset),
                      len(test_dataset))
@@ -447,8 +452,9 @@ class Diffusion:
         without a mesh). On one device and on dp meshes that is the unpadded
         flat fp32 state [B, T, F·C] of the kernel forward
         (``apply_model_flat_io``), with noise drawn channel-shaped then
-        reshaped, as the JAX package's flat-io adapters; on sp meshes the
-        block [B, C, T/sp, F] of the sequence-parallel forward
+        reshaped, as the JAX package's flat-io adapters, or [B, C, T, F]
+        through ``apply_model`` where ``flat_route`` refuses the model; on
+        sp meshes the block [B, C, T/sp, F] of the sequence-parallel forward
         (``apply_model_sp_local``). Every rank draws the whole batch's noise
         and keeps its block. Kept states and the final state are gathered
         back to the global [B, C, T, F] on every rank (``finalize``)."""
@@ -475,6 +481,23 @@ class Diffusion:
                                   noise_builder=sp_noise)
             return (sampler, shard_batch(mesh, x, time_axis=2).contiguous(),
                     gather)
+
+        if not flat_route(cfg):
+            def plain(params, xl, t):
+                return apply_model(params, xl, t, cfg)
+
+            def plain_noise(gen, xl):
+                return shard_batch(mesh, torch.randn(shape, generator=gen)
+                                   ).to(xl.device)
+
+            def gather_plain(xl):
+                return gather_batch(mesh, xl, shape)
+
+            sampler = ScanSampler(plain, kind=kind, scan_chunk=scan_chunk,
+                                  state_to_saved=gather_plain,
+                                  noise_builder=plain_noise)
+            return (sampler, shard_batch(mesh, x).contiguous(),
+                    gather_plain)
 
         to_flat, from_flat = flat_io_adapters(cfg)
 

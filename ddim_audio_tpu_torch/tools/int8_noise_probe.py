@@ -37,11 +37,12 @@ def main() -> int:
     xf = to_flat(x).contiguous()
     cfg_prod = production_eval_cfg(config, cfg)
     cfg16 = dataclasses.replace(cfg, dtype=torch.bfloat16)
+    plain = dataclasses.replace(cfg, conv_impl="xla")  # the cuDNN route
 
     def run(p, c):
         return from_flat(unet.apply_model_flat_io(p, xf, t, c))
 
-    ref = unet.apply_model(params, x, t, cfg)
+    ref = unet.apply_model(params, x, t, plain)
     pp = unet.prepare_params(params, cfg_prod)
     print(f"production, CUDA kernels: {snr_db(run(pp, cfg_prod), ref):.2f} dB")
     p16 = unet.prepare_params(params, cfg16)
@@ -71,7 +72,7 @@ def main() -> int:
 
     for scale in (0.3, 0.1, 0.0):
         _, _, ps = audio_model(gn3_scale=scale)
-        ref_s = unet.apply_model(ps, x, t, cfg)
+        ref_s = unet.apply_model(ps, x, t, plain)
         print(f"final GroupNorm weights x {scale}: production "
               f"{snr_db(run(unet.prepare_params(ps, cfg_prod), cfg_prod), ref_s):.2f}"
               f" dB, float taps bf16 "

@@ -2,14 +2,15 @@
 
     python -m ddim_audio_tpu_torch.tools.profile_forward \
         [--route production|int8_store|float|plain] [--forwards 3] [--top 12]
+        [--batch 1]
 
 Builds the audio.yml model with seed-made weights (non-zero final GroupNorm
 weights), warms the route up, profiles ``--forwards`` forwards at
-[1, 2, 8192, 256] and prints, per forward (``int8_store``: the production
-configuration plus ``sampling.act_store: int8`` and
-``sampling.strided_int8: true``): wall time, device-busy time (the
-sum of every device kernel), host time in torch operators and the device time
-by kernel name. The busy share is device-busy time over the wall time
+[batch, 2, 8192, 256] (the seed-made clip repeated) and prints, per forward
+(``int8_store``: the production configuration plus ``sampling.act_store:
+int8`` and ``sampling.strided_int8: true``): wall time, device-busy time
+(the sum of every device kernel), host time in torch operators and the
+device time by kernel name. The busy share is device-busy time over the wall time
 measured without the profiler. Run it in a process of its own and time nothing after it: the
 profiler leaves the host slower for the rest of the process.
 """
@@ -35,6 +36,7 @@ def main(argv=None) -> int:
                     choices=["production", "int8_store", "float", "plain"])
     ap.add_argument("--forwards", type=int, default=3)
     ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--batch", type=int, default=1)
     args = ap.parse_args(argv)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -43,6 +45,7 @@ def main(argv=None) -> int:
     print(smi.stdout.strip())
     config, cfg, params = audio_model()
     x, t = forward_input(cfg)
+    x, t = x.repeat(args.batch, 1, 1, 1), t.repeat(args.batch)
     to_flat, _ = flat_io_adapters(cfg)
     xf = to_flat(x).contiguous()
     if args.route == "int8_store":
@@ -54,7 +57,8 @@ def main(argv=None) -> int:
     p = prepare_params(params, c)
     if args.route == "plain":
         def fwd():
-            return apply_model(p, x, t, c)
+            return apply_model(p, x, t, dataclasses.replace(c,
+                                                            conv_impl="xla"))
     else:
         def fwd():
             return apply_model_flat_io(p, xf, t, c)
@@ -81,7 +85,8 @@ def main(argv=None) -> int:
            if r.device_time_total > 0 and r.device_type.name == "CUDA"]
     busy = sum(d[1] for d in dev)
     host = sum(r.self_cpu_time_total for r in rows) / 1e3 / n
-    print(f"route {args.route}, bf16, per forward over {n}: wall without the "
+    print(f"route {args.route}, bf16, batch {args.batch}, per forward over "
+          f"{n}: wall without the "
           f"profiler {bare:.2f} ms, of which the device is busy {busy:.2f} ms "
           f"({100 * busy / bare:.1f}%) | under the profiler: wall {wall:.2f} "
           f"ms, host in torch operators {host:.2f} ms, device kernels "

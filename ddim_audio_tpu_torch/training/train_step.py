@@ -5,7 +5,10 @@ per-group optimizers with Noam warmup, EMA: one function over a
 ``TrainState``, with no host synchronisation inside it. Metrics come back
 as device tensors that the host reads at its own cadence. On a dp mesh each
 rank runs its share of the microbatches and one all-reduce averages the
-ranks' losses and gradients before the update, which every rank applies.
+ranks' losses and gradients before the update, which every rank applies; on
+a mesh with sp > 1 each rank also keeps only its time block and runs the
+sequence-parallel training forward (``parallel/sp.py``), and the same one
+all-reduce adds the sp ranks' partial gradients.
 """
 
 from __future__ import annotations
@@ -18,7 +21,8 @@ import torch.distributed as dist
 
 from ..models.unet import apply_model
 from ..parallel.mesh import batch_sharded, shard_batch
-from ..parallel.sp import SP_TRAINING_TODO
+from ..parallel.sp import (check_sp_time, flat_train_flags, psum_keep_sp,
+                           sp_local_train_forward)
 from ..utils.tree import tree_leaves, tree_map
 from .ema import ema_init, ema_update
 from .losses import loss_registry
@@ -57,8 +61,8 @@ def micro_generator(generator, index: int):
 
 
 def _all_reduce_sum(group, loss, grads):
-    """loss and grads summed over the group's ranks by one all-reduce of one
-    flat buffer."""
+    """loss and grads summed over the group's ranks (the default group's for
+    None) by one all-reduce of one flat buffer."""
     flat = torch.cat([loss.reshape(1)] + [g.reshape(-1) for g in grads])
     dist.all_reduce(flat, group=group)
     parts = torch.split(flat[1:], [g.numel() for g in grads])
@@ -105,9 +109,18 @@ def make_train_step(cfg, config, alphas_cumprod, tx, mesh=None):
     the ranks' loss and gradient sums are added by one all-reduce before
     they are averaged, clipped and applied, so a dp × A step is a
     single-device grad_accum dp·A step (a batch that dp does not divide runs
-    whole on every rank). A mesh with sp > 1 raises."""
-    if mesh is not None and mesh.sp > 1:
-        raise ValueError(SP_TRAINING_TODO)
+    whole on every rank).
+
+    ``mesh`` with sp > 1, where dp divides the batch and sp the time axis
+    (as the JAX step takes its sp branch): each rank also keeps its time
+    block of x0 and of the noise (drawn whole from the microbatch's
+    generator, so the same numbers as one device's, or injected), runs
+    ``parallel.sp.sp_local_train_forward``, completes each sample's
+    (C, T, F) sum of the loss over sp (``psum_keep_sp``), and one
+    all-reduce over all the ranks adds the sp ranks' partial gradients and
+    the dp ranks' sums (the loss from the first rank of each sp row alone)
+    before they are divided by dp·A: the same step as one device's
+    grad_accum dp·A, in another order of summation."""
     loss_fn = loss_registry[config.model.type]
     num_timesteps = cfg.num_timesteps
     use_ema = bool(config.model.ema)
@@ -125,12 +138,20 @@ def make_train_step(cfg, config, alphas_cumprod, tx, mesh=None):
         else:
             t = antithetic_timesteps(generator, x0.shape[0], num_timesteps)
             e_all = None
-        split = batch_sharded(mesh, x0.shape[0])
+        shape = tuple(x0.shape)
+        sp_split = (mesh is not None and mesh.sp > 1
+                    and shape[0] % mesh.dp == 0 and shape[2] % mesh.sp == 0)
+        split = sp_split or batch_sharded(mesh, shape[0])
+        time_axis = 2 if sp_split else None
         first = 0  # the global index of this rank's first microbatch
+        if sp_split:
+            check_sp_time(shape[2], cfg, mesh.sp)
+            flags = flat_train_flags(cfg, shape[2], mesh.sp)
         if split:
-            x0, t = shard_batch(mesh, x0), shard_batch(mesh, t)
+            x0 = shard_batch(mesh, x0, time_axis=time_axis)
+            t = shard_batch(mesh, t)
             if e_all is not None:
-                e_all = shard_batch(mesh, e_all)
+                e_all = shard_batch(mesh, e_all, time_axis=time_axis)
             first = mesh.dp_index * grad_accum
         n = x0.shape[0]
         if n % grad_accum:
@@ -150,16 +171,30 @@ def make_train_step(cfg, config, alphas_cumprod, tx, mesh=None):
                 gen = micro_generator(generator, first + g)
                 if e_all is not None:
                     e_mb = e_all[sl]
+                elif sp_split:  # the whole clip's noise, my time block
+                    e_mb = torch.randn(
+                        (mb,) + shape[1:], generator=gen, device=x0.device,
+                        dtype=x0.dtype).narrow(2, mesh.sp_index * x0.shape[2],
+                                               x0.shape[2])
                 else:
                     e_mb = torch.randn(x0_mb.shape, generator=gen,
                                        device=x0.device, dtype=x0.dtype)
 
-                def apply_fn(pp, x, tt, gen=gen):
-                    return apply_model(pp, x, tt, cfg, train=True,
-                                       generator=gen)
+                if sp_split:
+                    def apply_fn(pp, x, tt, gen=gen):
+                        return sp_local_train_forward(pp, x, tt, gen, cfg,
+                                                      flags, mesh)
 
-                loss = loss_fn(apply_fn, state.params, x0_mb, t[sl], e_mb,
-                               alphas)
+                    loss = psum_keep_sp(loss_fn(
+                        apply_fn, state.params, x0_mb, t[sl], e_mb, alphas,
+                        keepdim=True), mesh).mean(dim=0)
+                else:
+                    def apply_fn(pp, x, tt, gen=gen):
+                        return apply_model(pp, x, tt, cfg, train=True,
+                                           generator=gen)
+
+                    loss = loss_fn(apply_fn, state.params, x0_mb, t[sl],
+                                   e_mb, alphas)
                 grads = torch.autograd.grad(loss, leaves)
                 loss = loss.detach()
                 if grad_sum is None:
@@ -173,7 +208,14 @@ def make_train_step(cfg, config, alphas_cumprod, tx, mesh=None):
 
         with torch.no_grad():
             count = grad_accum
-            if split:
+            if sp_split:
+                # every sp rank holds the global loss: the first of each sp
+                # row adds it, the others zeros
+                lead = loss_sum if mesh.sp_index == 0 else torch.zeros_like(
+                    loss_sum)
+                loss_sum, grad_sum = _all_reduce_sum(None, lead, grad_sum)
+                count *= mesh.dp
+            elif split:
                 loss_sum, grad_sum = _all_reduce_sum(mesh.dp_group, loss_sum,
                                                      grad_sum)
                 count *= mesh.dp

@@ -82,6 +82,10 @@ TRAIN_STAGES = [(1024, 256, 32), (512, 128, 64), (256, 64, 96), (128, 32, 128),
 TRAIN_UPS = [(512, 128, 64, 32), (256, 64, 96, 64), (128, 32, 128, 96),
              (64, 16, 192, 128), (32, 8, 256, 192)]
 UPS_I8 = [(4096, 128, 64, 32), (256, 8, 256, 192)]
+# sequence-parallel training at sp = 2: each stage's time block of T / 2
+# rows with one halo row a side, the rows the fp32 conv3x3 (forward and dx)
+# and its weight gradient run on (514 … 18)
+SP_TRAIN_STAGES = [(t // 2 + 2, f, c) for t, f, c in TRAIN_STAGES]
 
 
 @pytest.fixture(scope="module")
@@ -117,7 +121,8 @@ def test_tile_plans_match_the_c_plans(plan_lib):
     conv is persistent."""
     c3 = [(t, f, c) for t in (1, 7, 16, 33) for f in (1, 8, 12, 16, 40)
           for c in (16, 32, 48, 64, 96, 128, 192, 256, 512, 1024)] + STAGES \
-        + TRAIN_STAGES
+        + TRAIN_STAGES + SP_TRAIN_STAGES
+    assert [t for t, _, _ in SP_TRAIN_STAGES] == [514, 258, 130, 66, 34, 18]
     for t, f, c in c3:
         for bf16 in (0, 1):
             for b in (1, 2, 5):
@@ -204,7 +209,8 @@ def test_tile_plans_match_the_c_plans(plan_lib):
                   [(t, f, c, c) for t in (1, 7, 16, 33) for f in (1, 8, 16, 20)
                    for c in (16, 32, 48, 64, 96, 192, 256)]
                   + [(12, 24, 32, 64), (12, 24, 64, 32)]
-                  + [(t, f, c, c) for t, f, c in TRAIN_STAGES]),
+                  + [(t, f, c, c) for t, f, c in TRAIN_STAGES
+                     + SP_TRAIN_STAGES]),
           "up": (plan_lib.ddim_conv_up_dw_plan, conv_up_dw_plan,
                  [(t, f, ci, co) for t in (1, 5, 8, 17) for f in (1, 8, 16, 18)
                   for ci, co in ((64, 32), (96, 64), (256, 192), (48, 32),
@@ -262,9 +268,10 @@ def test_tile_plans_match_the_c_plans(plan_lib):
         assert all(conv_up_plan(*s, True, b).variant == VARIANT_MMA
                    for s in UPS)
         # fp32 conv3x3 and up: split TF32 on the tensor cores at every
-        # stage and transition, sampling and training shapes, one
-        # output-channel group a block (split = groups · the K split)
-        for s in STAGES + TRAIN_STAGES:
+        # stage and transition, sampling and training shapes (the sp
+        # shards' haloed blocks too), one output-channel group a block
+        # (split = groups · the K split)
+        for s in STAGES + TRAIN_STAGES + SP_TRAIN_STAGES:
             plan = conv3x3_plan(*s, False, b)
             assert plan.variant == VARIANT_TF32
             assert plan.split % plan.groups == 0
@@ -302,16 +309,18 @@ def test_tile_plans_match_the_c_plans(plan_lib):
             assert conv_tail_plan(t, f, 32, 2, False, b).variant == \
                 VARIANT_FMA
             assert head.tile_f == tail.tile_f == head32.tile_f == f
-        # one statistics partial a block: about FILL_BLOCKS blocks in all
-        assert conv_head_plan(8192, 256, 2, 32, True, b).tiles * b == 264
+        # one statistics partial a block, FILL_BLOCKS blocks a sample at
+        # any batch (a clip's partials do not depend on its batch)
+        assert conv_head_plan(8192, 256, 2, 32, True, b).tiles == 264
         # fp32: one row of 256 positions a tile, two blocks an SM
         head32 = conv_head_plan(8192, 256, 2, 32, False, b)
-        assert head32.tiles * b == 264 and head32.tile_t == 1
+        assert head32.tiles == 264 and head32.tile_t == 1
         assert 2 * (head32.smem + 1024) <= 233_472
     # residual_affine (T, F, C, x kind, s kind: 0 fp32, 1 bf16, 2 int8): a
     # sweep of ragged shapes and every kind; at the storage stages in the
     # int8-storage forward's modes a persistent grid of at most four blocks
-    # an SM over the batch and channel groups, one partial a block
+    # an SM over the channel groups at any batch (a sample's partials do not
+    # depend on B), one partial a block
     res = [(t, f, c) for t in (1, 7, 8, 9, 33, 300) for f in (1, 8, 15, 16,
                                                               17, 40)
            for c in (16, 32, 64, 96, 128, 256, 1024)] + STORE_STAGES
@@ -330,7 +339,7 @@ def test_tile_plans_match_the_c_plans(plan_lib):
             for xk in (1, 2):  # a stage entry (bf16 x), an interior block
                 plan = residual_affine_plan(t, f, c, xk, 2, b)
                 assert plan.grid == plan.tiles < -(-t // 8) * -(-f // 16)
-                assert plan.grid * b * plan.groups == 4 * 132
+                assert plan.grid * plan.groups == 4 * 132
                 assert plan[1:3] == (8, 16) and plan.groups == c // 32
     # two tail blocks an SM: bands of 32 rows
     assert conv_tail_plan(8192, 256, 32, 2, True, 1)[1:4] == (32, 256, 256)

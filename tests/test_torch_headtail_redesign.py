@@ -115,7 +115,8 @@ def emulate_head(x, w, bias, *, c_in, plan: TilePlan):
 
 
 @pytest.mark.parametrize("b,t,f,c_in", [
-    (2, 300, 256, 2),  # 150 tiles of 2 rows over 132 blocks a sample
+    (2, 300, 256, 2),  # 150 tiles of 2 rows over 264 blocks a sample
+    (1, 600, 256, 2),  # 300 tiles of 2 rows: some blocks walk two
     (1, 45, 24, 2),    # 21 rows a tile, the last tile 3 rows
     (2, 11, 13, 2),    # odd F: element-wise halo rows
     (1, 9, 40, 1), (2, 7, 12, 3), (1, 6, 20, 4)])
@@ -135,6 +136,8 @@ def test_head_block_model_matches_plain(b, t, f, c_in):
         tiles = sorted(i for bx in range(plan.tiles) for i in walked[bb, bx])
         assert tiles == list(range(n_tiles))
     if (b, t, f) == (2, 300, 256):
+        assert max(len(v) for v in walked.values()) == 1
+    if (b, t, f) == (1, 600, 256):
         assert max(len(v) for v in walked.values()) == 2
     ref, r1, r2 = conv_head_flat_plain(x, w, bias, c_in=c_in, c0=C0,
                                        want_stats=True)

@@ -96,7 +96,20 @@ def test_flat_io_denoiser_matches_jax_pallas(setup):
 
 
 def test_plain_denoiser_matches_jax_xla(setup):
+    """The plain route (``conv_impl: xla``: no fused resblock) vs JAX's XLA
+    forward."""
     cfg_j, cfg_t, params_j, params_t, x, t = setup
+    ref = jax_unet.apply_model(params_j, jnp.asarray(x), jnp.asarray(t), cfg_j)
+    out = unet.apply_model(params_t, torch.from_numpy(x), torch.from_numpy(t),
+                           dataclasses.replace(cfg_t, conv_impl="xla"))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-4)
+
+
+def test_fused_eval_denoiser_matches_jax_xla(setup):
+    """``apply_model`` on ``conv_impl: auto`` (its 3×3 stages on the fused
+    resblock chain, CPU twins) vs JAX's XLA forward."""
+    cfg_j, cfg_t, params_j, params_t, x, t = setup
+    assert cfg_t.conv_impl == "auto"
     ref = jax_unet.apply_model(params_j, jnp.asarray(x), jnp.asarray(t), cfg_j)
     out = unet.apply_model(params_t, torch.from_numpy(x), torch.from_numpy(t),
                            cfg_t)
@@ -105,13 +118,14 @@ def test_plain_denoiser_matches_jax_xla(setup):
 
 def test_flat_and_plain_routes_agree(setup):
     """Within the port: the kernel-route forward equals the plain forward
-    after the flat-state layout conversion."""
+    (``conv_impl: xla``) after the flat-state layout conversion."""
     _, cfg_t, _, params_t, x, t = setup
     to_flat, from_flat = unet.flat_io_adapters(cfg_t)
     xt, tt = torch.from_numpy(x), torch.from_numpy(t)
     flat = from_flat(unet.apply_model_flat_io(params_t, to_flat(xt), tt, cfg_t))
-    torch.testing.assert_close(flat, unet.apply_model(params_t, xt, tt, cfg_t),
-                               atol=2e-4, rtol=0)
+    plain = unet.apply_model(params_t, xt, tt,
+                             dataclasses.replace(cfg_t, conv_impl="xla"))
+    torch.testing.assert_close(flat, plain, atol=2e-4, rtol=0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

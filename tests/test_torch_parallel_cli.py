@@ -1,9 +1,10 @@
-"""The port's command line under a launcher, on the CPU: a 2-step training
-run at the tiny config with ``parallel: {dp: 2}`` under ``python -m
-torch.distributed.run --nproc_per_node 2`` (two gloo ranks, ``--device
-cpu``) against the same run in one process with ``grad_accum: 2`` (through
-the runner, as the command line drives it): the same checkpoint, and one
-run folder that rank 0 alone writes."""
+"""The port's command line under a launcher, on the CPU: 2-step training
+runs at the tiny config with ``parallel: {dp: 2}`` and with ``parallel:
+{sp: 2}`` under ``python -m torch.distributed.run --nproc_per_node 2`` (two
+gloo ranks, ``--device cpu``; the two launches run at once) against the same
+run in one process with ``grad_accum: 2`` and 1 (through the runner, as the
+command line drives it): the same checkpoint, and one run folder that rank 0
+alone writes."""
 
 import os
 import subprocess
@@ -36,25 +37,36 @@ def runs(tmp_path_factory):
     raw["data"]["path"] = str(data)
     raw["training"].update(n_iters=2, snapshot_freq=2, validation_freq=2)
     paths = {}
-    for name, dp, accum in (("dp", 2, 1), ("one", 1, 2)):
-        raw["parallel"] = {"dp": dp, "sp": 1}
+    for name, dp, sp, accum in (("dp", 2, 1, 1), ("sp", 1, 2, 1),
+                                ("one", 1, 1, 2), ("one1", 1, 1, 1)):
+        raw["parallel"] = {"dp": dp, "sp": sp}
         raw["training"]["grad_accum"] = accum
         paths[name] = str(root / f"{name}.yml")
         with open(paths[name], "w") as fh:
             yaml.safe_dump(raw, fh)
     exp = str(root / "exp")
     env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=REPO)
-    proc = subprocess.run(
+    procs = {name: subprocess.Popen(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
          "--nproc_per_node", "2", "-m", "ddim_audio_tpu_torch", "--config",
-         paths["dp"], "--doc", "dp", "--exp", exp, "--ni", "--device", "cpu"],
-        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 0, proc.stderr[-4000:]
-    args = cli.build_parser().parse_args(
-        ["--config", paths["one"], "--doc", "one", "--exp", exp])
-    args.log_path = os.path.join(exp, "logs", "one")
-    Diffusion(args, load_config(paths["one"]), device="cpu").train()
-    return exp, proc
+         paths[name], "--doc", name, "--exp", exp, "--ni", "--device", "cpu"],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for name in ("dp", "sp")}
+    try:
+        for name in ("one", "one1"):
+            args = cli.build_parser().parse_args(
+                ["--config", paths[name], "--doc", name, "--exp", exp])
+            args.log_path = os.path.join(exp, "logs", name)
+            Diffusion(args, load_config(paths[name]), device="cpu").train()
+        for name, proc in procs.items():
+            _, err = proc.communicate(timeout=300)
+            assert proc.returncode == 0, f"{name}: {err[-4000:]}"
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return exp, procs
 
 
 def test_launcher_run_equals_one_process(runs):
@@ -62,9 +74,20 @@ def test_launcher_run_equals_one_process(runs):
     absolute plus 1e-5 relative (tests/test_torch_train_step.py's
     tolerances; the ranks run one thread each, this process several, so the
     CPU's reductions block another way)."""
-    exp, _ = runs
-    got, meta = read_checkpoint(os.path.join(exp, "logs", "dp", "ckpt.npz"))
-    ref, ref_meta = read_checkpoint(os.path.join(exp, "logs", "one",
+    _same_checkpoint(runs[0], "dp", "one")
+
+
+def test_sp_launcher_run_equals_one_process(runs):
+    """``parallel: {sp: 2}``: each rank trains on its time block of every
+    batch; after 2 steps the same checkpoint as one process's grad_accum 1
+    run, within the same tolerances (the sp ranks add their partial sums in
+    another order)."""
+    _same_checkpoint(runs[0], "sp", "one1")
+
+
+def _same_checkpoint(exp, run, ref_run):
+    got, meta = read_checkpoint(os.path.join(exp, "logs", run, "ckpt.npz"))
+    ref, ref_meta = read_checkpoint(os.path.join(exp, "logs", ref_run,
                                                  "ckpt.npz"))
     assert meta["step"] == ref_meta["step"] == 2
     assert got.keys() == ref.keys()
@@ -82,8 +105,15 @@ def test_launcher_run_folder_written_by_rank0(runs):
     """The files of a training run, each once; the log holds each step once
     (rank 1 logs warnings only, to its console); config.yml is the launcher
     run's."""
-    exp, _ = runs
-    folder = os.path.join(exp, "logs", "dp")
+    _folder_of_rank0(runs[0], "dp", {"dp": 2, "sp": 1})
+
+
+def test_sp_launcher_run_folder_written_by_rank0(runs):
+    _folder_of_rank0(runs[0], "sp", {"dp": 1, "sp": 2})
+
+
+def _folder_of_rank0(exp, run, parallel):
+    folder = os.path.join(exp, "logs", run)
     assert sorted(os.listdir(folder)) == [
         "ckpt.npz", "ckpt_1.npz", "ckpt_2.npz", "config.yml", "stdout.txt"]
     with open(os.path.join(folder, "stdout.txt")) as fh:
@@ -92,4 +122,4 @@ def test_launcher_run_folder_written_by_rank0(runs):
         assert text.count(f"step: {step}, loss: ") == 1
     assert text.count("step: 2, val-loss: ") == 1
     with open(os.path.join(folder, "config.yml")) as fh:
-        assert yaml.safe_load(fh)["parallel"] == {"dp": 2, "sp": 1}
+        assert yaml.safe_load(fh)["parallel"] == parallel

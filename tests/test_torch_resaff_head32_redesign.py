@@ -321,7 +321,7 @@ def _twin64(x, w, bias, c_in):
 
 
 @pytest.mark.parametrize("b,t,f,c_in", [
-    (2, 300, 256, 2),  # one row a tile, 300 tiles over 132 blocks a sample
+    (2, 300, 256, 2),  # one row a tile, 300 tiles over 264 blocks a sample
     (1, 45, 24, 2),    # 10 rows a tile, the last 5
     (2, 11, 13, 2),    # F·Cin not a multiple of 4: element-wise halo rows
     (1, 9, 40, 1), (2, 7, 12, 3), (1, 6, 20, 4)])
@@ -333,7 +333,7 @@ def test_head32_block_model_matches_plain(b, t, f, c_in):
     bias = torch.from_numpy(rng.standard_normal(C0, np.float32))
     plan = conv_head_plan(t, f, c_in, C0, False, b)
     assert plan.variant == VARIANT_TF32 and plan.tile_f == f
-    assert plan.tiles == min(_cdiv(t, plan.tile_t), _cdiv(FILL_BLOCKS, b))
+    assert plan.tiles == min(_cdiv(t, plan.tile_t), FILL_BLOCKS)
     out, parts, walked = emulate_head32(x, w, bias, c_in=c_in, plan=plan)
     assert parts.shape == (b, plan.tiles, 2, C0)  # one partial a block
     n_tiles = _cdiv(t, plan.tile_t)
@@ -341,7 +341,7 @@ def test_head32_block_model_matches_plain(b, t, f, c_in):
         tiles = sorted(i for bx in range(plan.tiles) for i in walked[bb, bx])
         assert tiles == list(range(n_tiles))
     if (b, t) == (2, 300):
-        assert plan.tile_t == 1 and max(len(v) for v in walked.values()) == 3
+        assert plan.tile_t == 1 and max(len(v) for v in walked.values()) == 2
     ref, r1, r2 = _twin64(x, w, bias, c_in)
     assert not torch.isnan(out).any()  # every output written once
     assert (out - ref).abs().max().item() <= 1e-12 * ref.abs().max().item()

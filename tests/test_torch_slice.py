@@ -100,7 +100,8 @@ def test_ddim_coefficients_and_step_equal_jax(eta):
 
 def test_three_step_chain_matches_jax():
     """Same x_T and weights: the port's flat kernel route (CPU twins) and its
-    plain route vs the JAX ScanSampler.sample_last on its XLA route.
+    plain route (``conv_impl: xla``) vs the JAX ScanSampler.sample_last on its
+    XLA route.
     Tolerance 1e-3 of max|x|."""
     cfg_t = unet.ModelConfig.from_config(tiny_config())
     cfg_j = dataclasses.replace(jax_unet.ModelConfig.from_config(tiny_config()),
@@ -128,7 +129,8 @@ def test_three_step_chain_matches_jax():
     flat = ScanSampler(lambda p, xf, t: unet.apply_model_flat_io(p, xf, t, cfg_t))
     out_flat = from_flat(flat.sample_last(to_flat(torch.from_numpy(x)), seq,
                                           sched, params=params_t))
-    plain = ScanSampler(lambda p, xn, t: unet.apply_model(p, xn, t, cfg_t))
+    cfg_plain = dataclasses.replace(cfg_t, conv_impl="xla")
+    plain = ScanSampler(lambda p, xn, t: unet.apply_model(p, xn, t, cfg_plain))
     out_plain = plain.sample_last(torch.from_numpy(x), seq, sched,
                                   params=params_t)
     np.testing.assert_allclose(out_flat.numpy(), ref, atol=tol, rtol=0)

@@ -154,28 +154,43 @@ def runner_sampling(rank, world, out_dir, exp, runs):
 
 # ---------------------------------------------------------- dp train step
 
-def train_steps(params_np, x0, draws, seed, *, grad_accum: int, dp: int):
-    """One optimizer step from the same state, on a dp mesh of the default
-    group (dp = 1: one process, no mesh) with ``grad_accum``: with the
-    port's own draws (a generator seeded ``seed``; FNet dropout on, as the
-    tiny config ships it) and with the injected (t, e) of ``draws`` and no
-    generator (no dropout). Returns {label: (flattened state, metrics)}."""
+def train_steps(params_np, x0, draws, seed, *, grad_accum: int, dp: int,
+                sp: int = 1, labels=("drawn", "injected")):
+    """One optimizer step from the same state, on a dp × sp mesh of the
+    default group (1 × 1: one process, no mesh) with ``grad_accum``: with
+    the port's own draws (a generator seeded ``seed``; FNet dropout on, as
+    the tiny config ships it) and with the injected (t, e) of ``draws`` and
+    no generator (no dropout); ``labels`` picks among the two. An
+    fp64 x0 runs the whole step in fp64 (parameters, compute, FNet), where
+    a changed order of summation stays far below any tolerance. Returns
+    {label: (flattened state, metrics)}."""
     from ddim_audio_tpu_torch.config import load_config
     from ddim_audio_tpu_torch.diffusion.schedules import make_schedule
     from ddim_audio_tpu_torch.models.unet import ModelConfig
     from ddim_audio_tpu_torch.parallel.mesh import make_mesh
     from ddim_audio_tpu_torch.training.train_step import (init_train_state,
                                                           make_train_step)
+    from ddim_audio_tpu_torch.utils.tree import tree_map
     from ddim_audio_tpu_torch.weights import flatten_train_state
 
     config = load_config(TINY)
     config.training.grad_accum = grad_accum
     cfg = ModelConfig.from_config(config)
+    wide = x0.dtype == np.float64
+    if wide:
+        config.model.transformers.dtype = torch.float64
+        cfg = dataclasses.replace(ModelConfig.from_config(config),
+                                  dtype=torch.float64)
     alphas = make_schedule("linear", 1e-4, 0.02, 50).alphas_cumprod
-    mesh = make_mesh(_ns(dp=dp, sp=1))
+    mesh = make_mesh(_ns(dp=dp, sp=sp))
     res = {}
     for label, override in (("drawn", None), ("injected", draws)):
-        state, tx = init_train_state(_tensors(params_np), config.optimization,
+        if label not in labels:
+            continue
+        params = _tensors(params_np)
+        if wide:
+            params = tree_map(lambda v: v.double(), params)
+        state, tx = init_train_state(params, config.optimization,
                                      use_ema=True)
         step = make_train_step(cfg, config, alphas, tx, mesh=mesh)
         gen = None
@@ -212,3 +227,108 @@ def dp_train(rank, world, out_dir, params_np, x0, draws, seed):
     """One train step at dp = world, grad_accum 1."""
     save(out_dir, rank, train_steps(params_np, x0, draws, seed, grad_accum=1,
                                     dp=world))
+
+
+def sp_train(rank, world, out_dir, params_np, x0, draws, seed, dp, sp,
+             labels=("drawn", "injected")):
+    """One train step on a dp × sp mesh of this world, grad_accum 1."""
+    save(out_dir, rank, train_steps(params_np, x0, draws, seed, grad_accum=1,
+                                    dp=dp, sp=sp, labels=labels))
+
+
+# ------------------------------------------------- sp training collectives
+
+def _fd_grad(part, x, mesh, *, replicated=False, eps=1e-6):
+    """(autograd, central finite differences) of a global loss with respect
+    to a global x [B, T, …] split over T among the sp ranks of ``mesh`` (all
+    the ranks): ``part(x_r)`` is rank r's share of the loss (the shares add up to
+    it) or, ``replicated``, the whole loss on every rank. The autograd side
+    is each rank's gradient of its own share, gathered along T."""
+    import torch.distributed as dist
+
+    from ddim_audio_tpu_torch.parallel.mesh import all_gather_cat
+
+    rank, t = mesh.sp_index, x.shape[1] // mesh.sp
+    mine = x[:, rank * t:(rank + 1) * t].clone().requires_grad_(True)
+    grad = all_gather_cat(torch.autograd.grad(part(mine), mine)[0],
+                          mesh.sp_group, 1)
+
+    def total(xg):
+        v = part(xg[:, rank * t:(rank + 1) * t]).detach().reshape(1)
+        if not replicated:
+            dist.all_reduce(v)
+        return v
+
+    fd = torch.zeros_like(x)
+    for i in range(x.numel()):
+        step = torch.zeros_like(x)
+        step.view(-1)[i] = eps
+        fd.view(-1)[i] = (total(x + step) - total(x - step)) / (2 * eps)
+    return grad.numpy(), fd.numpy()
+
+
+def sp_units(rank, world, out_dir):
+    """The sp training collectives' backwards on a world of sp ranks, in
+    fp64: each against central finite differences of the global loss; and
+    ``gn_flat(sp_group=…)`` against the unsharded ``gn_flat``."""
+    import torch.distributed as dist
+
+    from ddim_audio_tpu_torch.ops.flat_grad import gn_flat
+    from ddim_audio_tpu_torch.parallel import sp
+    from ddim_audio_tpu_torch.parallel.mesh import all_gather_cat, make_mesh
+
+    mesh = make_mesh(_ns(dp=1, sp=world))
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn((2, 4 * world, 3), generator=gen, dtype=torch.float64)
+    # per-rank weights: every rank draws all of them, keeps its own
+    res = {}
+    for left, right in ((1, 1), (1, 2), (2, 1)):
+        w = torch.randn((world, 2, 4 + left + right, 3), generator=gen,
+                        dtype=torch.float64)
+
+        def halo_part(xr, left=left, right=right, w=w):
+            h = sp._halo(xr, left, right, mesh)
+            return (w[rank] * h * h + w[rank].flip(1) * h).sum()
+
+        res[f"halo_{left}_{right}"] = _fd_grad(halo_part, x, mesh)
+    wp = torch.randn((2, 3), generator=gen, dtype=torch.float64)
+
+    def psum_part(xr):
+        return (wp * torch.sin(sp.psum_keep_sp((xr * xr).sum(dim=1),
+                                               mesh))).sum()
+
+    res["psum_keep_sp"] = _fd_grad(psum_part, x, mesh, replicated=True)
+    wg = torch.randn((world, 2, 4 * world, 3), generator=gen,
+                     dtype=torch.float64)
+
+    def gather_part(xr):
+        return (wg[rank] * torch.tanh(sp._GatherTimeT.apply(xr, mesh))).sum()
+
+    res["gather_time"] = _fd_grad(gather_part, x, mesh)
+
+    # gn_flat: [B, T, F·C] at F = 2, C = 16 (8 groups of 2)
+    f, c = 2, 16
+    xg = torch.randn((2, 4 * world, f * c), generator=gen, dtype=torch.float64)
+    dy = torch.randn(xg.shape, generator=gen, dtype=torch.float64)
+    pn = {"g": 1 + 0.3 * torch.randn((c,), generator=gen, dtype=torch.float64),
+          "b": 0.3 * torch.randn((c,), generator=gen, dtype=torch.float64)}
+    for v in pn.values():
+        v.requires_grad_(True)
+    t = xg.shape[1] // world
+    xr = xg[:, rank * t:(rank + 1) * t].clone().requires_grad_(True)
+    out = gn_flat(pn, xr, f=f, c=c, sp_group=mesh.sp_group)
+    dx, dgamma, dbeta = torch.autograd.grad(
+        (out * dy[:, rank * t:(rank + 1) * t]).sum(), (xr, pn["g"], pn["b"]))
+    parts = torch.cat([dgamma, dbeta])
+    dist.all_reduce(parts, group=mesh.sp_group)
+    x1 = xg.clone().requires_grad_(True)
+    out1 = gn_flat(pn, x1, f=f, c=c)
+    ref = torch.autograd.grad((out1 * dy).sum(), (x1, pn["g"], pn["b"]))
+    res["gn_flat"] = {
+        "out": (all_gather_cat(out.detach(), mesh.sp_group, 1).numpy(),
+                out1.detach().numpy()),
+        "dx": (all_gather_cat(dx, mesh.sp_group, 1).numpy(),
+               ref[0].numpy()),
+        "dgamma_dbeta": (parts.numpy(), torch.cat(ref[1:]).numpy()),
+    }
+    save(out_dir, rank, res)
