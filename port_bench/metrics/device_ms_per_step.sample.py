@@ -1,0 +1,7 @@
+"""Union of the device operations' intervals per denoiser step, in ms."""
+
+from port_bench.harness import readers
+
+
+def read(run):
+    return readers.device_ms_per_step(run)

@@ -1,0 +1,7 @@
+"""Device kernels in the traced window per denoiser step."""
+
+from port_bench.harness import readers
+
+
+def read(run):
+    return readers.launches_per_step(run)
