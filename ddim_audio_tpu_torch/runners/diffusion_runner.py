@@ -71,6 +71,7 @@ from ..sampling.driver import ScanSampler
 from ..training.losses import loss_registry
 from ..training.train_step import init_train_state, make_train_step
 from ..utils.device import resolve_device
+from ..utils.tracing import span
 from ..weights import load_jax_checkpoint
 
 _SEED_STRIDE = 1_000_003  # spreads (seed, step) over generator seeds
@@ -393,29 +394,35 @@ class Diffusion:
 
     def _postprocess(self, out: np.ndarray) -> np.ndarray:
         if self.config.sampling.denoise:
-            out = denoise_2d(torch.from_numpy(out).to(self.device)).cpu().numpy()
+            with span("ddim.runner.filter"):
+                out = denoise_2d(torch.from_numpy(out).to(self.device))
+            out = out.cpu().numpy()
         return out
 
     def sample_last_only(self, params, x=None):
         """Run the whole subsequence through the carry-only loop and export
         only the final samples. Returns the exported [N, C, T, F] array."""
         args, config = self.args, self.config
-        if x is None:
-            x = self.start_noise()
-        seq = make_timestep_subsequence(self.num_timesteps, args.timesteps,
-                                        args.skip_type)
-        sampler, x_state, finalize = self._sampler_for_state(x)
-        gen = torch.Generator().manual_seed(int(args.seed) + 1)
-        out = sampler.sample_last(x_state, seq, self.schedule, eta=args.eta,
-                                  generator=gen,
-                                  params=self._sampler_params(params, x))
-        out = finalize(out)
-        if config.sampling.denoise:
-            out = denoise_2d(out)
-        out = out.cpu().numpy()
-        self.export(out, [f"{j}_final" for j in range(len(out))])
-        logging.info("wrote %d final samples to %s", len(out),
-                     args.image_folder)
+        with span("ddim.runner.chain"):
+            if x is None:
+                x = self.start_noise()
+            seq = make_timestep_subsequence(self.num_timesteps,
+                                            args.timesteps, args.skip_type)
+            sampler, x_state, finalize = self._sampler_for_state(x)
+            gen = torch.Generator().manual_seed(int(args.seed) + 1)
+            out = sampler.sample_last(x_state, seq, self.schedule,
+                                      eta=args.eta, generator=gen,
+                                      params=self._sampler_params(params, x))
+            with span("ddim.runner.finalize"):
+                out = finalize(out)
+            if config.sampling.denoise:
+                with span("ddim.runner.filter"):
+                    out = denoise_2d(out)
+            with span("ddim.runner.to_host"):
+                out = out.cpu().numpy()
+            self.export(out, [f"{j}_final" for j in range(len(out))])
+            logging.info("wrote %d final samples to %s", len(out),
+                         args.image_folder)
         return out
 
     def export(self, out: np.ndarray, names) -> None:
@@ -423,27 +430,34 @@ class Diffusion:
         sample of out [N, C, T, F] (rank 0 only)."""
         if not self.is_writer:
             return
-        from PIL import Image
-        from scipy.io.wavfile import write as wav_write
+        with span("ddim.runner.export"):
+            from PIL import Image
+            from scipy.io.wavfile import write as wav_write
 
-        config = self.config
-        os.makedirs(self.args.image_folder, exist_ok=True)
-        for name, img in zip(names, out.transpose(0, 3, 2, 1)):  # → [F, T, C]
-            path = os.path.join(self.args.image_folder, name)
-            Image.fromarray(limit_length_img(pfft2img(img))).save(path + ".png")
-            wav = pfft2wav(img, config.sampling.virtual_samplerate,
-                           dtype=np.int32, HPI=config.sampling.HPI)
-            wav_write(path + ".wav",
-                      config.data.dataset_kwargs.virtual_samplerate, wav)
+            config = self.config
+            os.makedirs(self.args.image_folder, exist_ok=True)
+            rate = config.data.dataset_kwargs.virtual_samplerate
+            clips = out.transpose(0, 3, 2, 1)  # → [N, F, T, C]
+            for name, img in zip(names, clips):
+                path = os.path.join(self.args.image_folder, name)
+                with span("ddim.runner.export.clip"):
+                    with span("ddim.runner.export.png"):
+                        png = Image.fromarray(limit_length_img(pfft2img(img)))
+                        png.save(path + ".png")
+                    with span("ddim.runner.export.wav"):
+                        wav = pfft2wav(img, config.sampling.virtual_samplerate,
+                                       dtype=np.int32, HPI=config.sampling.HPI)
+                        wav_write(path + ".wav", rate, wav)
 
     def _sampler_params(self, params, x):
         """The tree the sampler passes on every step, made once per run:
         ``prepare_params`` under the eval config, or on sp meshes
         ``sp_sampling_bundle``'s."""
-        if self.mesh is not None and self.mesh.sp > 1:
-            return sp_sampling_bundle(params, self.eval_cfg, self.mesh,
-                                      x.shape[2])
-        return prepare_params(params, self.eval_cfg)
+        with span("ddim.runner.prepare"):
+            if self.mesh is not None and self.mesh.sp > 1:
+                return sp_sampling_bundle(params, self.eval_cfg, self.mesh,
+                                          x.shape[2])
+            return prepare_params(params, self.eval_cfg)
 
     def _sampler_for_state(self, x):
         """(sampler, x_state, finalize) for a start noise x [B, C, T, F].

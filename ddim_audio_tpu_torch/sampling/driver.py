@@ -27,6 +27,7 @@ import time
 import numpy as np
 import torch
 
+from ..utils.tracing import span
 from .ddim import ddim_coefficients, ddim_step
 from .ddpm import ddpm_coefficients, ddpm_step
 
@@ -143,12 +144,13 @@ class ScanSampler:
     def _step(self, params, x, coeffs, k: int, noise):
         """One update from step k's coefficients: (x0_pred, x_next), x_next
         in x's dtype (the update arithmetic is fp32)."""
-        t = torch.full((x.shape[0],), int(coeffs[0][k]), dtype=torch.long,
-                       device=x.device)
-        eps = self.denoise_fn(params, x, t)
-        step = ddim_step if self.kind == "generalized" else ddpm_step
-        x0, x_next = step(x, eps, *(c[k] for c in coeffs[1:]), noise)
-        return x0, x_next.to(x.dtype)
+        with span("ddim.sampler.step"):
+            t = torch.full((x.shape[0],), int(coeffs[0][k]),
+                           dtype=torch.long, device=x.device)
+            eps = self.denoise_fn(params, x, t)
+            step = ddim_step if self.kind == "generalized" else ddpm_step
+            x0, x_next = step(x, eps, *(c[k] for c in coeffs[1:]), noise)
+            return x0, x_next.to(x.dtype)
 
     def sample_last(self, x, seq, schedule, *, eta: float = 0.0,
                     generator: torch.Generator | None = None, params=None):
@@ -158,9 +160,10 @@ class ScanSampler:
         with_noise = self._needs_noise(eta)
         if with_noise and generator is None:
             generator = torch.Generator().manual_seed(0)
-        for k in range(len(coeffs[0])):
-            noise = self._draw(generator, x) if with_noise else None
-            _, x = self._step(params, x, coeffs, k, noise)
+        with span("ddim.sampler.loop"):
+            for k in range(len(coeffs[0])):
+                noise = self._draw(generator, x) if with_noise else None
+                _, x = self._step(params, x, coeffs, k, noise)
         return x
 
     def sample(self, x, seq, schedule, *, eta: float = 0.0, select_index=None,
@@ -211,37 +214,43 @@ class ScanSampler:
                 xs.append(xt_host[i])
             pending_bytes -= x0_host.shape[0] * pair_bytes
 
-        for start, stop, kept in chunks:
-            slot_of = {k: i for i, k in enumerate(kept)}
-            if kept:
-                shape = (len(kept),) + saved_shape
-                x0_buf = torch.empty(shape, dtype=buf_dtype, device=x.device)
-                xt_buf = torch.empty(shape, dtype=buf_dtype, device=x.device)
-            for k in range(start, stop):
-                noise = None
-                if noise_override is not None:
-                    noise = torch.as_tensor(noise_override[k]).to(
-                        device=x.device, dtype=x.dtype)
-                elif with_noise:
-                    noise = self._draw(generator, x)
-                x0, x = self._step(params, x, coeffs, k, noise)
-                if k in slot_of:
-                    x0_buf[slot_of[k]].copy_(sts(x0))
-                    xt_buf[slot_of[k]].copy_(sts(x))
-            if not kept:
-                continue
-            pending.append((_HostCopy(x0_buf, side), _HostCopy(xt_buf, side)))
-            pending_bytes += len(kept) * pair_bytes
-            while pending_bytes > budget and len(pending) > 1:
-                drain(pending.pop(0))  # bounds device memory for --sequence -1
-                mid_drains += 1
-        if on_cuda:
-            torch.cuda.current_stream(x.device).synchronize()
+        with span("ddim.sampler.loop"):
+            for start, stop, kept in chunks:
+                slot_of = {k: i for i, k in enumerate(kept)}
+                if kept:
+                    shape = (len(kept),) + saved_shape
+                    x0_buf = torch.empty(shape, dtype=buf_dtype,
+                                         device=x.device)
+                    xt_buf = torch.empty(shape, dtype=buf_dtype,
+                                         device=x.device)
+                for k in range(start, stop):
+                    noise = None
+                    if noise_override is not None:
+                        noise = torch.as_tensor(noise_override[k]).to(
+                            device=x.device, dtype=x.dtype)
+                    elif with_noise:
+                        noise = self._draw(generator, x)
+                    x0, x = self._step(params, x, coeffs, k, noise)
+                    if k in slot_of:
+                        x0_buf[slot_of[k]].copy_(sts(x0))
+                        xt_buf[slot_of[k]].copy_(sts(x))
+                if not kept:
+                    continue
+                pending.append((_HostCopy(x0_buf, side),
+                                _HostCopy(xt_buf, side)))
+                pending_bytes += len(kept) * pair_bytes
+                # bounds device memory for --sequence -1
+                while pending_bytes > budget and len(pending) > 1:
+                    drain(pending.pop(0))
+                    mid_drains += 1
+            if on_cuda:
+                torch.cuda.current_stream(x.device).synchronize()
         if timings is not None:
             timings["compute_s"] = time.perf_counter() - t_start
             timings["mid_drains"] = mid_drains
-        for pair in pending:
-            drain(pair)
+        with span("ddim.sampler.drain"):
+            for pair in pending:
+                drain(pair)
         if timings is not None:
             timings["drain_s"] = (time.perf_counter() - t_start
                                   - timings["compute_s"])

@@ -23,6 +23,7 @@ from ..models.unet import apply_model
 from ..parallel.mesh import batch_sharded, shard_batch
 from ..parallel.sp import (check_sp_time, flat_train_flags, psum_keep_sp,
                            sp_local_train_forward)
+from ..utils.tracing import span
 from ..utils.tree import tree_leaves, tree_map
 from .ema import ema_init, ema_update
 from .losses import loss_registry
@@ -129,6 +130,10 @@ def make_train_step(cfg, config, alphas_cumprod, tx, mesh=None):
     alphas_on = {}  # device → the schedule as a tensor, made once
 
     def train_step(state: TrainState, x0, generator, *, noise_override=None):
+        with span("ddim.train.step"):
+            return _train_step(state, x0, generator, noise_override)
+
+    def _train_step(state, x0, generator, noise_override):
         if x0.device not in alphas_on:
             alphas_on[x0.device] = torch.as_tensor(
                 alphas_cumprod, dtype=torch.float32, device=x0.device)
@@ -185,28 +190,31 @@ def make_train_step(cfg, config, alphas_cumprod, tx, mesh=None):
                         return sp_local_train_forward(pp, x, tt, gen, cfg,
                                                       flags, mesh)
 
-                    loss = psum_keep_sp(loss_fn(
-                        apply_fn, state.params, x0_mb, t[sl], e_mb, alphas,
-                        keepdim=True), mesh).mean(dim=0)
+                    with span("ddim.train.forward"):
+                        loss = psum_keep_sp(loss_fn(
+                            apply_fn, state.params, x0_mb, t[sl], e_mb,
+                            alphas, keepdim=True), mesh).mean(dim=0)
                 else:
                     def apply_fn(pp, x, tt, gen=gen):
                         return apply_model(pp, x, tt, cfg, train=True,
                                            generator=gen)
 
-                    loss = loss_fn(apply_fn, state.params, x0_mb, t[sl],
-                                   e_mb, alphas)
-                grads = torch.autograd.grad(loss, leaves)
-                loss = loss.detach()
-                if grad_sum is None:
-                    loss_sum, grad_sum = loss, list(grads)
-                else:
-                    loss_sum = loss_sum + loss
-                    torch._foreach_add_(grad_sum, grads)
+                    with span("ddim.train.forward"):
+                        loss = loss_fn(apply_fn, state.params, x0_mb, t[sl],
+                                       e_mb, alphas)
+                with span("ddim.train.backward"):
+                    grads = torch.autograd.grad(loss, leaves)
+                    loss = loss.detach()
+                    if grad_sum is None:
+                        loss_sum, grad_sum = loss, list(grads)
+                    else:
+                        loss_sum = loss_sum + loss
+                        torch._foreach_add_(grad_sum, grads)
         finally:
             for p in leaves:
                 p.requires_grad_(False)
 
-        with torch.no_grad():
+        with torch.no_grad(), span("ddim.train.update"):
             count = grad_accum
             if sp_split:
                 # every sp rank holds the global loss: the first of each sp

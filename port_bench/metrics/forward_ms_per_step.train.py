@@ -1,0 +1,7 @@
+"""Summed ms of the train step's ``ddim.train.forward`` spans in each traced optimizer step, averaged over the steps."""
+
+from port_bench.harness import spans
+
+
+def read(run):
+    return spans.ms_per_step(run, "ddim.train.forward")
