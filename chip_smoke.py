@@ -124,6 +124,16 @@ phase on its own lines:
    and its SNR, the kernel's, twin's and bound's time (split TF32, with the
    CUDA-core bound beside it) and one ``F.conv2d`` /
    ``F.conv_transpose2d`` call's (fp32, TF32 off);
+   then ``[train-update]``: the train step's one-pass update
+   (``ops.train_update``: clip, AdaBelief / AdamW, ``p + u`` and the EMA in
+   four launches) at audio.yml's whole tree against its per-leaf twin
+   (``training.train_step.update_plain``) from the same state and
+   gradients: with the clip not engaged every parameter, moment and average
+   bit-equal; with it engaged at grad_accum 2 each entry within
+   TOL_GRAD_LEAF of its leaf's move plus one fp32 unit; ``grad_norm`` and
+   ``update_norm`` within TOL_UPDATE_NORMS; the card's time by CUDA events
+   beside its bound (10 fp32 values a parameter over 3.35 TB/s), the host's
+   time a call and the per-leaf route's time;
 8. grad: one microbatch forward + backward of the full audio.yml model
    (fp32, remat) on the non-zero-GN3 weights: the kernel route, the same
    through the plain twins with every wrapper call shadowed by its kernel,
@@ -134,11 +144,13 @@ phase on its own lines:
    ``.npy`` waveforms (14 train / 2 held out), audio.yml as shipped (batch
    14, ``grad_accum: 14``, fp32, remat) but for ``data.path``, ``n_iters``,
    ``snapshot_freq`` and ``validation_freq``: 3 steps → ``ckpt_1.npz`` and
-   ``ckpt.npz``, finite logged losses, validation ran; ``--resume_training``
+   ``ckpt.npz``, finite logged losses, validation ran, the one-pass
+   update's UPDATE_LAUNCHES launches a step counted; ``--resume_training``
    to step 5; the unbroken 5-step run, whose checkpoint must equal the
    resumed one bit for bit (parameters, optimizer state, EMA); ``--test``;
    ``--sample`` from that checkpoint; a 2-step ``model.dtype: bfloat16`` run
-   whose losses track the fp32 run's; ms per optimizer step by CUDA events;
+   whose losses track the fp32 run's; ms per optimizer step by CUDA events
+   (the one-pass update's launches counted, fp32 and bf16 compute);
 10. parallel: the command line with ``parallel: {dp: 2}`` in one plain
    process exits 1 with the mesh's refusal (one process is one rank); then
    two ranks on the one card in a gloo group (NCCL refuses two ranks on one
@@ -154,7 +166,9 @@ phase on its own lines:
    production) on sp = 2 and on dp = 2 against one device's run, rank 0
    alone writing the files; one fp32 dp = 2 training step (a microbatch
    [1, 2, 1024, 256] a rank, the launches of one microbatch each) against
-   one device's grad_accum 2 step, leaf by leaf; one fp32 sp = 2 training
+   one device's grad_accum 2 step, leaf by leaf; in every training step of
+   the ranks the one-pass update's UPDATE_LAUNCHES launches counted (none
+   under ``reference_route``); one fp32 sp = 2 training
    step of audio.yml at [2, 2, 1024, 256] (each rank a [2, 2, 512, 256]
    block, the conv3x3 kernels' forward, dx and dW on haloed blocks of 514
    … 18 rows) against one device's step on the same injected draws (the
@@ -330,6 +344,16 @@ TOL_DP_STEP = 1e-6
 # entries may need the unit:
 TOL_SP_ULP_SHARE = 1e-4
 TOL_SP_LOSS = 1e-5
+
+# The one-pass update against the per-leaf route: the norms (the clip's,
+# ``grad_norm``, ``update_norm``) sum in another order than torch's
+# reductions, within this of each other.
+TOL_UPDATE_NORMS = 1e-6
+# the one-pass update's launches a step (ops.train_update)
+UPDATE_LAUNCHES = 4
+# Cycles the card sleeps before the update's timed calls: the wrapper's
+# host side (tables, views, the state's trees) takes a few ms a call.
+PREFILL_UPDATE_CYCLES = 400_000_000
 
 # Published H100 SXM peaks: HBM bytes/s and dense operations/s by operand type
 # (fp32 outside the tensor cores; "tf32x3": the split-TF32 fp32 conv3x3, up
@@ -1710,6 +1734,112 @@ def phase_train_kernels():
             f"{plain_ms:.3f} ms: kernel / cuDNN {ms / lib_ms:.2f}x")
 
 
+def phase_train_update():
+    """[train-update]: the one-pass update against its per-leaf twin at
+    audio.yml's whole tree, then its time."""
+    import torch
+
+    from ddim_audio_tpu_torch.config import load_config
+    from ddim_audio_tpu_torch.models.unet import ModelConfig, init_model
+    from ddim_audio_tpu_torch.ops import train_update as tu
+    from ddim_audio_tpu_torch.training.train_step import (init_train_state,
+                                                          update_fused,
+                                                          update_plain)
+    from ddim_audio_tpu_torch.utils.tree import tree_leaves, tree_paths
+
+    config = load_config("configs/audio.yml")
+    params = init_model(torch.Generator().manual_seed(0),
+                        ModelConfig.from_config(config))
+    state, tx = init_train_state(params, config.optimization, use_ema=True)
+    rate = float(config.model.ema_rate)
+    leaves = tree_leaves(params)
+    n = sum(p.numel() for p in leaves)
+    require(n == PARAMS_AUDIO_YML, f"{n} parameters")
+    given = (state.params, state.opt_state, state.ema)
+    gen = torch.Generator("cuda").manual_seed(21)
+
+    def arrays(out):
+        """{kind + leaf path: numpy} of parameters, average, moments."""
+        params, opt_state, ema = out[:3]
+        d = {f"params{k}": v for k, v in tree_paths(params).items()}
+        d.update({f"ema{k}": v for k, v in tree_paths(ema).items()})
+        for name, opt in tx.optimizers.items():
+            first, second = opt.rule.moments(opt_state[name])
+            d.update({f"mu{k}": v for k, v in tree_paths(first).items()})
+            d.update({f"nu{k}": v for k, v in tree_paths(second).items()})
+        return {k: v.cpu().numpy() for k, v in d.items()}
+
+    def grads_of(scale, count):
+        return [count * scale * torch.randn(p.shape, generator=gen,
+                                            device="cuda") for p in leaves]
+
+    before = arrays(given)
+    for label, scale, count in (("clip not engaged", 1e-5, 1),
+                                ("clip engaged, grad_accum 2", 1e-3, 2)):
+        grads = grads_of(scale, count)
+        launched = tu.train_update.launches
+        fused = update_fused(tx, grads, *given, rate, count)
+        launched = tu.train_update.launches - launched
+        plain = update_plain(tx, grads, *given, rate, count)
+        got, ref = arrays(fused), arrays(plain)
+        norm = float(plain[3])
+        norm_gap = abs(float(fused[3]) - norm) / norm
+        un_f = float(fused[1]["default"]["update_norm"])
+        un_p = float(plain[1]["default"]["update_norm"])
+        un_gap = abs(un_f - un_p) / un_p
+        require(launched == UPDATE_LAUNCHES,
+                f"[train-update] {launched} launches")
+        require(norm_gap <= TOL_UPDATE_NORMS and un_gap <= TOL_UPDATE_NORMS,
+                f"[train-update] grad_norm {norm_gap:.2e}, update_norm "
+                f"{un_gap:.2e} apart")
+        if count == 1:
+            require(norm < 1.0, f"[train-update] norm {norm} engages the clip")
+            differ = [k for k in ref if not np.array_equal(got[k], ref[k])]
+            require(not differ, f"[train-update] {len(differ)} leaves differ, "
+                    f"first {differ[:3]}")
+            detail = f"all {len(ref)} leaves bit-equal"
+        else:
+            require(norm >= 1.0, f"[train-update] norm {norm} under the clip")
+            parts = []
+            for kind in ("params", "ema", "mu", "nu"):
+                worst, key, nl, ulp_n, bad_n, entries = _move_gaps(
+                    got, ref, before, kind)
+                require(bad_n == 0, f"[train-update] {kind}: {bad_n} entries "
+                        f"beyond {TOL_GRAD_LEAF} of the move plus a unit")
+                parts.append(f"{kind} {nl} leaves, worst {worst:.2e} at {key}"
+                             f", {ulp_n} of {entries} needed the unit")
+            detail = "; ".join(parts)
+        log(f"[train-update] {label} (grad_norm {norm:.4f}): {launched} "
+            f"launches; grad_norm {norm_gap:.1e} and update_norm {un_gap:.1e} "
+            f"apart; {detail}")
+
+    grads = grads_of(1e-5, 1)
+    for _ in range(2):
+        update_fused(tx, grads, *given, rate, 1)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    calls = 10
+    torch.cuda.synchronize()
+    torch.cuda._sleep(PREFILL_UPDATE_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        update_fused(tx, grads, *given, rate, 1)
+    host_ms = (time.perf_counter() - t0) * 1e3 / calls
+    end.record()
+    require(not end.query(), "[train-update] the card ran dry while the host "
+            "queued the timed calls: raise PREFILL_UPDATE_CYCLES")
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / calls
+    plain_ms = cuda_time(lambda: update_plain(tx, grads, *given, rate, 1),
+                         n=3, warmup=1)
+    bound = 10 * 4 * n / PEAK_BYTES * 1e3
+    log(f"[train-update] {n} parameters in {len(leaves)} leaves: kernel "
+        f"{ms:.3f} ms / bound {bound:.3f} ms (bytes: 10 fp32 values a "
+        f"parameter; {bound / ms:.0%} of it), host {host_ms:.2f} ms a call; "
+        f"per-leaf route {plain_ms:.1f} ms a call (the host's pace)")
+
+
 def _int8_store_config(path):
     """audio.yml as shipped plus ``sampling.act_store: int8`` and
     ``sampling.strided_int8: true``, written to path."""
@@ -2118,7 +2248,8 @@ def phase_train(summary):
     import torch
 
     from ddim_audio_tpu_torch import cli
-    from ddim_audio_tpu_torch.ops import launch_counts, reset_launch_counts
+    from ddim_audio_tpu_torch.ops import (launch_counts, reset_launch_counts,
+                                          train_update)
 
     def run(exp, config, doc, *flags):
         t0 = time.perf_counter()
@@ -2153,6 +2284,7 @@ def phase_train(summary):
         reset_launch_counts()
         wall = run(exp, cfg3, "a")
         counts = launch_counts()
+        updates = train_update.train_update.launches
         steps = 3
         # 14 microbatches a step, and the validation forward at step 2 (the
         # eval route in fp32: float taps, head and tail kernels)
@@ -2161,8 +2293,11 @@ def phase_train(summary):
             want[k] += v
         log(f"[train] CLI train, 3 steps + validation: exit 0, host wall "
             f"{wall:.1f} s (dataset, init, 2 checkpoints of the whole "
-            f"TrainState included) | launches {counts}")
+            f"TrainState included) | launches {counts}; one-pass update "
+            f"{updates} ({UPDATE_LAUNCHES} a step)")
         require(counts == want, f"training launches {counts} != {want}")
+        require(updates == UPDATE_LAUNCHES * steps, f"training's one-pass "
+                f"update launched {updates} != {UPDATE_LAUNCHES * steps}")
         for name, n in counts.items():
             summary[name]["launches_train_path"] = n
         for name in DW_KERNELS:
@@ -2249,7 +2384,8 @@ def _time_train_step():
     from ddim_audio_tpu_torch.config import load_config
     from ddim_audio_tpu_torch.diffusion.schedules import make_schedule
     from ddim_audio_tpu_torch.models.unet import ModelConfig, init_model
-    from ddim_audio_tpu_torch.ops import launch_counts, reset_launch_counts
+    from ddim_audio_tpu_torch.ops import (launch_counts, reset_launch_counts,
+                                          train_update)
     from ddim_audio_tpu_torch.training.train_step import (init_train_state,
                                                           make_train_step)
 
@@ -2275,13 +2411,18 @@ def _time_train_step():
         end.record()
         torch.cuda.synchronize()
         ms = start.elapsed_time(end) / 2
+        updates = train_update.train_update.launches
         require(all(bool(torch.isfinite(v)) for v in metrics.values()),
                 f"metrics not finite: {metrics}")
         log(f"[train] train_step, {label}, batch 14 x [2, 1024, 256], "
             f"grad_accum 14, remat: {ms:.1f} ms per optimizer step, "
             f"{ms / 14:.1f} ms per microbatch (CUDA events, mean of 2 steps); "
             f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-            f" GiB; launches of the 2 steps {launch_counts()}")
+            f" GiB; launches of the 2 steps {launch_counts()}, one-pass "
+            f"update {updates}")
+        # fp32 parameters in both: bf16 compute keeps fp32 leaves
+        require(updates == 2 * UPDATE_LAUNCHES, f"train_step {label}: the "
+                f"one-pass update launched {updates} in 2 steps")
         del state, params
 
 
@@ -2625,7 +2766,8 @@ def _parallel_body(rank):
     from ddim_audio_tpu_torch.models.unet import (apply_model_flat_io,
                                                   flat_io_adapters,
                                                   prepare_params)
-    from ddim_audio_tpu_torch.ops import launch_counts, reset_launch_counts
+    from ddim_audio_tpu_torch.ops import (launch_counts, reset_launch_counts,
+                                          train_update)
     from ddim_audio_tpu_torch.parallel.mesh import Mesh, make_mesh, shard_batch
     from ddim_audio_tpu_torch.parallel.sp import (apply_model_sp,
                                                   apply_model_sp_local,
@@ -2814,6 +2956,10 @@ def _parallel_body(rank):
         t0 = time.perf_counter()
         state, metrics = step(state, x0, gen)
         torch.cuda.synchronize()
+        updates = train_update.train_update.launches
+        require(updates == UPDATE_LAUNCHES, f"rank {rank} train step (grad_"
+                f"accum {accum}, dp {1 if mesh is None else mesh.dp}): the "
+                f"one-pass update launched {updates}")
         return state, metrics, launch_counts(), time.perf_counter() - t0
 
     one_step(1, dp2)  # warm-up: the first step on a rank initialises
@@ -2914,7 +3060,8 @@ def _parallel_sp_train(rank, config, cfg, params, sp2):
     import torch.distributed as dist
 
     from ddim_audio_tpu_torch.diffusion.schedules import make_schedule
-    from ddim_audio_tpu_torch.ops import launch_counts, reset_launch_counts
+    from ddim_audio_tpu_torch.ops import (launch_counts, reset_launch_counts,
+                                          train_update)
     from ddim_audio_tpu_torch.training.train_step import (init_train_state,
                                                           make_train_step)
     from ddim_audio_tpu_torch.weights import flatten_train_state
@@ -2929,9 +3076,10 @@ def _parallel_sp_train(rank, config, cfg, params, sp2):
     conf = copy.deepcopy(config)
     conf.training.grad_accum = 1
 
-    def run(mesh, clock=None):
+    def run(mesh, clock=None, fused=True):
         """(state before, state after, metrics, launches, CUDA-event ms,
-        host ms) of one step from a fresh state."""
+        host ms) of one step from a fresh state; ``fused``: its update in
+        the one-pass kernel (the twin route: leaf by leaf)."""
         state, tx = init_train_state(copy.deepcopy(params), conf.optimization,
                                      use_ema=True)
         before = flatten_train_state(state)
@@ -2950,6 +3098,10 @@ def _parallel_sp_train(rank, config, cfg, params, sp2):
         end.record()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+        updates = train_update.train_update.launches
+        require(updates == UPDATE_LAUNCHES * fused, f"rank {rank} train "
+                f"step ({'one device' if mesh is None else 'sp = 2'}): the "
+                f"one-pass update launched {updates}")
         return (before, state, metrics, launch_counts(),
                 start.elapsed_time(end), wall)
 
@@ -2965,7 +3117,7 @@ def _parallel_sp_train(rank, config, cfg, params, sp2):
             f"{counts} != {PER_SHARD_TRAIN}")
     shadow = Shadow()
     with reference_route(shadow=shadow):
-        run(sp2)
+        run(sp2, fused=False)
     shadow.check(f"[parallel] sp = 2 train step, shard {rank}, fp32,",
                  PER_SHARD_TRAIN, floor_db=SHADOW_GRAD_FP32_DB)
     dist.barrier()
@@ -3057,6 +3209,7 @@ def main() -> int:
         phase_int8_kernels(summary)
         phase_dw_kernels(summary)
         phase_train_kernels()
+        phase_train_update()
         config, cfg, params = _audio_params()
         phase_forward(config, cfg, params)
         phase_batch(config, cfg, params)

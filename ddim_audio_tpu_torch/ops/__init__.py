@@ -2,15 +2,17 @@
 
 Every kernel wrapper keeps a plain launch count (``wrapper.launches``);
 ``launch_counts`` reads the ports of the TPU kernels (``KERNEL_WRAPPERS``);
-``reset_launch_counts`` clears them and ``batch_sums.launches``
-(``ops.sums``: the helper kernel that finishes the statistics sums, a port
-of no TPU kernel).
+``reset_launch_counts`` clears them, ``batch_sums.launches`` (``ops.sums``:
+the helper kernel that finishes the statistics sums) and
+``train_update.launches`` (``ops.train_update``: the train step's one-pass
+update), which port no TPU kernel.
 ``twin_route`` is the reference route of checks: inside it the wrappers run
 their plain twins whatever the device.
 """
 
 from ._cuda import twin_route
 from .sums import batch_sums
+from . import train_update
 
 from .conv_flat import conv3x3_flat, conv3x3_flat_int8, conv3x3_flat_store
 from .conv_head_tail import conv_head_flat, conv_tail_flat
@@ -45,5 +47,6 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
-    for fn in (*KERNEL_WRAPPERS.values(), batch_sums):
+    for fn in (*KERNEL_WRAPPERS.values(), batch_sums,
+               train_update.train_update):
         fn.launches = 0

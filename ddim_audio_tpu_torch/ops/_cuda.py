@@ -102,6 +102,18 @@ _SIGNATURES = {
     "ddim_conv_up_int8_plan": (_I,) * 6 + (_P,),
     # x, out, B, N, K, squares, bf16, rows, stream
     "ddim_batch_sums": (_P,) * 2 + (_I,) * 6 + (_P,),
+    # out[5]: leaves a tree, elements a chunk, groups, clip groups,
+    # sizeof(Config)
+    "ddim_train_update_limits": (_P,),
+    # grads, leaves, chunks, chunks, config, partials, stream
+    "ddim_train_update_norm": (_P, _I, _P, _I, _P, _P, _P),
+    # partials, chunks, leaf meta, chunks, config, norms, stream
+    "ddim_train_update_norm_finish": (_P,) * 3 + (_I,) + (_P,) * 3,
+    # pointers [5, leaves], leaves, chunks, chunks, leaf meta, config, p, m,
+    # v, ema out, norms, partials, stream
+    "ddim_train_update_apply": (_P, _I, _P, _I) + (_P,) * 9,
+    # partials, leaf meta, leaves, config, leaf norms, update norms, stream
+    "ddim_train_update_finish": (_P, _P, _I) + (_P,) * 4,
 }
 
 

@@ -17,8 +17,12 @@ bias corrections use the count after it.
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Any, Optional
+
 import torch
 
+from ..ops.train_update import Rule
 from ..utils.tree import tree_leaves, tree_map
 from .grouping import group_labels
 
@@ -49,6 +53,13 @@ def _lr_at(lr, count):
     return lr(count) if callable(lr) else lr
 
 
+def _bias_corrections(state, b1, b2):
+    """(count + 1, 1 − b1^(count + 1), 1 − b2^(count + 1)) of a link's state."""
+    count = state["count"] + 1
+    cf = count.float()
+    return count, 1.0 - b1 ** cf, 1.0 - b2 ** cf
+
+
 def _tensor_norm(u, norm_ord):
     if norm_ord == 2:
         return torch.sqrt(torch.sum(torch.square(u)))
@@ -75,10 +86,8 @@ def adabelief(learning_rate, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0, *,
         return state
 
     def update(grads, state, params):
-        count = state["count"] + 1
+        count, bc1, bc2 = _bias_corrections(state, b1, b2)
         lr = _lr_at(learning_rate, state["count"])
-        bc1 = 1.0 - b1 ** count.float()
-        bc2 = 1.0 - b2 ** count.float()
         mu = tree_map(lambda m, g: b1 * m + (1.0 - b1) * g, state["mu"], grads)
         s = tree_map(lambda v, g, m: b2 * v + (1.0 - b2) * torch.square(g - m)
                      + eps, state["s"], grads, mu)
@@ -111,9 +120,7 @@ def _scale_by_adam(b1, b2, eps):
                 "nu": _zeros(params)}
 
     def update(grads, state, params):
-        count = state["count"] + 1
-        bc1 = 1.0 - b1 ** count.float()
-        bc2 = 1.0 - b2 ** count.float()
+        count, bc1, bc2 = _bias_corrections(state, b1, b2)
         mu = tree_map(lambda g, m: (1 - b1) * g + b1 * m, grads, state["mu"])
         nu = tree_map(lambda g, v: (1 - b2) * (g * g) + b2 * v, grads,
                       state["nu"])
@@ -133,9 +140,7 @@ def _scale_by_torch_amsgrad(b1, b2, eps):
                 "nu": _zeros(params), "nu_max": _zeros(params)}
 
     def update(grads, state, params):
-        count = state["count"] + 1
-        bc1 = 1.0 - b1 ** count.float()
-        bc2 = 1.0 - b2 ** count.float()
+        count, bc1, bc2 = _bias_corrections(state, b1, b2)
         mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g, state["mu"], grads)
         nu = tree_map(lambda v, g: b2 * v + (1 - b2) * torch.square(g),
                       state["nu"], grads)
@@ -173,29 +178,84 @@ def _trace(decay):
     return (lambda params: {"trace": _zeros(params)}), update
 
 
-def _scale_by_learning_rate(lr):
-    """updates · (−lr). A schedule keeps its own count (read before the
-    increment); a constant keeps no state."""
+def _lr_step(lr, state):
+    """(−lr of this step, the learning-rate link's next state): a schedule
+    keeps its own count (read before the increment); a constant keeps no
+    state."""
     if not callable(lr):
-        return ((lambda params: {}),
-                lambda updates, state, params: (
-                    tree_map(lambda u: -lr * u, updates), state))
+        return -lr, state
+    return -lr(state["count"]), {"count": state["count"] + 1}
+
+
+def _scale_by_learning_rate(lr):
+    """updates · (−lr)."""
 
     def update(updates, state, params):
-        step = -lr(state["count"])
-        return (tree_map(lambda u: step * u, updates),
-                {"count": state["count"] + 1})
+        step, state = _lr_step(lr, state)
+        return tree_map(lambda u: step * u, updates), state
 
-    return (lambda params: {"count": _count(params)}), update
+    return (lambda params: {"count": _count(params)} if callable(lr)
+            else {}), update
+
+
+@dataclasses.dataclass(frozen=True)
+class UpdateRule:
+    """A group's chain as one elementwise ``kernel`` rule, which the step
+    runs over the whole tree in one pass (``train_step.update_fused``): its
+    learning rate, and for Adam ``links``, the places of the scale-by-Adam
+    and learning-rate links in the group's state list. The step's scalars
+    and the next state come from the same expressions as the per-leaf
+    links'."""
+
+    kernel: Rule
+    lr: Any
+    links: tuple = ()
+
+    def moments(self, state):
+        """(first moments, second moments) of the group's state: trees."""
+        if self.kernel.kind == "adabelief":
+            return state["mu"], state["s"]
+        adam = state[self.links[0]]
+        return adam["mu"], adam["nu"]
+
+    def step(self, state):
+        """((−lr, lr·wd, bc1, bc2), counts) of this step: each scalar a 0-d
+        fp32 tensor on the state's device or a Python float; ``counts`` go
+        to ``next_state``."""
+        k = self.kernel
+        if k.kind == "adabelief":
+            count, bc1, bc2 = _bias_corrections(state, k.b1, k.b2)
+            lr = _lr_at(self.lr, state["count"])
+            lr_wd = lr * k.weight_decay if k.weight_decay else 0.0
+            return (-lr, lr_wd, bc1, bc2), count
+        adam_at, lr_at = self.links
+        count, bc1, bc2 = _bias_corrections(state[adam_at], k.b1, k.b2)
+        neg_lr, lr_state = _lr_step(self.lr, state[lr_at])
+        return (neg_lr, 0.0, bc1, bc2), (count, lr_state)
+
+    def next_state(self, state, counts, mu, second, update_norm):
+        """The group's state after the step, structured as the links'."""
+        if self.kernel.kind == "adabelief":
+            return {"count": counts, "mu": mu, "s": second,
+                    "update_norm": update_norm}
+        adam_at, lr_at = self.links
+        count, lr_state = counts
+        new = list(state)
+        new[adam_at] = {"count": count, "mu": mu, "nu": second}
+        new[lr_at] = lr_state
+        return new
 
 
 class GroupOptimizer:
     """A chain of links over one group's parameter subtree. ``chained`` is
     False for the single-link AdaBelief, whose state is the link's dict
-    itself; otherwise the state is the list of the links' dicts."""
+    itself; otherwise the state is the list of the links' dicts. ``rule``:
+    the chain as one ``UpdateRule``, or None where the one-pass update does
+    not implement it (amsgrad, AdaBelief's clip_step, RMSProp, SGD)."""
 
-    def __init__(self, links, chained: bool = True):
-        self.links, self.chained = links, chained
+    def __init__(self, links, chained: bool = True,
+                 rule: Optional[UpdateRule] = None):
+        self.links, self.chained, self.rule = links, chained, rule
 
     def init(self, params):
         states = [init(params) for init, _ in self.links]
@@ -232,13 +292,22 @@ def build_group_optimizer(group_cfg) -> GroupOptimizer:
             chain = l2_into_grad + [scaler]
         else:  # decoupled decay after the adaptive scaling
             chain = [scaler] + l2_into_grad
-        return GroupOptimizer(chain + [_scale_by_learning_rate(lr)])
+        chain.append(_scale_by_learning_rate(lr))
+        rule = None if amsgrad else UpdateRule(
+            Rule("adam", ("l2" if name == "Adam" else "decoupled") if wd
+                 else "", b1, b2, eps, wd),
+            lr, links=(chain.index(scaler), len(chain) - 1))
+        return GroupOptimizer(chain, rule=rule)
     if name == "AdaBelief":
+        b1, b2, eps = group_cfg.beta[0], group_cfg.beta[1], group_cfg.eps
+        clip_step = getattr(group_cfg, "clip_step", None)
+        norm_ord = getattr(group_cfg, "norm_ord", 2)
+        rule = None if amsgrad or clip_step is not None else UpdateRule(
+            Rule("adabelief", "decoupled" if wd else "", b1, b2, eps, wd), lr)
         return GroupOptimizer([adabelief(
-            lr, b1=group_cfg.beta[0], b2=group_cfg.beta[1], eps=group_cfg.eps,
-            weight_decay=wd, amsgrad=amsgrad,
-            clip_step=getattr(group_cfg, "clip_step", None),
-            norm_ord=getattr(group_cfg, "norm_ord", 2))], chained=False)
+            lr, b1=b1, b2=b2, eps=eps, weight_decay=wd, amsgrad=amsgrad,
+            clip_step=clip_step, norm_ord=norm_ord)], chained=False,
+            rule=rule)
     if name == "RMSProp":
         return GroupOptimizer(
             l2_into_grad
@@ -286,6 +355,23 @@ class Optimizer:
     def init(self, params):
         return {name: opt.init(_subtree(params, self.opt_labels, name))
                 for name, opt in self.optimizers.items()}
+
+    def update_rules(self):
+        """Each group's ``UpdateRule`` in ``optimizers``' order, or None
+        where a group's chain has none."""
+        rules = [opt.rule for opt in self.optimizers.values()]
+        return None if any(r is None for r in rules) else rules
+
+    def leaf_tags(self, params) -> tuple:
+        """Each leaf's (group, clip group) in flattening order: its places
+        in ``optimizers`` and ``clips``."""
+        groups, clips = list(self.optimizers), list(self.clips)
+        tags = []
+        for top in sorted(params):
+            tag = (groups.index(self.opt_labels[top]),
+                   clips.index(self.clip_labels[top]))
+            tags += [tag] * len(tree_leaves(params[top]))
+        return tuple(tags)
 
     @torch.no_grad()
     def update(self, grads, state, params):

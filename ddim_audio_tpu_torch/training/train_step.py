@@ -20,11 +20,12 @@ import torch
 import torch.distributed as dist
 
 from ..models.unet import apply_model
+from ..ops import train_update as fused
 from ..parallel.mesh import batch_sharded, shard_batch
 from ..parallel.sp import (check_sp_time, flat_train_flags, psum_keep_sp,
                            sp_local_train_forward)
 from ..utils.tracing import span
-from ..utils.tree import tree_leaves, tree_map
+from ..utils.tree import tree_leaves, tree_unflatten
 from .ema import ema_init, ema_update
 from .losses import loss_registry
 from .optim import apply_updates, build_optimizer, global_norm
@@ -229,16 +230,81 @@ def make_train_step(cfg, config, alphas_cumprod, tx, mesh=None):
                 count *= mesh.dp
             if count > 1:
                 loss_sum = loss_sum / count
-                grad_sum = [g / count for g in grad_sum]
-            it = iter(grad_sum)
-            grads = tree_map(lambda _: next(it), state.params)
-            updates, opt_state = tx.update(grads, state.opt_state,
-                                           state.params)
-            params = apply_updates(state.params, updates)
-            ema = ema_update(state.ema, params, mu) if use_ema else None
-            metrics = {"loss": loss_sum, "grad_norm": global_norm(grads)}
+            ema = state.ema if use_ema else None
+            if fused_route(tx, grad_sum, state.params, ema):
+                with span("ddim.train.update.fused"):
+                    params, opt_state, ema, grad_norm = update_fused(
+                        tx, grad_sum, state.params, state.opt_state, ema, mu,
+                        count)
+            else:
+                params, opt_state, ema, grad_norm = update_plain(
+                    tx, grad_sum, state.params, state.opt_state, ema, mu,
+                    count)
+            metrics = {"loss": loss_sum, "grad_norm": grad_norm}
             _collect_adabelief_stats(opt_state, metrics)
         return TrainState(params=params, opt_state=opt_state, ema=ema,
                           step=state.step + 1), metrics
 
     return train_step
+
+
+def fused_route(tx, grads, params, ema) -> bool:
+    """Whether the step's update takes ``update_fused``: every group's
+    chain has an ``UpdateRule``, and the leaves fit the kernel
+    (``ops.train_update.fits``: CUDA fp32 outside ``twin_route``)."""
+    return tx.update_rules() is not None and fused.fits(
+        grads, tree_leaves(params), None if ema is None else tree_leaves(ema),
+        len(tx.optimizers), len(tx.clips))
+
+
+def update_fused(tx, grads, params, opt_state, ema, ema_rate: float,
+                 count: int):
+    """The update in one pass (``ops.train_update``), where ``fused_route``
+    holds: the arguments and results as ``update_plain``'s. The trees go to
+    the kernel as lists of leaves in flattening order with each leaf's
+    (group, clip group) and each group's rule and step scalars, and come
+    back as trees of the given structure."""
+    rules, names = tx.update_rules(), list(tx.optimizers)
+    tags = tx.leaf_tags(params)
+    members = [[i for i, (k, _) in enumerate(tags) if k == g]
+               for g in range(len(names))]
+    steps = [rule.step(opt_state[name]) for rule, name in zip(rules, names)]
+    moments = [rule.moments(opt_state[name])
+               for rule, name in zip(rules, names)]
+    firsts, seconds = [None] * len(tags), [None] * len(tags)
+    for mine, (first, second) in zip(members, moments):
+        for i, a, b in zip(mine, tree_leaves(first), tree_leaves(second)):
+            firsts[i], seconds[i] = a, b
+    p, m, v, e, grad_norm, update_norms = fused.train_update(
+        grads, tree_leaves(params), firsts, seconds,
+        None if ema is None else tree_leaves(ema), tags=tags,
+        rules=[rule.kernel for rule in rules],
+        scalars=[values for values, _ in steps], clips=list(tx.clips.values()),
+        ema_rate=ema_rate, count=count)
+    new_state = {}
+    for k, (rule, name) in enumerate(zip(rules, names)):
+        first, second = moments[k]
+        new_state[name] = rule.next_state(
+            opt_state[name], steps[k][1],
+            tree_unflatten(first, [m[i] for i in members[k]]),
+            tree_unflatten(second, [v[i] for i in members[k]]),
+            update_norms[k])
+    return (tree_unflatten(params, p), new_state,
+            None if ema is None else tree_unflatten(ema, e), grad_norm)
+
+
+def update_plain(tx, grads, params, opt_state, ema, ema_rate: float,
+                 count: int):
+    """The update leaf by leaf (the twin of ``update_fused``): the gradient
+    sums ``grads`` (in flattening order) over ``count``, ``tx``'s clip and
+    group optimizers, ``apply_updates``, the average (``ema`` None: none).
+    Returns (params, opt_state, ema, the gradients' norm before the
+    clip)."""
+    if count > 1:
+        grads = [g / count for g in grads]
+    grads = tree_unflatten(params, grads)
+    updates, opt_state = tx.update(grads, opt_state, params)
+    new_params = apply_updates(params, updates)
+    if ema is not None:
+        ema = ema_update(ema, new_params, ema_rate)
+    return new_params, opt_state, ema, global_norm(grads)

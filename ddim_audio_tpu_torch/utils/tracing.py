@@ -18,7 +18,9 @@ Every span is named ``ddim.<layer>.<part>``:
 - sampler (``sampling/driver.py``): ``ddim.sampler.loop`` (the step loop),
   ``.step`` (one denoiser step), ``.drain`` (the kept states to the host);
 - train step (``training/train_step.py``): ``ddim.train.step`` > per
-  microbatch ``.forward`` and ``.backward``, then ``.update``.
+  microbatch ``.forward`` and ``.backward``, then ``.update`` >
+  ``.update.fused`` (the one-pass update, ``ops/train_update.py``, where it
+  runs).
 """
 
 from __future__ import annotations

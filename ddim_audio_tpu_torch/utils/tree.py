@@ -18,8 +18,34 @@ def tree_map(fn, tree, *rest):
 
 def tree_leaves(tree) -> list:
     out = []
-    tree_map(out.append, tree)
+    _flatten(tree, out)
     return out
+
+
+def _flatten(tree, out: list) -> None:
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            _flatten(tree[k], out)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            _flatten(v, out)
+    else:
+        out.append(tree)
+
+
+def tree_unflatten(tree, leaves):
+    """A tree shaped as ``tree`` whose leaves are ``leaves``, in flattening
+    order."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        if isinstance(t, (list, tuple)):
+            return [build(v) for v in t]
+        return next(it)
+
+    return build(tree)
 
 
 def tree_paths(tree, prefix: str = "") -> dict:
