@@ -35,6 +35,7 @@ from port_bench.harness.work import forward_flops
 from port_bench.reference import check as ref_check
 from port_bench.reference.model import param_spec
 
+LIMITS = ("span_err_median",)
 STEP_MARKER = re.compile(r"\bconv_head\w*_kernel")
 END_MARKER = re.compile(r"\bconv_tail\w*_kernel")
 

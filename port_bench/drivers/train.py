@@ -36,6 +36,8 @@ from port_bench.reference import check as ref_check
 from port_bench.reference.model import param_spec
 from port_bench.reference.train import leaves
 
+LIMITS = ("loss_gap", "grad_gap", "move_gap", "ema_gap_median")
+
 # The program's train step draws microbatch k's dropout masks from a
 # generator seeded (initial seed of the step's generator · 1_000_003 + k + 1)
 # mod 2^63 (``training.train_step.micro_generator``), in the order of the

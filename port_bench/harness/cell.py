@@ -3,13 +3,12 @@ check against the reference, and the result line."""
 
 from __future__ import annotations
 
+import functools
 import os
 import sys
 import tempfile
 
 import torch
-
-from port_bench.reference.model import Geometry
 
 # Top-level module names that a run must not have loaded: JAX and the JAX
 # package this program was ported from (whole names: the program's own name
@@ -33,7 +32,9 @@ def forbidden_modules() -> list:
 
 
 class Run:
-    """What a driver reads and fills for one run."""
+    """What a driver reads and fills for one run. Nothing here but the lazy
+    ``geom`` is of one model: a driver reads its configuration's tree
+    (``config["config"]``) as it needs."""
 
     def __init__(self, registry, cell: dict, seed: int, device):
         self.registry = registry
@@ -42,11 +43,19 @@ class Run:
         self.config = registry.config(cell["config"])
         self.traffic = registry.traffic(cell["traffic"])
         self.mode = self.traffic["driver"]
-        self.geom = Geometry.from_config(self.config["config"])
         self.tmp = tempfile.gettempdir()
         self.attempted = 0
         self.facts = {}
         self.trace = None
+
+    @functools.cached_property
+    def geom(self):
+        """The U-Net + FNet's geometry (``reference.model.Geometry``), built
+        on first access: the drivers, readers and kernel families of that
+        model read it; a driver of another model never does."""
+        from port_bench.reference.model import Geometry
+
+        return Geometry.from_config(self.config["config"])
 
     def sync(self) -> None:
         if self.device.type == "cuda":

@@ -4,7 +4,21 @@ its configuration in ``configs/<name>.json``, its traffic mix in
 ``drivers/<name>.py``, each per-layer metric's reader in
 ``metrics/<name>.py`` and each kernel family in ``kernels/<name>.py``. A
 later cell, mix, metric or family is a new file and a new entry; no file
-here changes."""
+here changes.
+
+A configuration of another model than the U-Net + FNet adds, as new files:
+``configs/<name>.json``, whose ``config`` is the program's YAML tree and
+which keeps ``source``, ``reduced``, ``assumed``, ``deployment``,
+``limits`` (one per name in its driver's ``LIMITS``) and
+``mfu_peak_tflops`` keyed by its driver's name; ``traffic/<mix>.json``
+naming that driver; ``drivers/<driver>.py`` with ``setup``, ``window``,
+``trace``, ``check`` and ``LIMITS`` (a ``control`` of its own where the
+tests' ``control_reading`` should read its control); its own float32
+reference under ``reference/``; and its kernel families and metric
+readers. In ``BENCHMARK.json`` it adds its configuration, its cells, and
+the cells to the ``workloads`` of each metric they report. ``Run`` and
+``execute`` hold nothing of one model: only the drivers of the U-Net +
+FNet build its ``run.geom``."""
 
 from __future__ import annotations
 
@@ -14,17 +28,19 @@ from pathlib import Path
 
 BENCH_DIR = Path(__file__).resolve().parents[1]
 
-DTYPES = {"float32": "fp32", "bfloat16": "bf16"}
+DTYPES = {"float32": "fp32", "bfloat16": "bf16", "float16": "fp16"}
 
 
 def stated_precisions(config: dict) -> dict:
     """The sampling precisions a configuration (the YAML's tree) states: the
-    compute dtype (``sampling.dtype``, else ``model.dtype``), int8 taps,
-    int8 activation storage and int8 strided transitions. The widths these
-    apply to, which the YAML does not state, stay in the file's
-    ``declared``."""
-    s = config["sampling"]
-    return {"sample_dtype": DTYPES[s.get("dtype") or config["model"]["dtype"]],
+    compute dtype (``sampling.dtype``, else ``model.dtype``, else the
+    program's default float32), int8 taps, int8 activation storage and
+    int8 strided transitions (none where the tree has no ``sampling``
+    block). The widths these apply to, which the YAML does not state, stay
+    in the file's ``declared``."""
+    s = config.get("sampling") or {}
+    dtype = s.get("dtype") or config.get("model", {}).get("dtype")
+    return {"sample_dtype": DTYPES[dtype or "float32"],
             "tap_int8": bool(s.get("tap_int8", False)),
             "act_store": s.get("act_store"),
             "strided_int8": bool(s.get("strided_int8", False))}

@@ -9,8 +9,8 @@ spans) that covers its middle."""
 
 from __future__ import annotations
 
-import bisect
 import contextlib
+import heapq
 import json
 import os
 import tempfile
@@ -34,7 +34,6 @@ class Trace:
             ((e["name"], float(e["ts"]), float(e.get("dur", 0.0)))
              for e in events if e.get("cat") in HOST_CATS
              and e.get("ph") == "X"), key=lambda h: h[1])
-        self._host_starts = [h[1] for h in self.host]
         self.spans = {}
         for e in events:
             if e.get("cat") == "user_annotation" and e.get("ph") == "X":
@@ -88,15 +87,25 @@ class Trace:
             out.append((cur, self.window[1] - cur))
         return out
 
-    def host_label(self, ts: float) -> str:
-        """The innermost host event that covers ts, else "host: no traced
-        event"."""
-        i = bisect.bisect_right(self._host_starts, ts)
-        best = None
-        for name, start, dur in reversed(self.host[max(0, i - 4000):i]):
-            if start + dur >= ts and (best is None or dur < best[1]):
-                best = (name, dur)
-        return best[0] if best else "host: no traced event"
+    def host_labels(self, points) -> list:
+        """For each time of ``points``, the innermost host event that covers
+        it (the shortest; of equal ones the last to start), else "host: no
+        traced event". One sweep: the points in order, the host events
+        pushed onto a heap by length as they start; an event that ended
+        before a point ended before every later point too, so it leaves the
+        heap for good."""
+        out = [None] * len(points)
+        heap, i = [], 0
+        for k in sorted(range(len(points)), key=points.__getitem__):
+            ts = points[k]
+            while i < len(self.host) and self.host[i][1] <= ts:
+                name, start, dur = self.host[i]
+                heapq.heappush(heap, (dur, -i, start + dur, name))
+                i += 1
+            while heap and heap[0][2] < ts:
+                heapq.heappop(heap)
+            out[k] = heap[0][3] if heap else "host: no traced event"
+        return out
 
     def breakdown(self, top: int = 10) -> dict:
         """The device operations that took most time and the longest idle
@@ -108,10 +117,11 @@ class Trace:
                 by_name[name] = by_name.get(name, 0.0) + dur
         ops = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
         gaps = sorted(self.gaps(), key=lambda g: -g[1])[:top]
+        labels = self.host_labels([ts + d / 2 for ts, d in gaps])
         return {
             "device_ops": [[n[:160], v / 1e6] for n, v in ops],
-            "idle_gaps": [[self.host_label(ts + d / 2)[:160], d / 1e6]
-                          for ts, d in gaps],
+            "idle_gaps": [[label[:160], d / 1e6]
+                          for label, (_, d) in zip(labels, gaps)],
         }
 
 

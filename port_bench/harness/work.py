@@ -12,8 +12,9 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 PEAK_BYTES = 3.35e12
-PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12, "tf32": 495e12}
-BYTES = {"fp32": 4, "bf16": 2, "int8": 1}
+PEAK_OPS = {"bf16": 989e12, "fp16": 989e12, "int8": 1979e12, "fp32": 67e12,
+            "tf32": 495e12}
+BYTES = {"fp32": 4, "bf16": 2, "fp16": 2, "int8": 1}
 
 
 def bound_s(ops: float, nbytes: float, kind: str) -> float:

@@ -42,9 +42,12 @@ def program_reading(registry, cell: str, seed: int, device="cuda") -> dict:
 
 def control_reading(registry, cell: str, seed: int, device="cuda") -> dict:
     """The control against the float32 reference on the inputs of ``seed``
-    (the cell's first chain, or its checked steps)."""
+    (the cell's first chain, or its checked steps); a driver that has a
+    ``control(run)`` of its own reads it."""
     run = Run(registry, registry.cell(cell), seed, device)
     driver = registry.driver(run.traffic["driver"])
+    if hasattr(driver, "control"):
+        return driver.control(run)
     tr, conf = run.traffic, run.config["config"]
     from port_bench.harness.params import make_params, sampling_params
     from port_bench.reference.model import param_spec

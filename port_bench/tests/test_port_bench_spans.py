@@ -99,3 +99,48 @@ def test_traced_tiny_cells_report_the_span_metrics(tmp_path, cell, names):
     for name in names:
         value = result["metrics"][name]["value"]
         assert value >= 0 if name.startswith("update_launches") else value > 0
+
+
+def _gap_trace(n_short: int):
+    """A window of 1 s with kernels at its start and at 0.8 s; a span
+    ``outer`` over 10 µs-0.9 s, and ``n_short`` host calls of 1 µs that
+    start after it and end before the first gap's middle."""
+    ev = [_x("bench.window", 0, 1_000_000), _x("outer", 10, 899_990),
+          _x("k0", 0, 100, "kernel"), _x("k1", 800_000, 100, "kernel")]
+    ev += [_x("cudaLaunchKernel", 20 + 10 * i, 1, "cuda_runtime")
+           for i in range(n_short)]
+    return Trace(ev)
+
+
+def test_gaps_are_labelled_past_any_look_back():
+    trace = _gap_trace(5_000)
+    gaps = trace.breakdown()["idle_gaps"]
+    # the gap in the middle lies inside `outer`, which began 5,001 host
+    # events before it; the last one inside the window alone
+    assert gaps == [["outer", pytest.approx(0.7999)],
+                    ["bench.window", pytest.approx(0.1999)]]
+    assert trace.host_labels([5.0, 1_000_001.0]) == [
+        "bench.window", "host: no traced event"]
+
+
+def test_gap_labels_are_the_innermost_covering_event():
+    """Against a scan of every host event: the shortest that covers the
+    time, of equal ones the last to start."""
+    import random
+
+    rng = random.Random(7)
+    ev = [_x("bench.window", 0, 10_000)]
+    for i in range(400):
+        start = rng.randrange(10_000)
+        ev.append(_x(f"e{i}", start, rng.choice([5, 50, 500, 5_000]),
+                     rng.choice(["cpu_op", "user_annotation",
+                                 "cuda_runtime"])))
+    trace = Trace(ev)
+    points = [rng.uniform(-10, 10_010) for _ in range(300)]
+
+    def scan(ts):
+        cover = [(dur, -i, name) for i, (name, start, dur)
+                 in enumerate(trace.host) if start <= ts <= start + dur]
+        return min(cover)[2] if cover else "host: no traced event"
+
+    assert trace.host_labels(points) == [scan(ts) for ts in points]
