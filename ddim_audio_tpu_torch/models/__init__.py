@@ -1,3 +1,5 @@
+from . import sd_unet
+from .sd_unet import SDUNetConfig
 from .unet import (
     ModelConfig,
     apply_model,
@@ -7,4 +9,4 @@ from .unet import (
 )
 
 __all__ = ["init_model", "apply_model", "apply_model_flat_io",
-           "ModelConfig", "count_params"]
+           "ModelConfig", "count_params", "SDUNetConfig", "sd_unet"]

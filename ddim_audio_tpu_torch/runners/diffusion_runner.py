@@ -34,6 +34,16 @@ rank 0 alone writes files. Training hands every rank the whole batch:
 ``make_train_step(mesh=)`` keeps its share of the microbatches on dp and its
 time block on sp, and adds the ranks' gradients; validation and ``test``
 run whole on every rank.
+
+``model.type: sd_unet`` (``configs/riffusion_sd15.yml``) runs the Stable
+Diffusion v1.5 UNet (``models/sd_unet.py``) instead, on one device and for
+``sampling.last_only`` chains alone: start noise [num_samples, 4, 64, 64],
+classifier-free guidance at ``sampling.guidance_scale`` on a doubled batch
+(``sampling/guidance.py``), each final latent written as ``{name}.npy``.
+The text embeddings stand in for the CLIP text encoder's, which the
+repository does not have; the chain ends at the latent (no VAE decoder).
+``--sequence``, ``--interpolation``, ``--fid``, ``--test`` and training
+raise at once. Any other ``model.type`` is the U-Net + FNet.
 """
 
 from __future__ import annotations
@@ -50,6 +60,7 @@ from ..config import production_eval_cfg
 from ..data.audio_dataset import batch_iterator, get_dataset
 from ..data.codec import limit_length_img, pfft2img, pfft2wav
 from ..diffusion.schedules import make_schedule, make_timestep_subsequence
+from ..models import sd_unet
 from ..models.unet import (
     ModelConfig,
     apply_model,
@@ -68,6 +79,7 @@ from ..parallel.sp import (
     sp_sampling_bundle,
 )
 from ..sampling.driver import ScanSampler
+from ..sampling.guidance import guidance_rows, guided_denoiser
 from ..training.losses import loss_registry
 from ..training.train_step import init_train_state, make_train_step
 from ..utils.device import resolve_device
@@ -109,7 +121,14 @@ class Diffusion:
         self.args = args
         self.config = config
         self.device = resolve_device(device)
-        self.model_cfg = ModelConfig.from_config(config)
+        self.sd = getattr(config.model, "type", None) == sd_unet.MODEL_TYPE
+        if self.sd:
+            if self.mesh is not None:
+                raise ValueError("the sd_unet model runs on one device: set "
+                                 "parallel.dp and parallel.sp to 1")
+            self.model_cfg = sd_unet.SDUNetConfig.from_config(config)
+        else:
+            self.model_cfg = ModelConfig.from_config(config)
         self.eval_cfg = production_eval_cfg(config, self.model_cfg)
         self.schedule = make_schedule(
             config.diffusion.beta_schedule,
@@ -118,6 +137,13 @@ class Diffusion:
             config.diffusion.num_diffusion_timesteps,
         )
         self.num_timesteps = self.schedule.num_timesteps
+
+    def _refuse_sd(self, mode: str) -> None:
+        """Raise where the SD UNet has no such mode."""
+        if self.sd:
+            raise NotImplementedError(
+                f"{mode} is not supported for model.type sd_unet: it "
+                f"samples sampling.last_only chains only")
 
     # ------------------------------------------------------------------ train
 
@@ -164,6 +190,7 @@ class Diffusion:
         return losses
 
     def train(self):
+        self._refuse_sd("training")
         args, config = self.args, self.config
         if (config.training.n_epochs is not None) == (
                 config.training.n_iters is not None):
@@ -272,6 +299,7 @@ class Diffusion:
 
     def test(self):
         """Mean validation ε-loss over the held-out split."""
+        self._refuse_sd("--test")
         args, config = self.args, self.config
         _, test_dataset = get_dataset(args, config)
         t0 = time.time()
@@ -285,13 +313,30 @@ class Diffusion:
     # ----------------------------------------------------------------- sample
 
     def start_noise(self) -> torch.Tensor:
-        """x_T [num_samples, C, T, F] fp32 from args.seed (drawn on the CPU,
-        so it is the same numbers on every device and every rank)."""
+        """x_T [num_samples, C, T, F] (the SD UNet's [num_samples, 4, 64,
+        64]) fp32 from args.seed (drawn on the CPU, so it is the same numbers
+        on every device and every rank)."""
         config = self.config
         gen = torch.Generator().manual_seed(int(self.args.seed))
-        shape = (config.sampling.num_samples, config.model.channels,
-                 config.sampling.t_size, config.model.f_size)
+        if self.sd:
+            cfg = self.model_cfg
+            shape = (config.sampling.num_samples, cfg.in_channels,
+                     cfg.sample_size, cfg.sample_size)
+        else:
+            shape = (config.sampling.num_samples, config.model.channels,
+                     config.sampling.t_size, config.model.f_size)
         return torch.randn(shape, generator=gen).to(self.device)
+
+    def draw_conditioning(self, n: int):
+        """(text [n, tokens, dim], uncond [tokens, dim]) fp32 drawn from
+        args.seed: seed-made stand-ins for the CLIP text encoder's
+        embeddings of n prompts and of the empty prompt."""
+        cfg = self.model_cfg
+        gen = torch.Generator().manual_seed(int(self.args.seed) + 2)
+        shape = (cfg.text_tokens, cfg.cross_attention_dim)
+        text = torch.randn((n, *shape), generator=gen)
+        uncond = torch.randn(shape, generator=gen)
+        return text.to(self.device), uncond.to(self.device)
 
     def _load_eval_params(self):
         """The evaluation weights from the run's checkpoint (written by
@@ -309,6 +354,12 @@ class Diffusion:
         args = self.args
         if getattr(args, "use_pretrained", False):
             raise ValueError("--use_pretrained supports no AUDIO checkpoints")
+        for flag, mode in (("fid", "--fid"),
+                           ("interpolation", "--interpolation")):
+            if getattr(args, flag, False):
+                self._refuse_sd(mode)
+        if getattr(args, "sequence", None) is not None:
+            self._refuse_sd("--sequence")
         params = self._load_eval_params()
         if getattr(args, "fid", False):
             self.sample_fid(params)
@@ -399,9 +450,13 @@ class Diffusion:
             out = out.cpu().numpy()
         return out
 
-    def sample_last_only(self, params, x=None):
+    def sample_last_only(self, params, x=None, cond=None):
         """Run the whole subsequence through the carry-only loop and export
-        only the final samples. Returns the exported [N, C, T, F] array."""
+        only the final samples. Returns the exported [N, C, T, F] array.
+        The SD UNet takes cond = (text [N, tokens, dim], uncond [tokens,
+        dim]), the embeddings of the N prompts and of the empty prompt, or
+        draws both from args.seed (``draw_conditioning``) where cond is
+        None."""
         args, config = self.args, self.config
         with span("ddim.runner.chain"):
             if x is None:
@@ -412,7 +467,8 @@ class Diffusion:
             gen = torch.Generator().manual_seed(int(args.seed) + 1)
             out = sampler.sample_last(x_state, seq, self.schedule,
                                       eta=args.eta, generator=gen,
-                                      params=self._sampler_params(params, x))
+                                      params=self._sampler_params(params, x,
+                                                                  cond))
             with span("ddim.runner.finalize"):
                 out = finalize(out)
             if config.sampling.denoise:
@@ -427,10 +483,18 @@ class Diffusion:
 
     def export(self, out: np.ndarray, names) -> None:
         """Write {name}.png and {name}.wav into args.image_folder for each
-        sample of out [N, C, T, F] (rank 0 only)."""
+        sample of out [N, C, T, F] (rank 0 only); the SD UNet's latents as
+        {name}.npy."""
         if not self.is_writer:
             return
         with span("ddim.runner.export"):
+            if self.sd:
+                os.makedirs(self.args.image_folder, exist_ok=True)
+                for name, latent in zip(names, out):
+                    with span("ddim.runner.export.clip"):
+                        np.save(os.path.join(self.args.image_folder,
+                                             name + ".npy"), latent)
+                return
             from PIL import Image
             from scipy.io.wavfile import write as wav_write
 
@@ -449,11 +513,19 @@ class Diffusion:
                                        dtype=np.int32, HPI=config.sampling.HPI)
                         wav_write(path + ".wav", rate, wav)
 
-    def _sampler_params(self, params, x):
+    def _sampler_params(self, params, x, cond=None):
         """The tree the sampler passes on every step, made once per run:
         ``prepare_params`` under the eval config, or on sp meshes
-        ``sp_sampling_bundle``'s."""
+        ``sp_sampling_bundle``'s; for the SD UNet its prepared weights and
+        the doubled batch's embeddings (``guidance_rows`` of cond, else of
+        ``draw_conditioning``)."""
         with span("ddim.runner.prepare"):
+            if self.sd:
+                text, uncond = (cond if cond is not None
+                                else self.draw_conditioning(x.shape[0]))
+                return {"unet": sd_unet.prepare_params(params, self.eval_cfg),
+                        "cond": guidance_rows(text, uncond,
+                                              self.eval_cfg.dtype)}
             if self.mesh is not None and self.mesh.sp > 1:
                 return sp_sampling_bundle(params, self.eval_cfg, self.mesh,
                                           x.shape[2])
@@ -471,11 +543,21 @@ class Diffusion:
         sp meshes the block [B, C, T/sp, F] of the sequence-parallel forward
         (``apply_model_sp_local``). Every rank draws the whole batch's noise
         and keeps its block. Kept states and the final state are gathered
-        back to the global [B, C, T, F] on every rank (``finalize``)."""
+        back to the global [B, C, T, F] on every rank (``finalize``). The
+        SD UNet's state is x itself, under the guided denoiser."""
         cfg, mesh = self.eval_cfg, self.mesh
         kind = getattr(self.args, "sample_type", "generalized")
         scan_chunk = int(getattr(self.config.sampling, "scan_chunk", 100))
         shape = tuple(x.shape)
+
+        if self.sd:
+            def unet(params, xl, t, cond):
+                return sd_unet.apply_model(params, xl, t, cond, cfg)
+
+            scale = float(self.config.sampling.guidance_scale)
+            sampler = ScanSampler(guided_denoiser(unet, scale), kind=kind,
+                                  scan_chunk=scan_chunk)
+            return sampler, x.contiguous(), lambda xl: xl
 
         if mesh is not None and mesh.sp > 1:
             check_sp_time(shape[2], cfg, mesh.sp)

@@ -17,6 +17,14 @@ Every span is named ``ddim.<layer>.<part>``:
   ``.export.png``, ``.export.wav``;
 - sampler (``sampling/driver.py``): ``ddim.sampler.loop`` (the step loop),
   ``.step`` (one denoiser step), ``.drain`` (the kept states to the host);
+  ``ddim.sampler.guidance`` (``sampling/guidance.py``: the doubled batch,
+  its one denoiser call and the combination of its halves, inside
+  ``.step``);
+- SD UNet (``models/sd_unet.py``): ``ddim.sd.resnet`` (a ResNet block),
+  ``ddim.sd.transformer`` (a Transformer2D) > ``ddim.sd.attn.self``,
+  ``ddim.sd.attn.cross``, ``ddim.sd.ff`` (each with its LayerNorm and
+  residual add), ``ddim.sd.sample`` (``conv_in``, a down or up sampler, the
+  output norm and ``conv_out``);
 - train step (``training/train_step.py``): ``ddim.train.step`` > per
   microbatch ``.forward`` and ``.backward``, then ``.update`` >
   ``.update.fused`` (the one-pass update, ``ops/train_update.py``, where it
