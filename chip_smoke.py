@@ -45,7 +45,9 @@ phase on its own lines:
    Then the int8-storage kernels (the storage modes of conv3x3, int8 input
    and residual with their scales and ``quant_out`` with and without
    statistics, at s0-s3; ``residual_affine_flat`` with int8 or float x and
-   int8 s, ``quant_out`` on and off, at s0-s3) and the int8 strided taps
+   int8 s, ``quant_out`` on and off, at s0-s3, and as the float resblock
+   tail, float x and s with statistics, at the six stages) and the int8
+   strided taps
    (down 32->64, up 64->32, up 256->192) against their twins with the
    kernels' own groups, fp32 and bf16, B = 1 and 2: the share of int8
    outputs that differ (never by more than 1), scales, float outputs and
@@ -99,7 +101,7 @@ phase on its own lines:
    Then the int8-storage configuration (audio.yml plus
    ``sampling.act_store: int8`` and ``sampling.strided_int8: true``, written
    to a temporary file): the full-width forward with its launch counts
-   (40 storage conv3x3, 24 float, 20 ``residual_affine_flat``, down 4 + 1
+   (40 storage conv3x3, 24 float, 32 ``residual_affine_flat``, down 4 + 1
    int8, up 3 + 2 int8, head, tail) against the fp32 plain route on both
    weight sets, every wrapper call shadowed by its kernel, its time beside
    the production route's; and the command line's 10-step last-only run at
@@ -183,13 +185,14 @@ the card, the per-kernel JSON summary and ``{"ok": true, "device": {...}}``.
 In the summary ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` are sums
 over the kernel's main-path shapes, each shape once: bf16 at B = 2 at the
 sampling shapes for the forward kernels (for the storage conv its int8-in,
-``quant_out`` mode, 32 of its 40 calls; for ``residual_affine_flat`` int8 x
-with ``quant_out``), fp32 at B = 1 at the training shapes for the three
-weight-gradient kernels. ``launches`` counts the launches of the three
-command-line sampling runs of phase 5 (the six production kernels), of the
-int8-storage command-line run of phase 6 (the four int8-storage kernels) or
-of the first command-line training run of phase 9 (weight-gradient
-kernels); ``launches_train_path`` is every kernel's count in
+``quant_out`` mode, 32 of its 40 calls; for ``residual_affine_flat`` the
+float resblock tail, bf16 x and s with statistics, at the six stages),
+fp32 at B = 1 at the training shapes for the three weight-gradient kernels.
+``launches`` counts the launches of the three command-line sampling runs of
+phase 5 (the seven production kernels, ``residual_affine_flat`` among
+them), of the int8-storage command-line run of phase 6 (the three
+int8-storage kernels the main path does not run) or of the first
+command-line training run of phase 9 (weight-gradient kernels); ``launches_train_path`` is every kernel's count in
 that training run. It imports nothing of JAX.
 """
 
@@ -419,20 +422,21 @@ REPLACES = {
     "conv_up_flat_int8": (CSRC + "conv_strided_int8.cu",
                           PALLAS + "conv_strided.py:541"),
 }
-# launches of one forward: float-tap route and production route
+# launches of one forward: float-tap route and production route (each of
+# the 32 resblocks' tails and next statistics one residual_affine_flat)
 PER_FORWARD_FLOAT = {"conv3x3_flat": 64, "conv3x3_flat_int8": 0,
                      "conv_head_flat": 1, "conv_tail_flat": 1,
                      "conv_down_flat": 5, "conv_up_flat": 5,
-                     **dict.fromkeys(INT8_STORE_KERNELS, 0)}
+                     **dict.fromkeys(INT8_STORE_KERNELS, 0),
+                     "residual_affine_flat": 32}
 PER_FORWARD_PROD = dict(PER_FORWARD_FLOAT, conv3x3_flat=36,
                         conv3x3_flat_int8=28)
 # the int8-storage configuration (audio.yml + act_store: int8 +
 # strided_int8: true): s0-s3 store int8 between their kernels (40 convs, 20
-# tails, float taps there), s4-s5 float taps (24), int8 taps in down 32->64,
-# up 64->32 and up 256->192
+# int8 tails, float taps there), s4-s5 float taps (24 convs, 12 float
+# tails), int8 taps in down 32->64, up 64->32 and up 256->192
 PER_FORWARD_I8 = dict(PER_FORWARD_FLOAT, conv3x3_flat=24, conv3x3_flat_store=40,
-                      residual_affine_flat=20, conv_down_flat=4,
-                      conv_down_flat_int8=1, conv_up_flat=3,
+                      conv_down_flat=4, conv_down_flat_int8=1, conv_up_flat=3,
                       conv_up_flat_int8=2)
 DW_KERNELS = ("conv_dw_flat", "conv_down_dw_flat", "conv_up_dw_flat")
 # one sp shard's forward ([parallel]): the resblock convs on haloed blocks;
@@ -906,7 +910,8 @@ UPS_I8 = [(4096, 128, 64, 32), (256, 8, 256, 192)]
 
 def _int8_cases(torch, bsz):
     """The four int8-storage kernels at every production shape of their
-    path: dicts of name, label, kernel, twin, make(dtype) -> (args, kwargs),
+    path, and ``residual_affine_flat`` as the float resblock tail at the six
+    stages: dicts of name, label, kernel, twin, make(dtype) -> (args, kwargs),
     layout (what each output is: "q" int8, "scales", "out" float, "stats"),
     io, ops, kind (the operand type of the operations), lib (the one PyTorch
     call, or None) and timed (the shape's mode the summary sums)."""
@@ -986,8 +991,22 @@ def _int8_cases(torch, bsz):
                     twin=residual_affine_flat_plain, make=make,
                     layout=(("q", "scales") if qo else ("out",))
                     + ("stats", "stats"), io=io_of, lib=None, kind="fp32",
-                    timed=xk == "int8" and qo, ops=4.0 * bsz * t * f * c,
+                    timed=False, ops=4.0 * bsz * t * f * c,
                     resaff_plan=(t, f, c)))
+    for t, f, c in STAGES:  # the float resblock tail of the sampling forward
+        x, s = rnd(bsz, t, f * c), rnd(bsz, t, f * c, scale=3.0)
+        aff = (1 + 0.1 * rnd(bsz, c), 0.1 * rnd(bsz, c))
+
+        def make(dt, x=x, s=s, aff=aff, c=c):
+            return ((x.to(dt), s.to(dt), aff),
+                    dict(c=c, want_stats=True, out_dtype=dt))
+        cases.append(dict(
+            name="residual_affine_flat",
+            label=f"T{t} F{f} C{c} float tail, stats",
+            kernel=residual_affine_flat, twin=residual_affine_flat_plain,
+            make=make, layout=("out", "stats", "stats"), io=io_of, lib=None,
+            kind="fp32", timed=True, ops=4.0 * bsz * t * f * c,
+            resaff_plan=(t, f, c)))
     for up, shapes in ((False, DOWNS_I8), (True, UPS_I8)):
         for t, f, ci, co in shapes:
             x = rnd(bsz, t, f * ci)
@@ -1144,8 +1163,8 @@ def check_resaff_plan(case, bsz, pos, outs, refs) -> str:
 
 
 def phase_int8_kernels(summary):
-    """The int8-storage kernels (conv3x3 storage modes, residual_affine) and
-    the int8 strided taps against their twins (the kernels' own groups) at
+    """The int8-storage kernels (conv3x3 storage modes, residual_affine, the
+    latter also as the float resblock tail) and the int8 strided taps against their twins (the kernels' own groups) at
     every production shape of their path, B = 1 and 2, fp32 and bf16: int8
     outputs equal or off by one (the share that differs), scales, float
     outputs and statistics relative, the same call twice bit-equal; bf16
@@ -1988,8 +2007,8 @@ def phase_int8_store(summary, cfg, params):
             f"finite, host wall {wall:.2f} s | launches ({forwards} forwards) "
             f"{counts}")
         require(counts == want, f"int8-storage CLI launches {counts} != {want}")
-        for name in INT8_STORE_KERNELS:
-            summary[name]["launches"] = counts[name]
+        for name in INT8_STORE_KERNELS:  # the main path's count stands
+            summary[name].setdefault("launches", counts[name])
         _count_files(os.path.join(exp, "image_samples", "cli"),
                      [f"{j}_final{ext}" for j in range(clips)
                       for ext in (".png", ".wav")])

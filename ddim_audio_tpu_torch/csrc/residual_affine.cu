@@ -15,6 +15,14 @@
 // affine is scale 1 and shift −0, which change no bit), the IEEE division
 // 127 / amax, round half to even.
 //
+// With x and s both float (the float resblock tail, ops/flat_resblock.py
+// `resblock_tail`) the kernel computes what torch's three passes compute:
+// x + s · scale as one product-sum (addcmul, fused), then + shift, rounded
+// once to the output dtype; and the statistics are taken on the values as
+// stored (bf16-rounded where out is bf16), as the twin's `channel_sums` of
+// the output reads them. Only the arithmetic order differs between the
+// float and the int8 instantiations; the walk is the same.
+//
 // What bounds it on an H100: bytes. At the int8-storage forward's s0 (B = 1,
 // 8192 × 256 × 32) it reads 67 MB of int8 x and 67 MB of int8 s and writes
 // 67 MB of int8 out (+ 0.5 MB of scales each): 0.060 ms at 3.35 TB/s, and
@@ -122,6 +130,7 @@ __global__ void __launch_bounds__(kResThreads, kResBlocks)
                            float* __restrict__ out_scales,
                            float* __restrict__ stats, int t_len, int f_len,
                            int c, int out_bf16) {
+  constexpr bool FLOAT = XK != 2 && SK != 2;  // the float resblock tail
   constexpr int XB = XK == 0 ? 4 : XK == 1 ? 2 : 1;
   constexpr int SB = SK == 0 ? 4 : SK == 1 ? 2 : 1;
   constexpr int XP = 32 * XB, SP = 32 * SB;  // bytes of a position
@@ -229,12 +238,18 @@ __global__ void __launch_bounds__(kResThreads, kResBlocks)
         for (int k = 0; k < 4; ++k) {
           const float a = XK == 2 ? __fmul_rn(xv[k], xs[k]) : xv[k];
           const float d = SK == 2 ? __fmul_rn(sv[k], ss[k]) : sv[k];
-          const float o = __fadd_rn(__fadd_rn(a, __fmul_rn(d, sc[k])), sh[k]);
+          const float o =
+              FLOAT ? __fadd_rn(__fmaf_rn(d, sc[k], a), sh[k])
+                    : __fadd_rn(__fadd_rn(a, __fmul_rn(d, sc[k])), sh[k]);
           v[r][k] = o;
           if constexpr (QUANT) am[k] = fmaxf(am[k], fabsf(o));
           if constexpr (STATS) {
-            s1[k] += o;
-            s2[k] = fmaf(o, o, s2[k]);
+            // the float tail's statistics read the stored values
+            const float w = FLOAT && !QUANT && out_bf16
+                                ? __bfloat162float(__float2bfloat16_rn(o))
+                                : o;
+            s1[k] += w;
+            s2[k] = fmaf(w, w, s2[k]);
           }
         }
       }

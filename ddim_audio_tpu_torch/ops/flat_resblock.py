@@ -9,9 +9,9 @@ runs as two fused ``conv3x3_flat`` calls plus plain torch glue:
    SiLU, the per-sample temb add + SiLU in the epilogue, and GN2's
    statistics from the epilogue;
 2. conv2 with GN2 as its prologue, bias + SiLU epilogue, GN3's statistics;
-3. the tail ``x + GN3(s)`` in torch (an XLA fusion in the JAX package, not a
-   Pallas kernel), and the next block's statistics from the storage-dtype
-   result, as the JAX package takes them.
+3. the tail ``x + GN3(s)`` (an XLA fusion in the JAX package, not a Pallas
+   kernel) and the next block's statistics from the storage-dtype result, as
+   the JAX package takes them, in one ``residual_affine_flat`` call.
 
 GroupNorm statistics are per-(sample, channel) sums [B, C]; the groups fold
 from them exactly (8 groups, eps 1e-6).
@@ -91,17 +91,22 @@ def conv3x3_taps(conv, dtype, int8: bool):
     return w, {"w_scale": w_scale, "wq_t": wq_t}
 
 
-def resblock_tail(x_flat, s, scale3, shift3, *, f: int, c: int):
+def resblock_tail(x_flat, s, scale3, shift3, *, f: int, c: int,
+                  want_stats: bool = False):
     """The float block's tail ``x + GN3(s)`` = ``x + s·scale3 + shift3``
-    (scale3, shift3 [B, C] fp32), in fp32 and in the JAX package's order:
-    ``s·scale3`` is added to x first (addcmul, which promotes x and s to
-    fp32 and fuses the product into the sum as XLA does), then shift3, in
-    place; three passes, rounded once to x's dtype."""
-    b, t, fc = x_flat.shape
-    out = torch.addcmul(x_flat.view(b, t, f, c), s.view(b, t, f, c),
-                        scale3[:, None, None, :])
-    out.add_(shift3[:, None, None, :])
-    return out.to(x_flat.dtype).view(b, t, fc)
+    (x, s [B, T, f·c]; scale3, shift3 [B, C] fp32), in fp32 and
+    in the JAX package's order: ``s·scale3`` is added to x first as one
+    product-sum (as XLA fuses it), then shift3, rounded once to x's dtype.
+    want_stats appends the output's per-channel (sum, sum²) [B, C], taken on
+    the values as stored.
+
+    One ``residual_affine_flat`` call: the kernel on a CUDA tensor, which
+    needs C % 32 == 0 (every width of configs/audio.yml) and raises at any
+    other width; the twin's torch passes on a CPU tensor."""
+    # the kernel walks contiguous rows; the sp shards pass cropped views
+    return residual_affine_flat(
+        x_flat.contiguous(), s.contiguous(), (scale3, shift3), c=c,
+        want_stats=want_stats, out_dtype=x_flat.dtype)
 
 
 def resblock_flat(p, x_flat, temb, *, f: int, c: int, in_stats=None,
@@ -126,10 +131,11 @@ def resblock_flat(p, x_flat, temb, *, f: int, c: int, in_stats=None,
         h, w2, c=c, pre=gn_affine_from_sums(h1, h2, n, p["norm2"], c),
         add=p["conv2"]["b"], post_silu=True, want_stats=True, **kw2)
     scale3, shift3 = gn_affine_from_sums(s1, s2, n, p["norm3"], c)
-    out = resblock_tail(x_flat, s, scale3, shift3, f=f, c=c)
+    res = resblock_tail(x_flat, s, scale3, shift3, f=f, c=c,
+                        want_stats=want_out_stats)
     if want_out_stats:
-        return out, channel_sums(out, c)
-    return out
+        return res[0], res[1:]
+    return res
 
 
 def resblock_flat_int8(p, x_flat, temb, *, f: int, c: int, dtype,

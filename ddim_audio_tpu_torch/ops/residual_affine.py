@@ -1,6 +1,7 @@
-"""The fused resblock tail of int8 activation storage: port of the TPU kernel
+"""The fused resblock tail: port of the TPU kernel
 ``ddim_audio_tpu/ops/pallas/conv_flat.py::_res_affine_kernel`` (wrapper
-``residual_affine_flat``).
+``residual_affine_flat``) of int8 activation storage, and the float block's
+tail ``ops.flat_resblock.resblock_tail``, an XLA fusion in the JAX package.
 
     out = deq(x) + deq(s) · scale[b, c] + shift[b, c]
 
@@ -10,7 +11,9 @@ float tensor; (scale, shift) is GN3 folded to a per-channel affine. With
 ``quant_out`` the fp32 result is quantised per storage group (int8 out +
 scales, for the next block's conv); ``want_stats`` adds its per-channel
 (sum, sum²) taken on the fp32 values before quantisation (the next
-GroupNorm's statistics).
+GroupNorm's statistics). With x and s both float (the float tail) the
+product is fused into the sum as torch's ``addcmul`` fuses it, and, unless
+quantised, the statistics read the output as stored.
 
 On a CUDA tensor ``residual_affine_flat`` launches the hand-written Hopper
 kernel (``csrc/residual_affine.cu``: persistent blocks that walk storage
@@ -33,7 +36,7 @@ from ._cuda import (
     twin_result,
     use_twin,
 )
-from .sums import partials_sum
+from .sums import batch_sums, partials_sum
 from .conv_flat import (
     STORE_GROUP,
     _scales_operand,
@@ -60,24 +63,40 @@ def residual_affine_flat_plain(x, s, affine=None, *, c: int, x_scales=None,
                                store_group=STORE_GROUP):
     """Plain PyTorch twin of ``residual_affine_flat`` (same arguments, same
     result), quantising over ``store_group`` (default: the CUDA kernel's
-    STORE_GROUP; ``(tile_t, "lane")`` is the TPU kernel's)."""
+    STORE_GROUP; ``(tile_t, "lane")`` is the TPU kernel's).
+
+    x and s both float with an affine is the float resblock tail in the JAX
+    package's order: ``addcmul`` (x + s·scale, promoted to fp32 at least,
+    the product fused into the sum), then + shift in place, rounded once.
+    With x and s both float and no quant_out the statistics are
+    ``batch_sums`` of the output as stored."""
     b, t, fc = x.shape
     f = fc // c
-    v = (dequantize_store(x, x_scales, c, store_group)
-         if x.dtype == torch.int8 else x.float().view(b, t, f, c))
-    sv = (dequantize_store(s, s_scales, c, store_group)
-          if s.dtype == torch.int8 else s.float().view(b, t, f, c))
-    if affine is not None:
-        scale = per_sample(affine[0], b, c, x.device)[:, None, None, :]
-        shift = per_sample(affine[1], b, c, x.device)[:, None, None, :]
-        out = v + sv * scale + shift
+    float_kinds = x.dtype != torch.int8 and s.dtype != torch.int8
+    if float_kinds and affine is not None:
+        out = torch.addcmul(
+            x.view(b, t, f, c), s.view(b, t, f, c),
+            per_sample(affine[0], b, c, x.device)[:, None, None, :])
+        out.add_(per_sample(affine[1], b, c, x.device)[:, None, None, :])
     else:
-        out = v + sv
+        v = (dequantize_store(x, x_scales, c, store_group)
+             if x.dtype == torch.int8 else x.float().view(b, t, f, c))
+        sv = (dequantize_store(s, s_scales, c, store_group)
+              if s.dtype == torch.int8 else s.float().view(b, t, f, c))
+        if affine is not None:
+            scale = per_sample(affine[0], b, c, x.device)[:, None, None, :]
+            shift = per_sample(affine[1], b, c, x.device)[:, None, None, :]
+            out = v + sv * scale + shift
+        else:
+            out = v + sv
     if quant_out:
         result = quantize_store(out, store_group)
     else:
         result = (out.to(_out_dtype(x, s, out_dtype)).reshape(b, t, fc),)
-    if want_stats:
+    if want_stats and float_kinds and not quant_out:
+        sums = batch_sums(result[0].view(b, t * f, c), squares=True)
+        result += (sums[:, 0], sums[:, 1])
+    elif want_stats:
         result += (out.sum(dim=(1, 2)), (out * out).sum(dim=(1, 2)))
     return result if len(result) > 1 else result[0]
 
@@ -90,9 +109,10 @@ def residual_affine_flat(x, s, affine=None, *, c: int, x_scales=None,
     or [B, C] fp32, or None for ``deq(x) + deq(s)``. Returns out in
     out_dtype (default: s's dtype if float, else x's, else bf16), or with
     quant_out (int8 out, scales); want_stats appends (sum [B, C],
-    sum² [B, C]) of the fp32 result. On a CUDA tensor this launches
-    ``csrc/residual_affine.cu`` (C % 32 == 0; x, s and their scales 16-byte
-    aligned)."""
+    sum² [B, C]) of the fp32 result (of the stored result where x and s
+    are float and quant_out is off: the float tail). On a CUDA tensor this
+    launches ``csrc/residual_affine.cu`` (C % 32 == 0; x, s and their
+    scales contiguous and 16-byte aligned)."""
     kw = dict(c=c, x_scales=x_scales, s_scales=s_scales, quant_out=quant_out,
               want_stats=want_stats, out_dtype=out_dtype)
     if use_twin(x):
@@ -101,12 +121,12 @@ def residual_affine_flat(x, s, affine=None, *, c: int, x_scales=None,
             **kw)
         return twin_result("residual_affine_flat", ref, x,
                            lambda: residual_affine_flat(x, s, affine, **kw))
-    if x.device.type != "cuda":
-        raise ValueError(f"residual_affine_flat: unsupported device {x.device}")
     b, t, fc = x.shape
     if fc % c or c % 32:
         raise ValueError(f"residual_affine_flat kernel: needs C % 32 == 0 and "
                          f"F·C % C == 0, got F·C={fc}, C={c}")
+    if x.device.type != "cuda":
+        raise ValueError(f"residual_affine_flat: unsupported device {x.device}")
     f = fc // c
     dev = x.device
     kinds = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}

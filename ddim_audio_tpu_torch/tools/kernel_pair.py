@@ -9,12 +9,16 @@ of this package in one machine, in turns.
     (cd <other checkout> && python3 <this checkout>/ddim_audio_tpu_torch/tools/kernel_pair.py LABEL [KINDS])
 
 KINDS is a comma-separated subset of
-down,int8,store,head,tail,down32,upi8,conv32,up32,downi8,downdw32,dw32,updw32,resaff,head32
-(default: all fifteen).
+down,int8,store,head,tail,down32,upi8,conv32,up32,downi8,downdw32,dw32,updw32,resaff,head32,ftail
+(default: all sixteen).
 ``resaff`` is the int8-storage resblock tail (``residual_affine_flat``) at
 s0-s3 in the int8-storage forward's interior mode (int8 x and s with their
 scales, the GroupNorm affine, ``quant_out``, statistics; no single PyTorch
 call computes it);
+``ftail`` the float resblock tail of the sampling forward at its six stages,
+B = 8, bf16: ``flat_resblock.resblock_tail`` with the next block's
+statistics, against the same call under ``ops.twin_route`` (torch's
+passes: addcmul, add, the cast and ``batch_sums``);
 ``head32`` the fp32 head (2 -> 32, with statistics) at 8192 x 256 against
 one fp32 cuDNN call (TF32 off).
 ``down32`` is the fp32 down conv at the five training transitions of one
@@ -61,8 +65,11 @@ import sys
 
 DOWNS = [(8192, 256, 32, 64), (4096, 128, 64, 96), (2048, 64, 96, 128),
          (1024, 32, 128, 192), (512, 16, 192, 256)]
-INT8_STAGES = [(8192, 256, 32), (4096, 128, 64), (2048, 64, 96)]
-STORE_STAGES = INT8_STAGES + [(1024, 32, 128)]
+# the six stages of a [B, 2, 8192, 256] sampling forward (T, F, C)
+SAMPLE_STAGES = [(8192, 256, 32), (4096, 128, 64), (2048, 64, 96),
+                 (1024, 32, 128), (512, 16, 192), (256, 8, 256)]
+INT8_STAGES = SAMPLE_STAGES[:3]
+STORE_STAGES = SAMPLE_STAGES[:4]
 HEAD_TAIL = [(8192, 256)]  # the head's input and the tail's output (T, F)
 TRAIN_DOWNS = [(1024, 256, 32, 64), (512, 128, 64, 96), (256, 64, 96, 128),
                (128, 32, 128, 192), (64, 16, 192, 256)]
@@ -72,7 +79,8 @@ TRAIN_STAGES = [(1024, 256, 32), (512, 128, 64), (256, 64, 96), (128, 32, 128),
 TRAIN_UPS = [(t // 2, f // 2, co, ci) for t, f, ci, co in TRAIN_DOWNS]
 DOWNS_I8 = [(8192, 256, 32, 64)]
 KINDS = ("down", "int8", "store", "head", "tail", "down32", "upi8", "conv32",
-         "up32", "downi8", "downdw32", "dw32", "updw32", "resaff", "head32")
+         "up32", "downi8", "downdw32", "dw32", "updw32", "resaff", "head32",
+         "ftail")
 
 
 # Cycles the card sleeps before the timed calls (~25-35 ms), so that the
@@ -128,7 +136,8 @@ def main(argv=None) -> int:
 
     from ddim_audio_tpu_torch.ops import (conv_flat, conv_head_tail,
                                           conv_strided, flat_grad,
-                                          residual_affine)
+                                          flat_resblock, residual_affine,
+                                          twin_route)
 
     torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -369,6 +378,21 @@ def main(argv=None) -> int:
             print(f"{label} head32 B{bsz} T{t} F{f} kernel {k:.4f} cudnn "
                   f"{lib:.4f} ratio {k / lib:.2f} host "
                   f"{host_us(torch, fn):.1f} us/call", flush=True)
+    for t, f, c in SAMPLE_STAGES if "ftail" in kinds else ():
+        bsz = 8
+        x = rnd(bsz, t, f * c).bfloat16()
+        s = (3 * rnd(bsz, t, f * c)).bfloat16()
+        scale3, shift3 = 1 + 0.1 * rnd(bsz, c), 0.1 * rnd(bsz, c)
+        fn = lambda: flat_resblock.resblock_tail(  # noqa: E731
+            x, s, scale3, shift3, f=f, c=c, want_stats=True)
+        k = cuda_ms(torch, fn)
+        with twin_route():
+            tw = cuda_ms(torch, fn)
+        add(("ftail", bsz), k)
+        add(("ftail twin", bsz), tw)
+        print(f"{label} ftail B{bsz} T{t} F{f} C{c} kernel {k:.4f} twin "
+              f"{tw:.4f} ratio {k / tw:.2f}", flush=True)
+        del x, s
     for (name, bsz), v in sorted(sums.items()):
         print(f"{label} sum {name} B{bsz} {v:.4f}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -234,14 +234,16 @@ def test_train_forward_runs_flat_ops_around_plain_stages(params, monkeypatch):
 
 @pytest.mark.parametrize("conv_impl,want", [
     ("xla", {}),
-    # the 3×3 stage's two resblocks, fused (stage 0 down and up)
-    ("auto", {"conv3x3_flat": 4}),
+    # the 3×3 stage's two resblocks, fused (stage 0 down and up): two
+    # convs and one tail each
+    ("auto", {"conv3x3_flat": 4, "residual_affine_flat": 2}),
 ])
 def test_plain_sampling_calls_no_kernel(params, tmp_path, monkeypatch,
                                         conv_impl, want):
     """``conv_impl: xla`` samples through ``apply_model`` without calling a
     single kernel wrapper; with ``auto`` the same fallback runs the 3×3
-    stage's resblocks on ``conv3x3_flat`` (which the spy sees)."""
+    stage's resblocks on ``conv3x3_flat`` and their tails on
+    ``residual_affine_flat`` (which the spy sees)."""
     config, _ = _configs(conv_impl=conv_impl)
     runner = Diffusion(_args(tmp_path), config, device="cpu")
     spy = _Spy(monkeypatch)

@@ -37,6 +37,7 @@ import pytest
 import torch
 
 from ddim_audio_tpu_torch.ops.conv_flat import STORE_GROUP, quantize_store
+from ddim_audio_tpu_torch.ops.flat_resblock import channel_sums
 from ddim_audio_tpu_torch.ops.conv_head_tail import (
     conv_head_flat,
     conv_head_flat_plain,
@@ -54,6 +55,7 @@ from ddim_audio_tpu_torch.ops.tile_plan import (
     head32_halo_pitch,
     residual_affine_plan,
 )
+from ddim_audio_tpu_torch.tools.kernel_pair import SAMPLE_STAGES
 from tests.test_torch_downi8_dw_redesign import split_tf32
 
 torch.set_num_threads(2)
@@ -89,9 +91,15 @@ def emulate_residual_affine(x, s, affine=None, *, c, x_scales=None,
     """residual_affine_kernel's grid, block by block: block (bx, b, z) on
     sample b and channels 32·z …, walking units (storage groups) bx,
     bx + G, … of the sample. Arguments and results as the twin's; also
-    returns the units each block walked and the partials [B, G, 2, C]."""
+    returns the units each block walked and the partials [B, G, 2, C].
+    x and s both float is the float tail's order: the product fused into
+    the sum (one rounding, emulated in float64), and without quant_out the
+    statistics of the output as stored."""
     b_n, t_len, fc = x.shape
     f_len = fc // c
+    float_tail = x.dtype != torch.int8 and s.dtype != torch.int8
+    odt = out_dtype or (s.dtype if s.dtype != torch.int8 else
+                        x.dtype if x.dtype != torch.int8 else torch.bfloat16)
     plan = residual_affine_plan(t_len, f_len, c, KINDS[x.dtype],
                                 KINDS[s.dtype], b_n)
     g = grid or plan.grid
@@ -128,12 +136,18 @@ def emulate_residual_affine(x, s, affine=None, *, c, x_scales=None,
                         a = a * xs[b, gt, gf, chs]
                     if ss is not None:
                         d = d * ss[b, gt, gf, chs]
-                    o = (a + d * sc[b, chs]) + sh[b, chs]
+                    if float_tail:  # __fmaf_rn(d, scale, a)
+                        o = (a.astype(np.float64) + d.astype(np.float64)
+                             * sc[b, chs]).astype(np.float32) + sh[b, chs]
+                    else:
+                        o = (a + d * sc[b, chs]) + sh[b, chs]
                     assert o.dtype == np.float32
                     out[b, ts, fs, chs] = o
-                    parts[b, bx, 0, chs] += o.sum(axis=(0, 1), dtype=np.float64)
-                    parts[b, bx, 1, chs] += (o.astype(np.float64) ** 2).sum(
-                        axis=(0, 1))
+                    w = o.astype(np.float64)
+                    if float_tail and not quant_out:  # as stored
+                        w = torch.from_numpy(o).to(odt).double().numpy()
+                    parts[b, bx, 0, chs] += w.sum(axis=(0, 1))
+                    parts[b, bx, 1, chs] += (w ** 2).sum(axis=(0, 1))
                     if quant_out:
                         amax = np.maximum(np.abs(o).max(axis=(0, 1)),
                                           np.float32(1e-30))
@@ -144,9 +158,6 @@ def emulate_residual_affine(x, s, affine=None, *, c, x_scales=None,
         res = (torch.from_numpy(q.reshape(b_n, t_len, fc)),
                torch.from_numpy(scales))
     else:
-        odt = out_dtype or (s.dtype if s.dtype != torch.int8 else
-                            x.dtype if x.dtype != torch.int8
-                            else torch.bfloat16)
         res = (torch.from_numpy(out).to(odt).reshape(b_n, t_len, fc),)
     if want_stats:
         tot = torch.from_numpy(parts).sum(dim=1)
@@ -154,12 +165,17 @@ def emulate_residual_affine(x, s, affine=None, *, c, x_scales=None,
     return res, walked, parts
 
 
-def _resaff_operands(b, t, f, c, xk, seed):
+def _resaff_operands(b, t, f, c, xk, seed, sk="int8"):
+    """x (int8 with its scales, or of dtype xk), s (int8 with its scales,
+    or of dtype sk), a per-sample affine."""
     rng = np.random.default_rng(seed)
     x32 = torch.from_numpy(rng.standard_normal((b, t, f, c), np.float32))
     s32 = torch.from_numpy(rng.standard_normal((b, t, f, c), np.float32)
                            * 3.0)
-    s8, ssc = quantize_store(s32)
+    if sk == "int8":
+        s8, ssc = quantize_store(s32)
+    else:
+        s8, ssc = s32.to(sk).reshape(b, t, f * c), None
     aff = (torch.from_numpy(1 + 0.1 * rng.standard_normal((b, c),
                                                           np.float32)),
            torch.from_numpy(0.1 * rng.standard_normal((b, c), np.float32)))
@@ -170,19 +186,24 @@ def _resaff_operands(b, t, f, c, xk, seed):
     return xin, xsc, s8, ssc, aff
 
 
-@pytest.mark.parametrize("b,t,f,c,xk,qo,stats,grid", [
-    (1, 41, 40, 32, "int8", True, True, None),    # ragged T and F
-    (2, 17, 24, 64, "int8", True, True, 2),       # blocks walk 3 groups
-    (3, 9, 17, 32, "int8", True, False, 1),       # one block a sample
-    (1, 33, 16, 96, "int8", False, True, 3),      # out bf16
-    (2, 24, 40, 128, torch.bfloat16, True, True, 4),   # a stage entry
-    (1, 15, 31, 64, torch.bfloat16, False, False, None),
-    (2, 16, 8, 32, torch.float32, True, True, 1),
-    (1, 7, 12, 128, torch.float32, False, True, 1),    # out fp32
+@pytest.mark.parametrize("b,t,f,c,xk,qo,stats,grid,sk", [
+    (1, 41, 40, 32, "int8", True, True, None, "int8"),   # ragged T and F
+    (2, 17, 24, 64, "int8", True, True, 2, "int8"),      # blocks walk 3
+    (3, 9, 17, 32, "int8", True, False, 1, "int8"),      # one block a sample
+    (1, 33, 16, 96, "int8", False, True, 3, "int8"),     # out bf16
+    (2, 24, 40, 128, torch.bfloat16, True, True, 4, "int8"),  # stage entry
+    (1, 15, 31, 64, torch.bfloat16, False, False, None, "int8"),
+    (2, 16, 8, 32, torch.float32, True, True, 1, "int8"),
+    (1, 7, 12, 128, torch.float32, False, True, 1, "int8"),   # out fp32
+    # the float tail at s4's and s5's widths and s5's F = 8: statistics of
+    # the bf16 / fp32 output as stored
+    (2, 19, 8, 192, torch.bfloat16, False, True, 2, torch.bfloat16),
+    (3, 32, 8, 256, torch.bfloat16, False, True, None, torch.bfloat16),
+    (2, 17, 8, 256, torch.float32, False, True, 1, torch.float32),
 ])
 def test_residual_affine_walk_bit_equal_to_plain(b, t, f, c, xk, qo, stats,
-                                                 grid):
-    xin, xsc, s8, ssc, aff = _resaff_operands(b, t, f, c, xk, t * f + c)
+                                                 grid, sk):
+    xin, xsc, s8, ssc, aff = _resaff_operands(b, t, f, c, xk, t * f + c, sk)
     for affine in (aff, None):
         kw = dict(c=c, x_scales=xsc, s_scales=ssc, quant_out=qo,
                   want_stats=stats)
@@ -201,7 +222,8 @@ def test_residual_affine_walk_bit_equal_to_plain(b, t, f, c, xk, qo, stats,
                 <= 1e-5
         # the walk: each storage group once, by a block of its sample and
         # channel group; the grid of the plan unless the case caps it
-        plan = residual_affine_plan(t, f, c, KINDS[xin.dtype], 2, b)
+        plan = residual_affine_plan(t, f, c, KINDS[xin.dtype],
+                                    KINDS[s8.dtype], b)
         g = grid or plan.grid
         assert parts.shape == (b, g, 2, c)
         units = _cdiv(t, GT) * _cdiv(f, GF)
@@ -215,6 +237,76 @@ def test_residual_affine_walk_bit_equal_to_plain(b, t, f, c, xk, qo, stats,
         cpu = residual_affine_flat(xin, s8, affine, **kw)
         cpu = cpu if isinstance(cpu, tuple) else (cpu,)
         assert all(torch.equal(a, r) for a, r in zip(cpu, ref))
+
+
+def _three_pass_tail(x, s, scale3, shift3, c):
+    """The float tail as three torch passes: addcmul (promoted to fp32,
+    the product fused into the sum), add in place, the cast back."""
+    b, t, fc = x.shape
+    out = torch.addcmul(x.view(b, t, fc // c, c), s.view(b, t, fc // c, c),
+                        scale3[:, None, None, :])
+    out.add_(shift3[:, None, None, :])
+    return out.to(x.dtype).view(b, t, fc)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_float_tail_plain_is_the_three_pass_route(dtype):
+    """The twin's float route: the three passes' bits, and the statistics
+    ``channel_sums`` takes of their stored output, bit for bit."""
+    b, t, f, c = 2, 24, 8, 64
+    xin, _, s, _, (scale3, shift3) = _resaff_operands(b, t, f, c, dtype, 5,
+                                                      dtype)
+    want = _three_pass_tail(xin, s, scale3, shift3, c)
+    got, s1, s2 = residual_affine_flat_plain(
+        xin, s, (scale3, shift3), c=c, want_stats=True, out_dtype=dtype)
+    w1, w2 = channel_sums(want, c)
+    assert got.dtype == dtype and torch.equal(got, want)
+    assert torch.equal(s1, w1) and torch.equal(s2, w2)
+    if dtype == torch.float32:  # the product is fused: unfused differs
+        split = ((xin.view(b, t, f, c) + s.view(b, t, f, c)
+                  * scale3[:, None, None, :]) + shift3[:, None, None, :])
+        assert not torch.equal(split.view(b, t, f * c), got)
+
+
+@pytest.mark.parametrize("c", [64, 48])
+def test_resblock_tail_is_one_residual_affine_call(monkeypatch, c):
+    """resblock_tail is one residual_affine_flat call at every width; on a
+    CPU tensor that is the twin's three passes, bit for bit, with the
+    statistics ``channel_sums`` takes of the stored output."""
+    import ddim_audio_tpu_torch.ops.flat_resblock as fr
+
+    calls = []
+
+    def spy(*a, **kw):
+        calls.append(kw["c"])
+        return residual_affine_flat(*a, **kw)
+    monkeypatch.setattr(fr, "residual_affine_flat", spy)
+    b, t, f = 2, 16, 8
+    xin, _, s, _, (scale3, shift3) = _resaff_operands(
+        b, t, f, c, torch.bfloat16, 7, torch.bfloat16)
+    out, s1, s2 = fr.resblock_tail(xin, s, scale3, shift3, f=f, c=c,
+                                   want_stats=True)
+    assert calls == [c]
+    assert torch.equal(out, _three_pass_tail(xin, s, scale3, shift3, c))
+    w1, w2 = fr.channel_sums(out, c)
+    assert torch.equal(s1, w1) and torch.equal(s2, w2)
+    assert torch.equal(fr.resblock_tail(xin, s, scale3, shift3, f=f, c=c),
+                       out)
+
+
+@pytest.mark.parametrize("c,error", [(64, "unsupported device"),
+                                     (48, "C % 32 == 0")])
+def test_resblock_tail_off_the_cpu_takes_the_kernel_or_raises(c, error):
+    """Off the CPU the tail has no torch route: a width the kernel takes
+    (C % 32 == 0) reaches its device check, any other width is refused by
+    the shape rule (tensors on the meta device stand in for the card's)."""
+    from ddim_audio_tpu_torch.ops.flat_resblock import resblock_tail
+
+    b, t, f = 2, 16, 8
+    x = torch.empty(b, t, f * c, dtype=torch.bfloat16, device="meta")
+    scale3 = torch.empty(b, c, device="meta")
+    with pytest.raises(ValueError, match=error):
+        resblock_tail(x, x, scale3, scale3, f=f, c=c, want_stats=True)
 
 
 def test_residual_affine_int8_widening_and_rounding_are_exact():
@@ -458,6 +550,41 @@ def test_residual_affine_kernel_bit_equal_to_twin_on_gpu(cuda, b, t, f, c):
             n = 2 if qo else 1
             assert all(torch.equal(a, r) for a, r in zip(got[:n], ref[:n]))
             assert max(_rel(a, r) for a, r in zip(got[n:], ref[n:])) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("t,f,c", SAMPLE_STAGES + [(41, 40, 64),
+                                                   (9, 17, 192)])
+def test_float_tail_kernel_bit_equal_to_three_pass_route_on_gpu(cuda, t, f,
+                                                                c, dtype):
+    """The float resblock tail at B = 8 through the kernel: the bits of
+    torch's three passes on the card, statistics within 1e-5 of
+    ``channel_sums`` of that output, each sample's statistics and output
+    the same bits at B = 1, twice the same bits."""
+    from ddim_audio_tpu_torch.ops.flat_resblock import resblock_tail
+
+    b = 8
+    g = torch.Generator(device=cuda).manual_seed(t + c)
+    x = torch.randn(b, t, f * c, generator=g, device=cuda).to(dtype)
+    s = (3 * torch.randn(b, t, f * c, generator=g, device=cuda)).to(dtype)
+    scale3 = 1 + 0.1 * torch.randn(b, c, generator=g, device=cuda)
+    shift3 = 0.1 * torch.randn(b, c, generator=g, device=cuda)
+    before = residual_affine_flat.launches
+    got = resblock_tail(x, s, scale3, shift3, f=f, c=c, want_stats=True)
+    assert residual_affine_flat.launches == before + 1
+    again = resblock_tail(x, s, scale3, shift3, f=f, c=c, want_stats=True)
+    assert all(torch.equal(a, r) for a, r in zip(got, again))
+    want = _three_pass_tail(x, s, scale3, shift3, c)
+    assert got[0].dtype == dtype and torch.equal(got[0], want)
+    del again
+    assert max(_rel(a, r) for a, r in zip(got[1:],
+                                          channel_sums(want, c))) <= 1e-5
+    del want
+    for j in (0, b - 1):
+        one = resblock_tail(x[j:j + 1], s[j:j + 1], scale3[j:j + 1],
+                            shift3[j:j + 1], f=f, c=c, want_stats=True)
+        assert all(torch.equal(a, r[j:j + 1]) for a, r in zip(one, got))
 
 
 @pytest.mark.gpu
